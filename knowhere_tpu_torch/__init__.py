@@ -1,0 +1,41 @@
+"""knowhere_tpu_torch — the PyTorch/CUDA port of knowhere_tpu for one NVIDIA
+H100.
+
+The same public API as the JAX package (factory / Index / DataSet /
+BitsetView / BinarySet, Status codes, the KWTPU section format), with the
+TPU's Pallas kernels replaced by CUDA kernels written for Hopper
+(``csrc/``). This slice serves FLAT and IVF_FLAT:
+
+    import knowhere_tpu_torch as kt
+    kt.set_device("cuda")          # the default; "cpu" runs the plain versions
+    idx = kt.IndexFactory.Instance().Create("IVF_FLAT").value()
+    idx.Build(kt.GenDataSetFromArray(xb), {"metric_type": "L2", "nlist": 1024})
+    res = idx.Search(kt.GenDataSetFromArray(xq), {"k": 10, "nprobe": 12})
+
+The package imports torch and numpy, never JAX.
+"""
+
+from .binaryset import Binary, BinarySet  # noqa: F401
+from .bitset import BitsetView  # noqa: F401
+from .comp import OpContext  # noqa: F401
+from .config import BaseConfig, Config, Entry, Stage, load_config  # noqa: F401
+from .dataset import (  # noqa: F401
+    DataSet,
+    GenDataSet,
+    GenDataSetFromArray,
+    GenIdsDataSet,
+    GenResultDataSet,
+)
+from .device import get_device, set_device  # noqa: F401
+from .factory import IndexFactory, IndexStaticFaced, register_index  # noqa: F401
+from .feature import KnowhereCheck, Version, feature  # noqa: F401
+from .index import Index, Interrupt  # noqa: F401
+from .index_node import IndexNode  # noqa: F401
+from .index_param import IndexEnum, indexparam, meta, metric  # noqa: F401
+from .knowhere_config import KnowhereConfig  # noqa: F401
+from .status import KnowhereException, Status, StatusCategory, expected, status_category_of  # noqa: F401
+
+# Importing models registers the index families with the factory.
+from . import models  # noqa: F401  isort: skip
+
+__version__ = "0.1.0"

@@ -1,0 +1,184 @@
+"""FLAT — exact scan index (counterpart of knowhere_tpu/models/flat.py,
+dense FLAT only).
+
+The stored base lives on the device once. Unfiltered L2/IP/COSINE searches
+over nb >= 16384 rows with k <= 1024 take the two-phase exact scan
+(ops/cuda_flat.py, CUDA group-scan kernel) on any device; filtered and small
+searches take the streaming tiled scan (ops/topk.py).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+
+from ..binaryset import BinarySet
+from ..bitset import BitsetView
+from ..config import BaseConfig, Config
+from ..dataset import DataSet, GenResultDataSet, GenTensorDataSet
+from ..device import to_device
+from ..factory import register_index
+from ..feature import feature
+from ..index_param import BINARY_METRICS, IndexEnum, normalize_metric
+from ..index_node import IndexNode
+from ..io.serialize import read_sections, write_sections
+from ..ops import distances as D
+from ..ops import topk as T
+from ..status import KnowhereException, Status, expected
+
+# the two-phase scan serves corpora at least this large (as the reference)
+TWO_PHASE_MIN_ROWS = 16384
+TWO_PHASE_MAX_K = 1024
+
+
+class FlatConfig(BaseConfig):
+    """reference src/index/flat/flat_config.h:19 — BaseConfig only."""
+
+
+class FlatIndexNode(IndexNode):
+    def __init__(self, version: int, object=None):  # noqa: A002
+        super().__init__(version, object)
+        self.index_type = IndexEnum.INDEX_FAISS_IDMAP
+        self.data_type = "fp32"
+        self._xb: Optional[np.ndarray] = None  # stored rows (host)
+        self._dim = 0
+        self._metric = "L2"
+        self._dev = None  # device copy of the rows
+        self._scan_stores = {}  # metric -> cuda_flat.FlatScanStore
+
+    def _ensure_device(self):
+        if self._dev is None:
+            if self._xb is None:
+                raise KnowhereException("index is empty", Status.empty_index)
+            self._dev = to_device(self._xb)
+        return self._dev
+
+    def _check_metric(self, metric: str) -> None:
+        if metric in BINARY_METRICS:
+            raise KnowhereException(
+                f"metric {metric} incompatible with data type {self.data_type}",
+                Status.invalid_metric_type,
+            )
+
+    # --- lifecycle -----------------------------------------------------------
+    def Train(self, dataset: DataSet, cfg: Config) -> Status:
+        self._metric = normalize_metric(cfg.metric_type)
+        self._check_metric(self._metric)
+        return Status.success
+
+    def Add(self, dataset: DataSet, cfg: Config) -> Status:
+        xb = np.asarray(dataset.tensor)
+        self._dim = dataset.dim
+        self._xb = xb if self._xb is None else np.concatenate([self._xb, xb], axis=0)
+        self._dev = None
+        self._scan_stores = {}
+        return Status.success
+
+    def load_state(self, arrays: dict, meta: dict) -> None:
+        """Install the state a FLAT node serializes: arrays {"xb"}, meta
+        {dim, metric, data_type}."""
+        self._xb = np.asarray(arrays["xb"])
+        self._dim = int(meta["dim"])
+        self._metric = meta["metric"]
+        self.data_type = meta.get("data_type", self.data_type)
+        self._dev = None
+        self._scan_stores = {}
+
+    # --- queries -----------------------------------------------------------
+    def Search(self, dataset: DataSet, cfg: Config, bitset: BitsetView) -> "expected[DataSet]":
+        metric = normalize_metric(cfg.metric_type)
+        self._check_metric(metric)
+        dev = self._ensure_device()
+        xq = np.asarray(dataset.tensor, dtype=np.float32)
+        if (
+            bitset.empty_view()
+            and metric in ("L2", "IP", "COSINE")
+            and self.Count() >= TWO_PHASE_MIN_ROWS
+            and cfg.k <= TWO_PHASE_MAX_K
+        ):
+            dists, ids = self._two_phase_search(xq, cfg.k, metric)
+            return expected.Ok(GenResultDataSet(dataset.rows, cfg.k, ids, dists))
+        mask = bitset.device_mask(self.Count()) if not bitset.empty_view() else None
+        ids, dists = T.knn_search(
+            xq, dev, cfg.k, metric, bitset_mask=mask, aux=D.base_aux(metric, dev)
+        )
+        return expected.Ok(GenResultDataSet(dataset.rows, cfg.k, ids, dists))
+
+    def _two_phase_search(self, xq: np.ndarray, k: int, metric: str):
+        """Two-phase exact scan; COSINE runs as IP over normalized copies."""
+        from ..ops.cuda_flat import FlatScanStore, flat_topk
+
+        store = self._scan_stores.get(metric)
+        if store is None:
+            dev = self._ensure_device().float()
+            if metric == "COSINE":
+                nrm = dev.norm(dim=1, keepdim=True)
+                store = FlatScanStore(dev / nrm.clamp(min=1e-12), None, False)
+            else:
+                store = FlatScanStore(dev, None, metric == "L2")
+            self._scan_stores[metric] = store
+        if metric == "COSINE":
+            qn = np.linalg.norm(xq, axis=1, keepdims=True)
+            xq = xq / np.maximum(qn, 1e-12)
+        return flat_topk(xq, store, k)
+
+    def GetVectorByIds(self, dataset: DataSet) -> "expected[DataSet]":
+        if self._xb is None:
+            return expected.Err(Status.empty_index, "index not built")
+        ids = np.asarray(dataset.ids, dtype=np.int64)
+        if ids.min(initial=0) < 0 or ids.max(initial=-1) >= self.Count():
+            return expected.Err(Status.invalid_args, "id out of range")
+        return expected.Ok(GenTensorDataSet(self._xb[ids], len(ids), self._dim))
+
+    @staticmethod
+    def HasRawData(metric_type: str) -> bool:
+        return True
+
+    # --- serialization ---------------------------------------------------------
+    def Serialize(self, binset: BinarySet) -> Status:
+        if self._xb is None:
+            return Status.empty_index
+        blob = write_sections(
+            {"xb": self._xb},
+            meta={
+                "dim": self._dim,
+                "metric": self._metric,
+                "data_type": self.data_type,
+                "index_type": self.Type(),
+            },
+        )
+        binset.Append(self.Type(), blob)
+        return Status.success
+
+    def Deserialize(self, binset: BinarySet, cfg: Config) -> Status:
+        binary = binset.GetByName(self.Type())
+        if binary is None:
+            return Status.invalid_binary_set
+        arrays, meta = read_sections(binary.data)
+        self.load_state(arrays, meta)
+        return Status.success
+
+    # --- introspection -----------------------------------------------------------
+    def Dim(self) -> int:
+        return self._dim
+
+    def Size(self) -> int:
+        return 0 if self._xb is None else self._xb.nbytes
+
+    def Count(self) -> int:
+        return 0 if self._xb is None else self._xb.shape[0]
+
+    def Type(self) -> str:
+        return self.index_type
+
+    @staticmethod
+    def CreateConfig() -> Config:
+        return FlatConfig()
+
+
+register_index(
+    IndexEnum.INDEX_FAISS_IDMAP,
+    ("fp32", "fp16", "bf16", "int8"),
+    feature.ALL_DENSE_TYPE | feature.MMAP | feature.KNN | feature.NO_TRAIN,
+)(FlatIndexNode)

@@ -1,0 +1,169 @@
+"""Two-phase exact brute-force kNN (counterpart of
+knowhere_tpu/ops/pallas_flat.py).
+
+Phase 1 (``flat_group_scan``, CUDA kernel csrc/flat_scan.cu): scores
+``a*<x,q> - |x|^2`` (a=2 L2, 1 IP) over the corpus, the max of each GROUP=16
+consecutive rows, and the top-k groups by that maximum per query.
+
+Phase 2 (torch): gather the k winning groups per query (16 contiguous rows
+each), rescore them exactly in f32 and take the final top-k of the k*16
+candidates.
+
+Exactness: every true top-k row lies in a group whose max is >= the k-th
+best score, and at most k groups hold such rows, so the top-k groups by
+group max cover the true top-k (ties at the k-th value carry the same
+latitude as the reference's heap).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from ..device import to_device
+from . import cuda_build
+from .topk import topk_leftmost
+
+NEG_INF = -1e38
+TILE = 2048  # corpus padding unit (kept from the reference layout)
+GROUP = 16
+NQ_BLOCK = 1024  # queries per phase-1 call; bounds the (NQ_BLOCK, nb/16) group maxima
+_Q_TILE = 64  # the kernel's query tile: query blocks are padded to it
+_PLAIN_ROWS = 65536  # corpus rows per chunk of the plain phase 1
+
+
+def hi_lo(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """bf16 hi part and bf16 lo residual of x, both returned as f32."""
+    hi = x.to(torch.bfloat16).float()
+    lo = (x - hi).to(torch.bfloat16).float()
+    return hi, lo
+
+
+def flat_group_scan_plain(base, nrm, q, k: int, a_coef: float):
+    """Plain PyTorch phase 1 with the reference's arithmetic: the 3-pass
+    hi/lo bf16 product (bf16 values, f32 products and sums), group max, top-k
+    groups with the lower group id winning ties, -1 ids for empty slots.
+    Returns (values (nq,k) f32, group ids (nq,k) int32)."""
+    qh, ql = hi_lo(q.float())
+    gmax = []
+    for r0 in range(0, base.shape[0], _PLAIN_ROWS):
+        bh, bl = hi_lo(base[r0 : r0 + _PLAIN_ROWS].float())
+        dots = qh @ bh.T + ql @ bh.T + qh @ bl.T
+        s = a_coef * dots - nrm[r0 : r0 + _PLAIN_ROWS][None, :]
+        gmax.append(s.reshape(s.shape[0], -1, GROUP).amax(-1))
+    vals, gids = topk_leftmost(torch.cat(gmax, dim=1), k)
+    gids = torch.where(vals <= NEG_INF / 2, torch.full_like(gids, -1), gids)
+    return vals, gids.int()
+
+
+def flat_group_scan(base: torch.Tensor, nrm: torch.Tensor, q: torch.Tensor, k: int, a_coef: float):
+    """Phase 1: top-k 16-row groups per query. base (nb_pad, d_pad) f32 with
+    nb_pad % 64 == 0, nrm (nb_pad,) f32 (pad rows 1e38), q (nq, d_pad) f32.
+    Returns (values (nq,k) f32, group ids (nq,k) int32, -1 for empty slots)."""
+    if not q.is_cuda:
+        return flat_group_scan_plain(base, nrm, q, k, a_coef)
+    nb_pad, d = base.shape
+    nq = q.shape[0]
+    n_groups = nb_pad // GROUP
+    if nb_pad % _Q_TILE or d % 32 or not 1 <= k <= min(1024, n_groups) or q.shape[1] != d:
+        raise ValueError(f"flat_group_scan: bad shape nb_pad={nb_pad} d={d} k={k}")
+    if base.dtype != torch.float32 or nrm.dtype != torch.float32 or nrm.shape != (nb_pad,):
+        raise TypeError("flat_group_scan takes f32 base (nb_pad, d) and f32 norms (nb_pad,)")
+    if base.device != q.device or nrm.device != q.device or not base.is_contiguous():
+        raise ValueError("flat_group_scan: base and norms must be contiguous on the query's device")
+    nq_pad = -(-nq // _Q_TILE) * _Q_TILE
+    qp = q.float()
+    if nq_pad != nq:
+        qp = torch.cat([qp, qp.new_zeros((nq_pad - nq, d))])
+    qp = qp.contiguous()
+    gmax = torch.empty((nq_pad, n_groups), dtype=torch.float32, device=q.device)
+    out_v = torch.empty((nq, k), dtype=torch.float32, device=q.device)
+    out_g = torch.empty((nq, k), dtype=torch.int32, device=q.device)
+    lib, p, stream = cuda_build.lib(), cuda_build.ptr, cuda_build.stream_of(q)
+    cuda_build.check(
+        lib.kw_flat_group_max(p(base), p(nrm), p(qp), p(gmax), nb_pad, nq_pad, d, a_coef, stream),
+        "flat_group_scan (group max)",
+    )
+    cuda_build.check(
+        lib.kw_flat_select(p(gmax), n_groups, nq, k, p(out_v), p(out_g), stream),
+        "flat_group_scan (select)",
+    )
+    flat_group_scan.launches += 1
+    return out_v, out_g
+
+
+flat_group_scan.launches = 0
+
+
+def _phase2(q, base_g, nrm_g, gids, k_out: int, a_coef: float):
+    """Exact rescore of the winning groups: (scores, ids) (nq, k_out)."""
+    nq, k_sel = gids.shape
+    safe = gids.clamp(min=0).long()
+    cand = base_g[safe]  # (nq, k_sel, GROUP, d): contiguous 16-row slices
+    cn = nrm_g[safe]
+    dots = torch.einsum("qd,qkgd->qkg", q, cand)
+    s = a_coef * dots - cn
+    s = torch.where(gids[:, :, None] >= 0, s, torch.full_like(s, NEG_INF))
+    ids = safe[:, :, None] * GROUP + torch.arange(GROUP, device=q.device)[None, None, :]
+    top_s, sel = topk_leftmost(s.reshape(nq, k_sel * GROUP), min(k_out, k_sel * GROUP))
+    top_i = torch.gather(ids.reshape(nq, k_sel * GROUP), 1, sel)
+    top_i = torch.where(top_s <= NEG_INF / 2, torch.full_like(top_i, -1), top_i)
+    return top_s, top_i
+
+
+class FlatScanStore:
+    """Device-resident corpus prepared for the two-phase scan: the f32 copy
+    padded to TILE rows and 128 features (pad rows carry norm 1e38), its
+    grouped view for phase 2, and the padded norms."""
+
+    def __init__(self, base: torch.Tensor, norms, is_l2: bool):
+        nb, d = base.shape
+        self.nb, self.d = nb, d
+        self.is_l2 = is_l2
+        self.a_coef = 2.0 if is_l2 else 1.0
+        self.d_pad = (d + 127) // 128 * 128
+        self.nb_pad = (nb + TILE - 1) // TILE * TILE
+        b = base.float()
+        if norms is None:
+            norms = (b * b).sum(1) if is_l2 else torch.zeros(nb, device=b.device)
+        self.base = torch.nn.functional.pad(b, (0, self.d_pad - d, 0, self.nb_pad - nb)).contiguous()
+        self.nrm = torch.nn.functional.pad(norms.float(), (0, self.nb_pad - nb), value=1e38).contiguous()
+        self.base_g = self.base[:, :d].reshape(self.nb_pad // GROUP, GROUP, d)
+        self.nrm_g = self.nrm.reshape(self.nb_pad // GROUP, GROUP)
+
+
+def flat_topk(q: np.ndarray, store: FlatScanStore, k: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Exact top-k over the store: (dists native convention, ids int64)."""
+    q = np.asarray(q, dtype=np.float32)
+    nq, d = q.shape
+    assert d == store.d
+    kg = min(k, store.nb_pad // GROUP)
+    q_dev = to_device(q)
+    qp_dev = torch.nn.functional.pad(q_dev, (0, store.d_pad - d))
+    # phase 2 gathers (block, kg, GROUP, d) f32 rows: keep that near 1 GiB
+    block = min(NQ_BLOCK, max(_Q_TILE, (1 << 30) // (kg * GROUP * d * 4)))
+    s_parts, i_parts = [], []
+    for s0 in range(0, nq, block):
+        _, gids = flat_group_scan(store.base, store.nrm, qp_dev[s0 : s0 + block], kg, store.a_coef)
+        s, i = _phase2(
+            q_dev[s0 : s0 + block], store.base_g, store.nrm_g, gids,
+            min(k, kg * GROUP), store.a_coef,
+        )
+        s_parts.append(s)
+        i_parts.append(i)
+    s_all = torch.cat(s_parts).cpu().numpy()
+    i_all = torch.cat(i_parts).cpu().numpy().astype(np.int64)
+    i_all = np.where(i_all >= store.nb, -1, i_all)
+    k_got = i_all.shape[1]
+    if k_got < k:
+        s_all = np.pad(s_all, ((0, 0), (0, k - k_got)), constant_values=NEG_INF)
+        i_all = np.pad(i_all, ((0, 0), (0, k - k_got)), constant_values=-1)
+    if store.is_l2:
+        qsq = np.sum(q.astype(np.float64) ** 2, axis=1).astype(np.float32)
+        dists = qsq[:, None] - s_all
+    else:
+        dists = s_all
+    dists = np.where(i_all >= 0, dists, np.float32(np.inf if store.is_l2 else -np.inf))
+    return dists, i_all

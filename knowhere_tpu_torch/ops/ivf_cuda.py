@@ -1,0 +1,228 @@
+"""IVF task-scan kernels (counterpart of knowhere_tpu/ops/ivf_pallas.py).
+
+A task is one aligned LIST_ALIGN-row list block scanned by one group of Qg
+queries (ops/ivf_scan.py builds them). Two scans serve IVF_FLAT:
+
+- ``int8_scan_tasks``: int8 queries . int8 codes -> int32, score
+  ``2*sz*dot - nrm`` (L2) or ``sz*dot`` (IP); the FAST serving scan, whose
+  candidate pool is re-ranked exactly afterwards. Replaces ``_int8_kernel``.
+- ``f32_scan_tasks``: f32 queries . f32 rows, single-pass bf16 or full f32,
+  in-scan norms, score ``2*dot - |x|^2`` or ``dot``. Replaces ``_scan_kernel``.
+
+Each returns the per-task top-kk as (scores (Tc,Qg,kk), positions (Tc,Qg,kk)
+into the padded storage), with the reference's result contract: larger is
+better, empty slots hold -1e38 with position -1, ties go to the leftmost
+column. Each wrapper launches its CUDA kernel (csrc/ivf_scan.cu) for CUDA
+tensors and counts the launch in ``<wrapper>.launches``; for CPU tensors it
+runs the plain PyTorch version beside it. The plain versions are what the CPU
+tests hold against the JAX kernels and what the chip check holds the kernels
+against.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from . import cuda_build
+
+NEG_INF = -1e38
+
+# lists are padded to multiples of this many rows when built large enough
+# (models/ivf.py); the kernels take one such block per task
+LIST_ALIGN = 512
+
+# tasks per plain-version chunk: bounds the gathered (chunk, B, d) rows
+_PLAIN_CHUNK = 512
+
+
+def task_kk(k: int, B: int) -> int:
+    """Per-task top-k width, capped at 32 as in the reference: it decides the
+    candidate pool, so it is kept for parity."""
+    return min(k, 32)
+
+
+def topk_rows(scores: torch.Tensor, payload: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(..., C) scores + int payload -> (..., k) best values + payloads, the
+    leftmost column winning ties (the reference's ``_topk_rows``)."""
+    vals, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
+    return vals[..., :k], torch.gather(payload, -1, idx[..., :k])
+
+
+def _check_task_args(blk, nrows, q_task, rows, keep, d) -> None:
+    """Shapes, types and devices a task-scan kernel reads through raw
+    pointers (block indices themselves are the task builder's invariant:
+    blk < rows // LIST_ALIGN)."""
+    Tc = q_task.shape[0]
+    tensors = [blk, nrows, rows] + ([keep] if keep is not None else [])
+    if any(t.device != q_task.device for t in tensors):
+        raise ValueError("task-scan inputs must share one CUDA device")
+    if blk.shape != (Tc,) or nrows.shape != (Tc,):
+        raise ValueError("blk and nrows must be (Tc,)")
+    if rows.dim() != 2 or rows.shape[1] != d or rows.shape[0] % LIST_ALIGN:
+        raise ValueError(f"rows must be (n * {LIST_ALIGN}, {d})")
+    if keep is not None and (keep.dtype != torch.bool or keep.numel() < rows.shape[0]):
+        raise ValueError("keep must be a bool mask covering every stored row")
+
+
+def _block_rows(blk: torch.Tensor, B: int) -> torch.Tensor:
+    return blk.long()[:, None] * B + torch.arange(B, device=blk.device)[None, :]
+
+
+def _finish(score, blk, nrows, keep, B, kk):
+    """Masks, top-kk and the empty-slot rule shared by both plain scans."""
+    col = torch.arange(B, device=score.device)
+    valid = (col[None, :] < nrows[:, None].long())[:, None, :]
+    if keep is not None:
+        valid = valid & keep[_block_rows(blk, B)].bool()[:, None, :]
+    score = torch.where(valid, score, torch.full_like(score, NEG_INF))
+    gpos = (col[None, :] + blk.long()[:, None] * B).int()[:, None, :].expand_as(score)
+    s, p = topk_rows(score, gpos, kk)
+    return s, torch.where(s <= NEG_INF / 2, torch.full_like(p, -1), p)
+
+
+# ---------------------------------------------------------------------------
+# int8 scan
+# ---------------------------------------------------------------------------
+
+
+def int8_scan_plain(blk, nrows, q_task, q_scale, codes, nrm, keep=None, *, B, kk, is_l2):
+    """Plain PyTorch version of the int8 scan. The int8 dot runs as an f32
+    matmul, which is exact here: every product is at most 127*128 and the sums
+    stay below 2**24 for d <= 1040."""
+    out_s, out_p = [], []
+    sz = q_scale.reshape(q_scale.shape[0], q_scale.shape[1], 1).float()
+    for c0 in range(0, blk.shape[0], _PLAIN_CHUNK):
+        sl = slice(c0, c0 + _PLAIN_CHUNK)
+        b = blk[sl]
+        rows = _block_rows(b, B)
+        ci = codes[rows]
+        if ci.dtype == torch.uint8:  # SQ8 codes: c - 128 as an i8 bit pattern
+            ci = (ci ^ 0x80).view(torch.int8)
+        dots = torch.bmm(q_task[sl].float(), ci.float().transpose(1, 2))
+        if is_l2:
+            score = (2.0 * sz[sl]) * dots - nrm[rows].float()[:, None, :]
+        else:
+            score = sz[sl] * dots
+        s, p = _finish(score, b, nrows[sl], keep, B, kk)
+        out_s.append(s)
+        out_p.append(p)
+    return torch.cat(out_s), torch.cat(out_p)
+
+
+def int8_scan_tasks(
+    blk: torch.Tensor,  # (Tc,) int32 block index of each task
+    nrows: torch.Tensor,  # (Tc,) int32 valid rows in the block
+    q_task: torch.Tensor,  # (Tc, Qg, d) int8 pre-quantized query groups
+    q_scale: torch.Tensor,  # (Tc, Qg, 1) f32 per-query scales
+    codes: torch.Tensor,  # (nb_pad + slack, d) int8 sidecar or uint8 SQ8 codes
+    nrm: torch.Tensor,  # (nb_pad,) f32 centred norms (zeros for IP)
+    keep: Optional[torch.Tensor] = None,  # (>= nb_pad,) bool keep-mask
+    *,
+    B: int,
+    kk: int,
+    is_l2: bool,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    if not q_task.is_cuda:
+        return int8_scan_plain(blk, nrows, q_task, q_scale, codes, nrm, keep, B=B, kk=kk, is_l2=is_l2)
+    Tc, Qg, d = q_task.shape
+    if B != LIST_ALIGN or d % 4 or not 1 <= kk <= 32:
+        raise ValueError(f"int8 scan takes B={LIST_ALIGN}, d%4==0, kk<=32 (got {B}, {d}, {kk})")
+    if codes.dtype not in (torch.int8, torch.uint8) or q_task.dtype != torch.int8:
+        raise TypeError("int8 scan takes int8 queries and int8/uint8 codes")
+    _check_task_args(blk, nrows, q_task, codes, keep, d)
+    if q_scale.numel() != Tc * Qg or nrm.dtype != torch.float32 or nrm.device != q_task.device:
+        raise ValueError("int8 scan: q_scale must be (Tc, Qg, 1) and nrm f32 on the same device")
+    blk, nrows = blk.int().contiguous(), nrows.int().contiguous()
+    q_task, codes = q_task.contiguous(), codes.contiguous()
+    q_scale = q_scale.float().contiguous()
+    nrm = nrm.float().contiguous()
+    keep_u8 = keep.contiguous().view(torch.uint8) if keep is not None else None
+    out_s = torch.empty((Tc, Qg, kk), dtype=torch.float32, device=q_task.device)
+    out_p = torch.empty((Tc, Qg, kk), dtype=torch.int32, device=q_task.device)
+    p = cuda_build.ptr
+    code = cuda_build.lib().kw_ivf_int8_scan(
+        p(blk), p(nrows), p(q_task), p(q_scale), p(codes), p(nrm), p(keep_u8),
+        p(out_s), p(out_p), Tc, Qg, d, kk, int(is_l2), int(codes.dtype == torch.uint8),
+        cuda_build.stream_of(q_task),
+    )
+    cuda_build.check(code, "ivf_int8_scan")
+    int8_scan_tasks.launches += 1
+    return out_s, out_p
+
+
+int8_scan_tasks.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# f32 scan
+# ---------------------------------------------------------------------------
+
+
+def _bf16_round(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).float()
+
+
+def f32_scan_plain(blk, nrows, q_task, data, keep=None, *, B, kk, is_l2, three_pass):
+    """Plain PyTorch version of the f32 scan. three_pass=False rounds q and x
+    to bf16 and multiplies in f32 (the TPU's single bf16 pass);
+    three_pass=True is a full f32 product, as the kernel computes."""
+    out_s, out_p = [], []
+    for c0 in range(0, blk.shape[0], _PLAIN_CHUNK):
+        sl = slice(c0, c0 + _PLAIN_CHUNK)
+        b = blk[sl]
+        rows = data[_block_rows(b, B)].float()
+        q = q_task[sl].float()
+        if three_pass:
+            dots = torch.bmm(q, rows.transpose(1, 2))
+        else:
+            dots = torch.bmm(_bf16_round(q), _bf16_round(rows).transpose(1, 2))
+        if is_l2:
+            score = 2.0 * dots - (rows * rows).sum(-1)[:, None, :]
+        else:
+            score = dots
+        s, p = _finish(score, b, nrows[sl], keep, B, kk)
+        out_s.append(s)
+        out_p.append(p)
+    return torch.cat(out_s), torch.cat(out_p)
+
+
+def f32_scan_tasks(
+    blk: torch.Tensor,  # (Tc,) int32
+    nrows: torch.Tensor,  # (Tc,) int32
+    q_task: torch.Tensor,  # (Tc, Qg, d) f32 pre-gathered query groups
+    data: torch.Tensor,  # (nb_pad + slack, d) f32 sorted rows
+    keep: Optional[torch.Tensor] = None,  # (>= nb_pad,) bool keep-mask
+    *,
+    B: int,
+    kk: int,
+    is_l2: bool,
+    three_pass: bool,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    if not q_task.is_cuda:
+        return f32_scan_plain(
+            blk, nrows, q_task, data, keep, B=B, kk=kk, is_l2=is_l2, three_pass=three_pass
+        )
+    Tc, Qg, d = q_task.shape
+    if B != LIST_ALIGN or not 1 <= kk <= 32:
+        raise ValueError(f"f32 scan takes B={LIST_ALIGN}, kk<=32 (got {B}, {kk})")
+    if data.dtype != torch.float32 or q_task.dtype != torch.float32:
+        raise TypeError("f32 scan takes f32 queries and rows")
+    _check_task_args(blk, nrows, q_task, data, keep, d)
+    blk, nrows = blk.int().contiguous(), nrows.int().contiguous()
+    q_task, data = q_task.contiguous(), data.contiguous()
+    keep_u8 = keep.contiguous().view(torch.uint8) if keep is not None else None
+    out_s = torch.empty((Tc, Qg, kk), dtype=torch.float32, device=q_task.device)
+    out_p = torch.empty((Tc, Qg, kk), dtype=torch.int32, device=q_task.device)
+    p = cuda_build.ptr
+    code = cuda_build.lib().kw_ivf_f32_scan(
+        p(blk), p(nrows), p(q_task), p(data), p(keep_u8), p(out_s), p(out_p),
+        Tc, Qg, d, kk, int(is_l2), int(three_pass), cuda_build.stream_of(q_task),
+    )
+    cuda_build.check(code, "ivf_f32_scan")
+    f32_scan_tasks.launches += 1
+    return out_s, out_p
+
+
+f32_scan_tasks.launches = 0

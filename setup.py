@@ -28,8 +28,11 @@ setup(
     name="knowhere-tpu",
     version="0.1.0",
     description="TPU-native vector search (ANN) framework — JAX/XLA/Pallas rebuild of the Knowhere capability set",
-    packages=find_packages(include=["knowhere_tpu", "knowhere_tpu.*"]),
+    packages=find_packages(include=["knowhere_tpu", "knowhere_tpu.*", "knowhere_tpu_torch*"]),
+    # the PyTorch/CUDA port builds its kernels from these sources at first use
+    package_data={"knowhere_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     python_requires=">=3.10",
     install_requires=["jax", "numpy", "optax"],
+    extras_require={"torch": ["torch"]},
     cmdclass={"build_py": BuildWithNative},
 )
