@@ -13,10 +13,23 @@ Run from the root of a checkout on a machine with one CUDA GPU. In order:
    (1M x 128 f32, 10,000 queries, seed 0): FLAT exact ground truth, IVF_FLAT
    (nlist=1024, L2) FAST search at nprobe=12, k=10, recall@10 and warm QPS,
    a 50% bitset search, a Serialize/Deserialize round trip, and the same
-   index served by the f32 scan (KNOWHERE_DISABLE_INT8_SCAN=1). Kernel
-   launch counters are zeroed right before this phase and read after it;
-5. print the kernel summary, the card line, and the contract line
+   index served by the f32 scan (KNOWHERE_DISABLE_INT8_SCAN=1);
+5. IVF_PQ at the north-star configuration on the same corpus (nlist=1024,
+   m=16, nbits=8, OPQ, FP16 refine with refine_k=8, FAST, nprobe=12, k=10):
+   recall@10 against the FLAT truth and warm QPS, a 50% bitset search, a
+   Serialize/Deserialize round trip, and an EXACT-precision search of the
+   first 1,000 queries (the plain decode scan) that FAST must come within
+   0.01 recall of;
+6. the bench's GIST leg of IVF_PQ (m=96, nbits=8, FP16 refine, so
+   m * ksub = 24,576 LUT entries) at a reduced size: a GIST-like corpus of
+   100,000 x 960 with 1,000 queries instead of 1M, nlist=256 instead of
+   1024 and nprobe=32 instead of 384 (refine_k=32), all cut for chip time;
+   FLAT ground truth on that corpus, FAST recall within 0.01 of EXACT;
+7. print the kernel summary, the card line, and the contract line
    {"ok": true, "device": {...}} last.
+
+Kernel launch counters are zeroed right before each of phases 4-6 and read
+right after it; every kernel must have launched on its path.
 
 Every phase raises on failure; the script then exits non-zero and prints no
 result. JAX is not imported.
@@ -50,6 +63,17 @@ FLAT_RTOL, FLAT_ATOL, FLAT_ID_AGREE = 1e-5, 1e-3, 0.999
 RECALL_FLOOR = 0.95  # IVF_FLAT recall@10 at nprobe=12 (reference: 0.9585)
 FILTERED_RECALL_FLOOR = 0.90
 F32_PATH_RECALL_FLOOR = 0.95
+# ADC: the kernel and the plain version sum the LUT's f32 products in other
+# orders, so a LUT entry may round to the neighbouring bf16 value: scores
+# agree within 1e-3 relative + 1e-2, positions on >= 99% of slots.
+ADC_RTOL, ADC_ATOL, ADC_POS_AGREE = 1e-3, 1e-2, 0.99
+PQ_RECALL_FLOOR = 0.945  # IVF_PQ recall@10 at nprobe=12
+PQ_TPU_ANCHOR = 0.9544  # the JAX package's recall on a TPU (docs/BENCHMARKS.md:16)
+PQ_FAST_VS_EXACT = 0.01  # FAST recall may trail EXACT recall by this much
+IVF_PQ_BUILD = {"metric_type": "L2", "nlist": 1024, "m": 16, "nbits": 8, "refine": True, "refine_type": "FP16"}
+IVF_PQ_SEARCH = {"metric_type": "L2", "k": 10, "nprobe": 12, "refine_k": 8}
+GIST_PQ_BUILD = {"metric_type": "L2", "nlist": 256, "m": 96, "nbits": 8, "refine": True, "refine_type": "FP16"}
+GIST_PQ_SEARCH = {"metric_type": "L2", "k": 10, "nprobe": 32, "refine_k": 32}
 
 
 def gen_corpus(nb, nq, dim, n_clusters=500, intrinsic_dim=48, seed=0, center_scale=(0.9, 1.6)):
@@ -177,6 +201,67 @@ def check_ivf_kernels(dev, n_tasks=4096, n_blocks=2048, Qg=128, d=128):
     return results
 
 
+def _adc_case(g, dev, n_tasks, n_blocks, Qg, d, m, sub, ksub, nlist=1024):
+    """Random ADC inputs at one shape: f32 queries, bf16 books, the bf16 L2
+    CLUT made from them in float64 as the index makes it."""
+    import torch
+
+    B = 512
+    blk, nrows = _task_geometry(g, n_blocks, n_tasks, dev)
+    lids = torch.randint(0, nlist, (n_tasks,), generator=g, device=dev, dtype=torch.int32)
+    books = (torch.randn((m, ksub, sub), generator=g, device=dev) * 0.3).to(torch.bfloat16)
+    cents = torch.randn((nlist, d), generator=g, device=dev)
+    b64 = books.double()
+    c3 = cents[:, : m * sub].double().reshape(nlist, m, sub)
+    clut = 2.0 * torch.einsum("lms,mvs->lmv", c3, b64) + (b64 * b64).sum(-1)[None]
+    clut = clut.float().reshape(nlist, m * ksub).to(torch.bfloat16)
+    q = torch.randn((n_tasks, Qg, d), generator=g, device=dev)
+    return blk, nrows, lids, q, books, clut, cents, n_blocks * B
+
+
+def check_adc_kernel(dev):
+    """ivf_adc_scan against adc_scan_plain: the main path's shape (4096 tasks,
+    Qg=128, d=128, m=16, ksub=256), the 4-bit nibble layout (m=64, ksub=16)
+    and the GIST shape (d=1024, m=96, ksub=256, 512 tasks)."""
+    import torch
+
+    from knowhere_tpu_torch.ops import adc_cuda
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    out = []
+    # (n_tasks, n_blocks, d, m, sub, ksub, nib, [(kk, mask, is_l2), ...]);
+    # GIST's m=96 codebooks cover 960 of the 1024 padded columns
+    shapes = [
+        (4096, 2048, 128, 16, 8, 256, False, [(16, False, True), (32, True, True), (16, False, False)]),
+        (4096, 2048, 128, 64, 2, 16, True, [(16, False, True)]),
+        (512, 256, 1024, 96, 10, 256, False, [(16, False, True), (16, True, True)]),
+    ]
+    for n_tasks, n_blocks, d, m, sub, ksub, nib, cases in shapes:
+        blk, nrows, lids, q, books, clut, cents, nb_pad = _adc_case(g, dev, n_tasks, n_blocks, 128, d, m, sub, ksub)
+        mb = m // 2 if nib else m
+        codes = torch.randint(0, 256 if nib else ksub, (nb_pad + 2048, mb), generator=g, device=dev,
+                              dtype=torch.int32).to(torch.uint8)
+        keep = torch.rand(nb_pad + 2048, generator=g, device=dev) < 0.5
+        for kk, masked, is_l2 in cases:
+            args = (blk, nrows, lids, q, books, clut, cents, codes, keep if masked else None)
+            kw = dict(B=512, kk=kk, is_l2=is_l2, nib=nib)
+            s_k, p_k = adc_cuda.adc_scan_tasks(*args, **kw)
+            s_p, p_p = adc_cuda.adc_scan_plain(*args, **kw)
+            torch.cuda.synchronize()
+            err = (s_k - s_p).abs().max().item()
+            ok = torch.allclose(s_k, s_p, rtol=ADC_RTOL, atol=ADC_ATOL)
+            pos_eq = (p_k == p_p).float().mean().item()
+            ms = time_ms(lambda: adc_cuda.adc_scan_tasks(*args, **kw), reps=5)
+            plain_ms = time_ms(lambda: adc_cuda.adc_scan_plain(*args, **kw), reps=2)
+            line = dict(tasks=n_tasks, d=d, m=m, ksub=ksub, nib=nib, kk=kk, mask=masked, is_l2=is_l2,
+                        max_abs_err=err, pos_agree=pos_eq, ms=ms, plain_ms=plain_ms)
+            print("ivf_adc_scan", json.dumps(line))
+            if not ok or pos_eq < ADC_POS_AGREE:
+                raise AssertionError(f"ivf_adc_scan disagrees with its plain version: {line}")
+            out.append(line)
+    return out
+
+
 def check_flat_kernel(dev, xb: np.ndarray, xq: np.ndarray):
     import torch
 
@@ -232,7 +317,8 @@ def _timed(fn):
 
 def main_path(kt, xb, xq, k=10, nlist=1024, nprobe=12, search_reps=5):
     """FLAT ground truth, IVF_FLAT build + FAST search, filtered search,
-    serialize round trip and the f32-scan path, all through the public API."""
+    serialize round trip and the f32-scan path, all through the public API.
+    Returns (numbers, the FLAT index, its ground truth ids)."""
     nq = len(xq)
     cfg_flat = {"metric_type": "L2", "k": k}
     cfg_ivf = {"metric_type": "L2", "k": k, "nprobe": nprobe}
@@ -304,7 +390,114 @@ def main_path(kt, xb, xq, k=10, nlist=1024, nprobe=12, search_reps=5):
     out["f32_scan_recall_at_10"] = recall_at(ids3, gt)
     if out["f32_scan_recall_at_10"] < F32_PATH_RECALL_FLOOR:
         raise AssertionError(f"f32-scan recall {out['f32_scan_recall_at_10']} < {F32_PATH_RECALL_FLOOR}")
+    return out, flat, gt
+
+
+def _flat_truth(kt, xb, xq, k=10):
+    flat = kt.IndexFactory.Instance().Create("FLAT").value()
+    if flat.Build(kt.GenDataSetFromArray(xb), {"metric_type": "L2"}) != kt.Status.success:
+        raise RuntimeError("FLAT Build failed")
+    return flat, _search(flat, kt, xq, {"metric_type": "L2", "k": k})[0]
+
+
+def _exact_vs_fast(kt, idx, xq, gt, cfg):
+    """recall@k of EXACT (the plain decode scan) and FAST on the same queries;
+    FAST must come within PQ_FAST_VS_EXACT."""
+    kt.KnowhereConfig.SetSimdType("GENERIC")  # EXACT
+    try:
+        exact = recall_at(_search(idx, kt, xq, cfg)[0], gt)
+    finally:
+        kt.KnowhereConfig.SetSimdType("AUTO")  # back to FAST
+    fast = recall_at(_search(idx, kt, xq, cfg)[0], gt)
+    if fast < exact - PQ_FAST_VS_EXACT:
+        raise AssertionError(f"IVF_PQ FAST recall {fast} < EXACT recall {exact} - {PQ_FAST_VS_EXACT}")
+    return exact, fast
+
+
+def pq_path(kt, xb, xq, gt, flat, search_reps=5):
+    """IVF_PQ at the north-star configuration through the public API."""
+    nq, k = len(xq), IVF_PQ_SEARCH["k"]
+    out = {}
+    pq = kt.IndexFactory.Instance().Create("IVF_PQ").value()
+    st, out["pq_build_s"] = _timed(lambda: pq.Build(kt.GenDataSetFromArray(xb), IVF_PQ_BUILD))
+    if st != kt.Status.success:
+        raise RuntimeError(f"IVF_PQ Build: {st.name}")
+    ids, dists = _search(pq, kt, xq, IVF_PQ_SEARCH)  # warm-up
+    times = []
+    for _ in range(search_reps):
+        (ids, dists), dt = _timed(lambda: _search(pq, kt, xq, IVF_PQ_SEARCH))
+        times.append(dt)
+    out["pq_search_s_median"] = float(np.median(times))
+    out["pq_search_s_all"] = times
+    out["pq_qps"] = nq / out["pq_search_s_median"]
+    out["pq_recall_at_10"] = recall_at(ids, gt)
+    out["pq_tpu_anchor_recall_at_10"] = PQ_TPU_ANCHOR  # the reference's, not the port's
+    if not np.isfinite(dists).all() or ids.shape != (nq, k) or (ids < 0).any():
+        raise AssertionError("IVF_PQ results not finite / wrong shape / short")
+    if out["pq_recall_at_10"] < PQ_RECALL_FLOOR:
+        raise AssertionError(f"IVF_PQ recall@10 {out['pq_recall_at_10']} < {PQ_RECALL_FLOOR}")
+
+    drop = np.random.default_rng(1).random(len(xb)) < 0.5
+    fids, _ = _search(pq, kt, xq, IVF_PQ_SEARCH, kt.BitsetView.from_bool_array(drop))
+    if (fids < 0).any() or drop[fids].any():
+        raise AssertionError("IVF_PQ filtered search returned a filtered or empty id")
+    fgt, _ = _search(flat, kt, xq, {"metric_type": "L2", "k": k}, kt.BitsetView.from_bool_array(drop))
+    out["pq_filtered_recall_at_10"] = recall_at(fids, fgt)
+
+    bs = kt.BinarySet()
+    if pq.Serialize(bs) != kt.Status.success:
+        raise RuntimeError("IVF_PQ Serialize failed")
+    again = kt.IndexFactory.Instance().Create("IVF_PQ").value()
+    if again.Deserialize(bs) != kt.Status.success:
+        raise RuntimeError("IVF_PQ Deserialize failed")
+    out["pq_roundtrip_ids_identical"] = bool(np.array_equal(_search(again, kt, xq, IVF_PQ_SEARCH)[0], ids))
+    if not out["pq_roundtrip_ids_identical"]:
+        raise AssertionError("IVF_PQ Serialize/Deserialize changed the result ids")
+    del again
+
+    out["pq_exact_recall_1k"], out["pq_fast_recall_1k"] = _exact_vs_fast(
+        kt, pq, xq[:1000], gt[:1000], IVF_PQ_SEARCH
+    )
     return out
+
+
+def gist_pq_path(kt, nb=100_000, nq=1_000):
+    """The bench's GIST leg of IVF_PQ (m=96) at the reduced size of the
+    docstring, against FLAT ground truth on its own corpus."""
+    from knowhere_tpu_torch.ops import adc_cuda
+
+    t0 = time.perf_counter()
+    xb, xq = gen_corpus(nb, nq, 960, seed=0)
+    out = {"gist_corpus_s": time.perf_counter() - t0}
+    _, gt = _flat_truth(kt, xb, xq)
+    pq = kt.IndexFactory.Instance().Create("IVF_PQ").value()
+    st, out["gist_pq_build_s"] = _timed(lambda: pq.Build(kt.GenDataSetFromArray(xb), GIST_PQ_BUILD))
+    if st != kt.Status.success:
+        raise RuntimeError(f"GIST IVF_PQ Build: {st.name}")
+    m, ksub, _ = pq.node._store["books"].shape
+    out["gist_lut_entries"] = m * ksub
+    before = adc_cuda.adc_scan_tasks.launches
+    (ids, _), out["gist_pq_search_s"] = _timed(lambda: _search(pq, kt, xq, GIST_PQ_SEARCH))
+    if m * ksub != 24576 or adc_cuda.adc_scan_tasks.launches == before:
+        raise AssertionError(f"the ADC kernel did not serve m * ksub = {m * ksub} (want 24576)")
+    out["gist_pq_recall_at_10"] = recall_at(ids, gt)
+    out["gist_exact_recall"], out["gist_fast_recall"] = _exact_vs_fast(kt, pq, xq, gt, GIST_PQ_SEARCH)
+    return out
+
+
+def _run_path(name, wrappers, must_launch, fn):
+    """Drive one path with every launch counter zeroed just before it; the
+    counts are read just after it, and each kernel of the path must have
+    launched. Returns (fn's output, counts)."""
+    for w in wrappers.values():
+        w.launches = 0
+    out = fn()
+    counts = {n: w.launches for n, w in wrappers.items()}
+    print(f"{name} launches:", json.dumps(counts))
+    missing = [n for n in must_launch if counts[n] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the {name}: {missing}")
+    return out, counts
 
 
 def main() -> int:
@@ -318,7 +511,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     import knowhere_tpu_torch as kt
-    from knowhere_tpu_torch.ops import cuda_build, cuda_flat, ivf_cuda
+    from knowhere_tpu_torch.ops import adc_cuda, cuda_build, cuda_flat, ivf_cuda
 
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
@@ -332,37 +525,47 @@ def main() -> int:
     print(f"kernels built in {time.perf_counter() - t0:.2f} s (nvcc: {cuda_build.build_seconds})")
 
     ivf_checks = check_ivf_kernels(dev)
+    adc_checks = check_adc_kernel(dev)
     t0 = time.perf_counter()
     xb, xq = gen_corpus(1_000_000, 10_000, 128, seed=0)
     print(f"corpus 1000000 x 128, 10000 queries, made in {time.perf_counter() - t0:.2f} s")
     flat_checks = check_flat_kernel(dev, xb, xq)
 
-    kt.KnowhereConfig.SetSimdType("AUTO")  # FAST: the int8 serving scan
+    kt.KnowhereConfig.SetSimdType("AUTO")  # FAST: the kernels' serving scans
     wrappers = {
         "ivf_int8_scan": ivf_cuda.int8_scan_tasks,
         "ivf_f32_scan": ivf_cuda.f32_scan_tasks,
         "flat_group_scan": cuda_flat.flat_group_scan,
+        "ivf_adc_scan": adc_cuda.adc_scan_tasks,
     }
-    for w in wrappers.values():
-        w.launches = 0
-    e2e = main_path(kt, xb, xq)
-    launches = {name: w.launches for name, w in wrappers.items()}
+    (e2e, flat, gt), counts = _run_path(
+        "main path", wrappers, ("ivf_int8_scan", "ivf_f32_scan", "flat_group_scan"),
+        lambda: main_path(kt, xb, xq),
+    )
     print("main path:", json.dumps(e2e))
-    print("launches:", json.dumps(launches))
-    missing = [name for name, n in launches.items() if n == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the main path: {missing}")
+    launches = dict(counts)
+    pq_out, counts = _run_path("ivf_pq path", wrappers, ("ivf_adc_scan",), lambda: pq_path(kt, xb, xq, gt, flat))
+    print("ivf_pq path:", json.dumps(pq_out))
+    launches["ivf_adc_scan"] = counts["ivf_adc_scan"]
+    del flat
+    gist_out, _ = _run_path("gist ivf_pq path", wrappers, ("ivf_adc_scan", "flat_group_scan"), lambda: gist_pq_path(kt))
+    print("gist ivf_pq path:", json.dumps(gist_out))
     torch.cuda.synchronize()
 
     first = {name: lines[0] for name, lines in (
         ("ivf_int8_scan", ivf_checks["ivf_int8_scan"]),
         ("ivf_f32_scan", ivf_checks["ivf_f32_scan"]),
         ("flat_group_scan", flat_checks),
+        ("ivf_adc_scan", adc_checks),
     )}
     meta = {
         "ivf_int8_scan": ("knowhere_tpu_torch/csrc/ivf_scan.cu", "knowhere_tpu/ops/ivf_pallas.py:400"),
         "ivf_f32_scan": ("knowhere_tpu_torch/csrc/ivf_scan.cu", "knowhere_tpu/ops/ivf_pallas.py:113"),
         "flat_group_scan": ("knowhere_tpu_torch/csrc/flat_scan.cu", "knowhere_tpu/ops/pallas_flat.py:62"),
+        "ivf_adc_scan": (
+            "knowhere_tpu_torch/csrc/ivf_adc.cu",
+            "knowhere_tpu/ops/ivf_pallas.py:556 and knowhere_tpu/ops/ivf_pallas.py:732",
+        ),
     }
     kernels = [
         {

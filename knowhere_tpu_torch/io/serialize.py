@@ -86,6 +86,14 @@ def write_sections(
     return bytes(buf)
 
 
+def _dtype(name: str) -> np.dtype:
+    """numpy dtype of a section; "bfloat16" (bf16 refine rows, written from an
+    ml_dtypes array as the reference writes them) needs ml_dtypes loaded."""
+    if name == "bfloat16":
+        import ml_dtypes  # noqa: F401  (registers the dtype name with numpy)
+    return np.dtype(name)
+
+
 def read_sections(
     data: Union[bytes, bytearray, memoryview, np.ndarray],
 ) -> Tuple[Dict[str, np.ndarray], Dict[str, Any]]:
@@ -106,7 +114,7 @@ def read_sections(
     arrays = {}
     for name, s in header["sections"].items():
         raw = mv[s["offset"] : s["offset"] + s["nbytes"]]
-        arrays[name] = np.frombuffer(raw, dtype=np.dtype(s["dtype"])).reshape(s["shape"])
+        arrays[name] = np.frombuffer(raw, dtype=_dtype(s["dtype"])).reshape(s["shape"])
     return arrays, header.get("meta", {})
 
 

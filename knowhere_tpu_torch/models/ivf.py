@@ -1,27 +1,35 @@
-"""IVF_FLAT (counterpart of knowhere_tpu/models/ivf.py, VARIANT="flat").
+"""IVF_FLAT and IVF_PQ (counterpart of knowhere_tpu/models/ivf.py, VARIANT
+"flat" and "pq").
 
 Train runs k-means for the coarse quantizer (nlist auto-shrinks as in the
-reference, MatchNlist); Add sorts the rows by list into one contiguous store,
-each list padded to LIST_ALIGN rows when the corpus is large enough, so every
-scan block is one aligned slice. Search probes the nearest lists, builds the
-(list block x query group) tasks, scans them and merges per query:
+reference, MatchNlist); IVF_PQ then trains PQ codebooks on the residuals,
+behind an OPQ rotation by default. Add sorts the rows by list into one
+contiguous store, each list padded to LIST_ALIGN rows when the corpus is
+large enough, so every scan block is one aligned slice. Search probes the
+nearest lists, builds the (list block x query group) tasks, scans them and
+merges per query:
 
-- EXACT precision (the default): the full-f32 plain task scan.
-- FAST/BF16 with the int8 sidecar (aligned store, d % 128 == 0): the int8
-  scan kernel ranks a widened pool (max(4k, 48)), then an exact f32 rerank
-  over the raw rows returns the final distances.
-- FAST/BF16 without the sidecar (KNOWHERE_DISABLE_INT8_SCAN=1): the f32 scan
-  kernel (3-pass-class f32 for FAST; bf16 plus exact rerank for BF16).
+- IVF_FLAT, EXACT precision (the default): the full-f32 plain task scan.
+- IVF_FLAT, FAST/BF16 with the int8 sidecar (aligned store, d % 128 == 0):
+  the int8 scan kernel ranks a widened pool (max(4k, 48)), then an exact f32
+  rerank over the raw rows returns the final distances.
+- IVF_FLAT, FAST/BF16 without the sidecar (KNOWHERE_DISABLE_INT8_SCAN=1): the
+  f32 scan kernel (3-pass-class f32 for FAST; bf16 plus exact rerank for BF16).
+- IVF_PQ: queries rotate into the OPQ frame; FAST/BF16 run the ADC scan
+  kernel over an aligned store, EXACT the plain scan over decoded codes. With
+  a refine store the scan keeps k * refine_k candidates and the refine pass
+  re-scores them from the stored (f32/fp16/bf16/SQ8) rows.
 
-The other IVF families, CC appends, RangeSearch, iterators, GetVectorByIds
-and the ensure_topk_full widening come with later slices of the port and
-report Status.not_implemented.
+A query that comes back with fewer than k results is re-probed with nprobe x4
+per round until it is full (ensure_topk_full, on by default). CC appends,
+RangeSearch, iterators and GetVectorByIds come with later slices of the port
+and report Status.not_implemented.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,11 +44,12 @@ from ..feature import feature
 from ..index_param import IndexEnum, metric as M, normalize_metric
 from ..index_node import IndexNode
 from ..io.serialize import read_sections, write_sections
+from ..ops import quant as Q
 from ..ops.distances import DistancePrecision, get_distance_precision, pad_rows_ladder
 from ..ops.ivf_cuda import LIST_ALIGN
 from ..ops.ivf_scan import coarse_probe, coarse_probe_host, ivf_scan_search
 from ..ops.kmeans import assign_rows, kmeans
-from ..ops.refine import refine_topk_device
+from ..ops.refine import RefineStore, refine_topk_device, sq8_encode
 from ..status import KnowhereException, Status, expected
 from ..utils.logging import log_warning
 
@@ -57,6 +66,13 @@ def match_nlist(rows: int, nlist: int) -> int:
     return nlist
 
 
+def match_nbits(rows: int, nbits: int) -> int:
+    """nbits auto-shrink so each PQ codebook can be trained (MatchNbits)."""
+    while nbits > 1 and (1 << nbits) > max(rows, 2):
+        nbits -= 1
+    return nbits
+
+
 class IvfConfig(BaseConfig):
     nlist = Entry(int, default=128, range=(1, 65536), stages=[Stage.TRAIN])
     nprobe = Entry(int, default=8, range=(1, 65536), stages=[Stage.SEARCH, Stage.ITERATOR, Stage.RANGE_SEARCH])
@@ -67,6 +83,42 @@ class IvfConfig(BaseConfig):
 
 class IvfFlatConfig(IvfConfig):
     pass
+
+
+class IvfPqConfig(IvfConfig):
+    m = Entry(int, range=(1, 65536), stages=[Stage.TRAIN], allow_empty=True)
+    nbits = Entry(int, default=8, range=(1, 24), stages=[Stage.TRAIN])
+    refine = Entry(bool, default=False, stages=[Stage.TRAIN])
+    refine_type = Entry(str, stages=[Stage.TRAIN], allow_empty=True)
+    refine_k = Entry(int, default=1, range=(1, None), stages=[Stage.SEARCH])
+    # OPQ rotation before PQ, on by default as in the reference
+    opq = Entry(bool, default=True, stages=[Stage.TRAIN])
+
+
+_CONFIGS = {"flat": IvfFlatConfig, "pq": IvfPqConfig}
+
+
+class _Plan(NamedTuple):
+    """How one search scans: scan precision, whether the raw rows re-rank
+    the pool (two_stage), the scan's k and the k the refine store re-scores."""
+
+    prec: str
+    two_stage: bool
+    k_scan: int
+    k_coarse: int
+
+
+def _bf16_dtype():
+    import ml_dtypes  # the reference's host bf16 type; only bf16 refine stores need it
+
+    return ml_dtypes.bfloat16
+
+
+def _rows_to_device(a: np.ndarray) -> torch.Tensor:
+    """Host rows (f32, fp16, bf16 or uint8) -> device tensor of that width."""
+    if a.dtype.name == "bfloat16":
+        return to_device(np.ascontiguousarray(a).view(np.int16)).view(torch.bfloat16)
+    return to_device(a)
 
 
 class IvfIndexNode(IndexNode):
@@ -81,6 +133,9 @@ class IvfIndexNode(IndexNode):
         self._dim = 0
         self._d_dev = 0  # device feature width (zero-padded to a 128 multiple)
         self._nlist = 0
+        self._pq: Optional[Q.PQCodec] = None
+        self._opq_rot: Optional[np.ndarray] = None  # OPQ rotation (d, d)
+        self._refine_cfg: Optional[str] = None  # refine store kind or None
         self._centroids: Optional[np.ndarray] = None
         self._norms_raw: Optional[np.ndarray] = None  # cosine restore norms
         self._row_ids: Optional[np.ndarray] = None  # padded sorted pos -> row id (-1 pad)
@@ -89,6 +144,7 @@ class IvfIndexNode(IndexNode):
         self._count = 0
         self._sorted_payload = {}
         self._store = None  # device tensors
+        self._refine_store: Optional[RefineStore] = None
         self._assign_cache = None
 
     # --- helpers ---------------------------------------------------------
@@ -123,8 +179,34 @@ class IvfIndexNode(IndexNode):
         self._centroids = centroids
         # Build = Train + Add on the same rows reuses the assignment
         self._assign_cache = (rows, float(x[:: max(rows // 7, 1), 0].sum()), assign_full)
+        if self.VARIANT == "pq":
+            m = cfg.m if cfg.m is not None else max(1, self._dim // 2)
+            if self._dim % m != 0:
+                raise KnowhereException(f"dim {self._dim} not divisible by m {m}", Status.invalid_args)
+            nbits = match_nbits(rows, int(cfg.nbits))
+            if nbits > 8:
+                raise KnowhereException("PQ codes are one byte: nbits must be <= 8", Status.invalid_args)
+            resid = x - centroids[assign_full]
+            if cfg.get("opq", True) and rows >= 4 * (1 << nbits):
+                self._opq_rot, self._pq = Q.opq_train(resid, int(m), nbits)
+            else:
+                self._opq_rot, self._pq = None, Q.pq_train(resid, int(m), nbits)
+            self._refine_cfg = self._refine_kind(cfg)
         self._trained = True
         return Status.success
+
+    @staticmethod
+    def _refine_kind(cfg: Config) -> Optional[str]:
+        if not cfg.get("refine", False):
+            return None
+        rt = (cfg.get("refine_type") or "DATA_VIEW").upper()
+        if rt in ("UINT8_QUANT", "UINT8", "SQ8"):
+            return "sq8"
+        if rt in ("FLOAT16_QUANT", "FP16"):
+            return "fp16"
+        if rt in ("BFLOAT16_QUANT", "BF16"):
+            return "bf16"
+        return "raw"
 
     # --- Add -------------------------------------------------------------------
     def Add(self, dataset: DataSet, cfg: Config) -> Status:
@@ -160,32 +242,51 @@ class IvfIndexNode(IndexNode):
         self._row_ids = np.full(nb_pad, -1, dtype=np.int64)
         self._row_ids[dst] = order
 
-        if self._metric != M.COSINE:
-            raw_sorted = np.asarray(x_in).astype(np.float32)[order]
+        def place(a_sorted: np.ndarray) -> np.ndarray:
+            """Scatter unpadded sorted rows into the aligned layout."""
+            if nb_pad == nb:
+                return a_sorted
+            out = np.zeros((nb_pad, *a_sorted.shape[1:]), a_sorted.dtype)
+            out[dst] = a_sorted
+            return out
+
+        x_sorted = x[order]
+        if self.VARIANT == "flat":
+            if self._metric != M.COSINE:
+                raw_sorted = np.asarray(x_in).astype(np.float32)[order]
+            else:
+                raw_sorted = x_sorted
+                self._norms_raw = np.linalg.norm(np.asarray(x_in, dtype=np.float32), axis=1).astype(np.float32)
+            self._sorted_payload = {"data": place(raw_sorted)}
         else:
-            raw_sorted = x[order]
-            self._norms_raw = np.linalg.norm(np.asarray(x_in, dtype=np.float32), axis=1).astype(np.float32)
-        if nb_pad != nb:
-            data = np.zeros((nb_pad, raw_sorted.shape[1]), np.float32)
-            data[dst] = raw_sorted
-        else:
-            data = raw_sorted
-        self._sorted_payload = {"data": data}
+            resid = x - self._centroids[assign]
+            if self._opq_rot is not None:
+                resid = resid @ self._opq_rot.T
+            self._sorted_payload = {"codes": place(Q.pq_encode(self._pq, resid)[order])}
+        # refine payload, in padded sorted order so positions line up
+        if self._refine_cfg == "raw":
+            self._sorted_payload["refine"] = place(x_sorted)
+        elif self._refine_cfg == "fp16":
+            self._sorted_payload["refine"] = place(x_sorted.astype(np.float16))
+        elif self._refine_cfg == "bf16":
+            self._sorted_payload["refine"] = place(x_sorted.astype(_bf16_dtype()))
+        elif self._refine_cfg == "sq8":
+            codes, vmin, vdiff = sq8_encode(x_sorted)
+            self._sorted_payload.update(refine=place(codes), refine_vmin=vmin, refine_vdiff=vdiff)
         self._upload()
 
     def load_state(self, arrays: dict, meta: dict) -> None:
-        """Install the state an IVF_FLAT node serializes (the arrays and meta
-        of knowhere_tpu's IvfIndexNode.Serialize) and upload it."""
+        """Install the state an IVF node serializes (the arrays and meta of
+        knowhere_tpu's IvfIndexNode.Serialize) and upload it."""
         if meta.get("variant") != self.VARIANT:
             raise KnowhereException(
                 f"blob holds IVF variant {meta.get('variant')!r}", Status.invalid_serialized_index_type
             )
-        if meta.get("refine_cfg"):
-            raise NotImplementedError("IVF refine stores are not ported yet")
         self._metric = meta["metric"]
         self._dim = int(meta["dim"])
         self._nlist = int(meta["nlist"])
         self.data_type = meta.get("data_type", "fp32")
+        self._refine_cfg = meta.get("refine_cfg")
         self._centroids = np.asarray(arrays["centroids"], dtype=np.float32)
         self._row_ids = np.asarray(arrays["row_ids"], dtype=np.int64)
         self._offsets = np.asarray(arrays["offsets"], dtype=np.int64)
@@ -200,8 +301,13 @@ class IvfIndexNode(IndexNode):
         self._sorted_payload = {
             k_[len("payload_"):]: np.asarray(v) for k_, v in arrays.items() if k_.startswith("payload_")
         }
-        if self._sorted_payload["data"].dtype != np.float32:
+        if self.VARIANT == "flat" and self._sorted_payload["data"].dtype != np.float32:
             raise NotImplementedError("typed (fp16/bf16/int8) IVF stores are not ported yet")
+        if "pq_codebooks" in arrays:
+            books = np.asarray(arrays["pq_codebooks"], dtype=np.float32)
+            self._pq = Q.PQCodec(books, books.shape[0], int(meta["pq_nbits"]))
+            rot = arrays.get("opq_rotation")
+            self._opq_rot = None if rot is None else np.asarray(rot, dtype=np.float32)
         self._trained = True
         self._upload()
 
@@ -212,20 +318,74 @@ class IvfIndexNode(IndexNode):
         d = self._dim
         self._d_dev = -(-d // 128) * 128 if d > 64 and d % 128 != 0 else d
         dcol = self._d_dev - d
-        data = self._sorted_payload["data"]
-        nb_rows = data.shape[0]
-        buf = np.zeros((nb_rows + B_SLACK, self._d_dev), np.float32)
-        buf[:nb_rows, :d] = data
-        norms = np.zeros(nb_rows + B_SLACK, np.float32)
-        norms[:nb_rows] = np.einsum("ij,ij->i", data, data, dtype=np.float64)
+
+        def cpad(a: np.ndarray) -> np.ndarray:
+            return np.pad(a, [(0, 0)] * (a.ndim - 1) + [(0, dcol)]) if dcol else a
+
         self._store = {
-            "data": to_device(buf),
-            "norms": to_device(norms),
-            "centroids": to_device(np.pad(self._centroids, ((0, 0), (0, dcol)))),
+            "centroids": to_device(cpad(self._centroids)),
             "offsets_dev": to_device(np.asarray(self._offsets, dtype=np.int32)),
             "lens_dev": to_device(np.asarray(self._lengths, dtype=np.int32)),
         }
-        self._build_int8_sidecar(data, dcol)
+        if self.VARIANT == "flat":
+            data = self._sorted_payload["data"]
+            nb_rows = data.shape[0]
+            buf = np.zeros((nb_rows + B_SLACK, self._d_dev), np.float32)
+            buf[:nb_rows, :d] = data
+            norms = np.zeros(nb_rows + B_SLACK, np.float32)
+            norms[:nb_rows] = np.einsum("ij,ij->i", data, data, dtype=np.float64)
+            self._store["data"] = to_device(buf)
+            self._store["norms"] = to_device(norms)
+            self._build_int8_sidecar(data, dcol)
+        else:
+            self._upload_pq(cpad)
+        self._refine_store = None
+        if self._refine_cfg and "refine" in self._sorted_payload:
+            rows = _rows_to_device(cpad(self._sorted_payload["refine"]))
+            if self._refine_cfg == "sq8":
+                self._refine_store = RefineStore(
+                    "sq8", rows,
+                    to_device(cpad(self._sorted_payload["refine_vmin"])),
+                    to_device(cpad(self._sorted_payload["refine_vdiff"])),
+                )
+            else:
+                self._refine_store = RefineStore("raw", rows)
+
+    def _upload_pq(self, cpad) -> None:
+        """PQ store in the ADC kernel's layout: row-major (nb_pad + slack, mb)
+        uint8 codes, so a task reads one contiguous 512 * mb-byte slice (nib:
+        ksub=16 and even m pack subspace j in the low nibble of byte j and
+        j + m/2 in its high nibble); bf16 codebooks; the per-list bf16 CLUT
+        (centroid/codebook cross terms of the residual L2 expansion, made in
+        float64 as in the reference); f32 codebooks for the EXACT decode scan.
+        Under OPQ the scan runs in the rotated frame: queries rotate by rot_t
+        and the centroid terms use the rotated centroids (cent_scan), while
+        the coarse probe and the refine stay in the original frame."""
+        books = np.asarray(self._pq.codebooks, np.float32)  # (m, ksub, sub)
+        m, ksub, sub = books.shape
+        codes = self._sorted_payload["codes"]
+        if ksub == 16 and m % 2 == 0:
+            codes = codes[:, : m // 2] | (codes[:, m // 2 :] << 4)
+        buf = np.zeros((codes.shape[0] + B_SLACK, codes.shape[1]), np.uint8)
+        buf[: codes.shape[0]] = codes
+        cents_scan = self._centroids
+        if self._opq_rot is not None:
+            cents_scan = (self._centroids @ self._opq_rot.T).astype(np.float32)
+            dcol = self._d_dev - self._dim
+            self._store["rot_t"] = to_device(np.pad(self._opq_rot.T, ((0, dcol), (0, dcol))))
+            self._store["cent_scan"] = to_device(cpad(cents_scan))
+        if self._is_l2_like():
+            c3 = cents_scan.reshape(self._nlist, m, sub).astype(np.float64)
+            b64 = books.astype(np.float64)
+            clut = (2.0 * np.einsum("lms,mvs->lmv", c3, b64) + np.sum(b64**2, axis=-1)[None]).astype(np.float32)
+        else:
+            clut = np.zeros((self._nlist, m, ksub), np.float32)
+        self._store.update(
+            codes=to_device(buf),
+            codebooks=to_device(books),
+            books=to_device(books).to(torch.bfloat16),
+            clut=to_device(clut.reshape(self._nlist, m * ksub)).to(torch.bfloat16),
+        )
 
     def _build_int8_sidecar(self, data: np.ndarray, dcol: int) -> None:
         """int8 scan sidecar for the raw f32 store: per-dim symmetric codes
@@ -289,32 +449,58 @@ class IvfIndexNode(IndexNode):
         keep_sorted[: len(rid)][valid] = keep[rid[valid]]
         return to_device(keep_sorted)
 
-    def _scan_plan(self, k: int):
-        """(scan precision, two_stage, k_scan) from the precision mode."""
+    def _scan_plan(self, k: int, refine_k: int) -> _Plan:
         gp = get_distance_precision()
         nb = len(self._row_ids)
+        k_coarse = max(k, k * max(1, refine_k)) if self._refine_store is not None else k
+        if self.VARIANT == "pq":  # quantized codes always scan bf16 ADC, EXACT decodes
+            return _Plan("exact" if gp == DistancePrecision.EXACT else "bf16", False, k_coarse, k_coarse)
         if gp == DistancePrecision.EXACT:
-            return "exact", False, k
-        scan_prec = "bf16" if gp == DistancePrecision.BF16 else "fast"
-        two_stage = gp == DistancePrecision.BF16
-        k_scan = min(max(4 * k, 32), max(nb, 1)) if two_stage else k
+            return _Plan("exact", False, k_coarse, k_coarse)
         if "data_i8" in self._store:
             # int8 candidates, re-ranked exactly from the raw store
-            return "int8", True, min(max(4 * k, 48), max(nb, 1))
-        return scan_prec, two_stage, k_scan
+            return _Plan("int8", True, min(max(4 * k_coarse, 48), max(nb, 1)), k_coarse)
+        if gp == DistancePrecision.BF16:
+            return _Plan("bf16", True, min(max(4 * k_coarse, 32), max(nb, 1)), k_coarse)
+        return _Plan("fast", False, k_coarse, k_coarse)
 
-    def _kernel_eligible(self, k_scan: int, scan_prec: str) -> bool:
+    def _kernel_eligible(self, plan: _Plan) -> bool:
         """Whether the scan takes a kernel path (the reference's fused path):
         the probe then stays on the device."""
-        from ..ops.ivf_scan import int8_available, scan_available
+        from ..ops.ivf_scan import adc_available, int8_available, scan_available
 
-        if scan_prec == "int8":
-            return int8_available(self._store, self._d_dev, k_scan, self._offsets)
-        return scan_available(self._d_dev, k_scan, self._offsets, scan_prec)
+        if self.VARIANT == "pq":
+            return plan.prec != "exact" and adc_available(self._store, self._d_dev, plan.k_scan, self._offsets)
+        if plan.prec == "int8":
+            return int8_available(self._store, self._d_dev, plan.k_scan, self._offsets)
+        return scan_available(self._d_dev, plan.k_scan, self._offsets, plan.prec)
+
+    def _run_scan(self, q_pad_dev, probes, plan: _Plan, keep_sorted, k: int):
+        """Scan (in the OPQ frame for IVF_PQ) and refine one padded query
+        batch: (scores or dists, positions, "score" | "dist") on the device."""
+        is_l2 = self._is_l2_like()
+        q_scan = q_pad_dev @ self._store["rot_t"] if "rot_t" in self._store else q_pad_dev
+        s, p = ivf_scan_search(
+            q_scan, self._store, probes, self._offsets, plan.k_scan, is_l2,
+            keep_sorted=keep_sorted, prec=plan.prec, list_lengths=self._lengths,
+        )
+        if plan.two_stage:
+            return (*refine_topk_device(q_pad_dev, RefineStore("raw", self._store["data"]), p, plan.k_coarse, is_l2), "dist")
+        if self._refine_store is not None:
+            return (*refine_topk_device(q_pad_dev, self._refine_store, p, k, is_l2), "dist")
+        return s, p, "score"
+
+    def _rescan_subset(self, xq_sub: np.ndarray, probes_sub: np.ndarray, plan: _Plan, keep_sorted, k: int):
+        """ensure_topk_full retry for a query subset with host probes."""
+        n_sub = xq_sub.shape[0]
+        q_pad = self._pad_q_host(xq_sub)
+        fill = np.full((q_pad.shape[0] - n_sub, probes_sub.shape[1]), -1, np.int32)
+        s, p, _ = self._run_scan(to_device(q_pad), np.concatenate([probes_sub, fill]), plan, keep_sorted, k)
+        return s[:n_sub].cpu().numpy(), p[:n_sub].cpu().numpy().astype(np.int64)
 
     def _search_batch(
         self, xq: np.ndarray, k: int, nprobe: int, keep_sorted, n_valid: int,
-        ensure_topk_full: bool, q_pad_dev: torch.Tensor,
+        ensure_topk_full: bool, q_pad_dev: torch.Tensor, refine_k: int = 1,
     ) -> Tuple[np.ndarray, np.ndarray]:
         """Returns (dists (nq,k) native convention, ids (nq,k) original rows)."""
         from ..comp import check_current_cancellation
@@ -323,12 +509,12 @@ class IvfIndexNode(IndexNode):
         nq = xq.shape[0]
         is_l2 = self._is_l2_like()
         nb = len(self._row_ids)
-        scan_prec, two_stage, k_scan = self._scan_plan(k)
+        plan = self._scan_plan(k, refine_k)
         nprobe_cur = min(max(1, nprobe), self._nlist)
         nq_pad = q_pad_dev.shape[0]
         if nprobe_cur >= self._nlist:
             probes = None  # full probe: the deterministic full-scan layout
-        elif self._kernel_eligible(k_scan, scan_prec) or nq * self._nlist * max(self._dim, 1) > 1 << 24:
+        elif self._kernel_eligible(plan) or nq * self._nlist * max(self._dim, 1) > 1 << 24:
             probes = coarse_probe(q_pad_dev, self._store["centroids"], nprobe=nprobe_cur, is_l2=is_l2)
             # padded query rows would probe real lists: mask them out
             row = torch.arange(nq_pad, device=probes.device)[:, None]
@@ -336,21 +522,28 @@ class IvfIndexNode(IndexNode):
         else:
             probes = coarse_probe_host(xq, self._centroids, nprobe_cur, is_l2)
             probes = np.concatenate([probes, np.full((nq_pad - nq, probes.shape[1]), -1, np.int32)])
-        s, p = ivf_scan_search(
-            q_pad_dev, self._store, probes, self._offsets, k_scan, is_l2,
-            keep_sorted=keep_sorted, prec=scan_prec, list_lengths=self._lengths,
-        )
-        mode = "score"
-        if two_stage:
-            s, p = refine_topk_device(q_pad_dev, self._store["data"], p, k, is_l2)
-            mode = "dist"
+        s, p, mode = self._run_scan(q_pad_dev, probes, plan, keep_sorted, k)
         best_s = s[:nq].cpu().numpy()
         best_p = p[:nq].cpu().numpy().astype(np.int64)
 
+        # ensure_topk_full: re-probe only the short queries, nprobe x4 a round
         if ensure_topk_full and nprobe_cur < self._nlist:
             want = min(best_p.shape[1], n_valid)
-            if ((best_p >= 0).sum(axis=1) < want).any():
-                raise NotImplementedError("ensure_topk_full widening is not ported yet")
+            while True:
+                check_current_cancellation()
+                unfilled = (best_p >= 0).sum(axis=1) < want
+                if not unfilled.any() or nprobe_cur >= self._nlist:
+                    break
+                active = np.nonzero(unfilled)[0]
+                nprobe_cur = min(self._nlist, nprobe_cur * 4)
+                if len(active) * self._nlist <= 1 << 20:
+                    probes_act = coarse_probe_host(xq[active], self._centroids, nprobe_cur, is_l2)
+                else:
+                    q_act = to_device(self._pad_q_host(xq[active]))[: len(active)]
+                    probes_act = coarse_probe(
+                        q_act, self._store["centroids"], nprobe=nprobe_cur, is_l2=is_l2
+                    ).cpu().numpy()
+                best_s[active], best_p[active] = self._rescan_subset(xq[active], probes_act, plan, keep_sorted, k)
 
         if mode == "dist":
             dists = best_s
@@ -385,13 +578,13 @@ class IvfIndexNode(IndexNode):
         )
         dists, ids = self._search_batch(
             xq, cfg.k, int(cfg.get("nprobe", 8)), self._keep_sorted_mask(bitset), n_valid,
-            bool(cfg.get("ensure_topk_full", True)), q_pad_dev,
+            bool(cfg.get("ensure_topk_full", True)), q_pad_dev, int(cfg.get("refine_k", 1) or 1),
         )
         return expected.Ok(GenResultDataSet(dataset.rows, cfg.k, ids, dists))
 
-    @staticmethod
-    def HasRawData(metric_type: str = "L2") -> bool:
-        return True
+    def HasRawData(self, metric_type: str = "L2") -> bool:
+        # reference CommonHasRawData (ivf.cc:177-199): FLAT true, PQ false
+        return self.VARIANT == "flat"
 
     # --- serialization ------------------------------------------------------------------
     def Serialize(self, binset: BinarySet) -> Status:
@@ -413,8 +606,13 @@ class IvfIndexNode(IndexNode):
             "dim": self._dim,
             "nlist": self._nlist,
             "data_type": self.data_type,
-            "refine_cfg": None,
+            "refine_cfg": self._refine_cfg,
         }
+        if self._pq is not None:
+            arrays["pq_codebooks"] = self._pq.codebooks
+            meta["pq_nbits"] = self._pq.nbits
+            if self._opq_rot is not None:
+                arrays["opq_rotation"] = self._opq_rot
         binset.Append(self.Type(), write_sections(arrays, meta=meta))
         return Status.success
 
@@ -445,13 +643,24 @@ class IvfIndexNode(IndexNode):
 
     @classmethod
     def CreateConfig(cls) -> Config:
-        return IvfFlatConfig()
+        return _CONFIGS[cls.VARIANT]()
 
 
 class IvfFlatNode(IvfIndexNode):
     VARIANT = "flat"
 
 
+class IvfPqNode(IvfIndexNode):
+    VARIANT = "pq"
+
+
 register_index(
     IndexEnum.INDEX_FAISS_IVFFLAT, ("fp32",), feature.FLOAT32 | feature.KNN | feature.MMAP,
 )(IvfFlatNode)
+register_index(
+    IndexEnum.INDEX_FAISS_IVFPQ, ("fp32",), feature.FLOAT32 | feature.KNN | feature.MMAP,
+)(IvfPqNode)
+# the legacy faiss-GPU name keeps the plain IVF_PQ config (reference ivf.cc:1957-1962)
+register_index(
+    IndexEnum.INDEX_FAISS_GPU_IVFPQ, ("fp32",), feature.FLOAT32 | feature.KNN | feature.GPU,
+)(IvfPqNode)

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (``knowhere_tpu_torch/csrc``).
 
-Every ``*.cu`` under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded with ctypes. The library is
+Every ``*.cu`` under ``csrc/`` is compiled by its own ``nvcc`` for ``sm_90a``
+(all at once) and linked into one shared library with a plain C interface,
+loaded with ctypes. The library is
 built at first use into ``build/knowhere_tpu_torch/`` at the repository root
 and rebuilt whenever the hash of the sources changes. Nothing is built or
 imported when this module is imported: the CPU tests import every module.
@@ -40,6 +41,9 @@ _SIGNATURES = {
     "kw_ivf_int8_scan": [_P] * 9 + [_I] * 6 + [_P],
     # blk, nrows, q, data, keep, out_s, out_p, T, Qg, d, kk, is_l2, three_pass, stream
     "kw_ivf_f32_scan": [_P] * 7 + [_I] * 6 + [_P],
+    # blk, nrows, lids, q, books, clut, cents, codes, keep, out_s, out_p,
+    # T, Qg, d, m, ksub, sub, kk, is_l2, nib, stream
+    "kw_ivf_adc_scan": [_P] * 11 + [_I] * 9 + [_P],
     # base, nrm, q, gmax, nb_pad, nq_pad, d, a, stream
     "kw_flat_group_max": [_P] * 4 + [_I] * 3 + [ctypes.c_float, _P],
     # gmax, n, nq, k, out_v, out_g, stream
@@ -73,17 +77,34 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds) -> None:
+    """Run the commands concurrently; raise with the first failure's stderr."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for c in cmds]
+    errors = []
+    for c, p in zip(cmds, procs):
+        _, err = p.communicate()
+        if p.returncode != 0:
+            errors.append(f"{' '.join(c)} ({p.returncode}):\n{err}")
+    if errors:
+        raise RuntimeError("nvcc failed: " + "\n".join(errors))
+
+
 def _build() -> ctypes.CDLL:
     global build_seconds
     so = _BUILD_DIR / f"libknowhere_kernels_{_source_hash()}.so"
     if not so.exists():
         t0 = time.perf_counter()
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tag = f"{so.stem}.{os.getpid()}"
+        compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+        srcs = sorted(_CSRC.glob("*.cu"))
+        objs = [_BUILD_DIR / f"{tag}.{src.stem}.o" for src in srcs]
+        # one nvcc per source, all at once, then one link
+        _run_all([[_nvcc(), *compile_flags, "-c", str(s), "-o", str(o)] for s, o in zip(srcs, objs)])
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(_CSRC.glob("*.cu")))]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+        _run_all([[_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, objs)]])
+        for o in objs:
+            o.unlink()
         os.replace(tmp, so)  # atomic: concurrent builders never load a partial file
         build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(so))

@@ -1,5 +1,5 @@
 """IVF list-scan engine in PyTorch (counterpart of knowhere_tpu/ops/ivf_scan.py,
-raw kind).
+raw and pq kinds).
 
 The (query, probed-list) pairs of a batch are inverted into dense tasks:
 
@@ -10,11 +10,13 @@ so each task is a dense (Qg x B x d) product and each list block is read
 once per query group. Results are merged per query by inverting (task row ->
 query slot) and running one final top-k over the (nq, S*kk) pool.
 
-Dispatch is the reference's on-TPU dispatch on every device: FAST/BF16 with an
-aligned store and an int8 sidecar (d % 128 == 0) always takes the int8 scan
-kernel; without the sidecar FAST/BF16 take the f32 scan kernel; EXACT and
-unaligned small corpora take the plain task scan (``_scan_chunk``). Only the
-kernel wrappers (ops/ivf_cuda.py) look at the tensors' device.
+Dispatch is the reference's on-TPU dispatch on every device. Raw stores:
+FAST/BF16 with an aligned store and an int8 sidecar (d % 128 == 0) always
+take the int8 scan kernel; without the sidecar FAST/BF16 take the f32 scan
+kernel. PQ stores: every precision but EXACT takes the ADC scan kernel over an
+aligned store. EXACT and unaligned small corpora take the plain task scan
+(``_scan_chunk``, which decodes PQ codes). Only the kernel wrappers
+(ops/ivf_cuda.py, ops/adc_cuda.py) look at the tensors' device.
 """
 
 from __future__ import annotations
@@ -26,11 +28,13 @@ import numpy as np
 import torch
 
 from ..device import to_device
+from .adc_cuda import SMEM_LIMIT, adc_scan_tasks, adc_smem_bytes, unpack_codes
 from .ivf_cuda import LIST_ALIGN, f32_scan_tasks, int8_scan_tasks, task_kk
 from .topk import topk_leftmost
 
 NEG_INF = -float("inf")
 _PLAIN_TASK_CHUNK = 4096  # tasks per plain-scan step: bounds the gathered rows
+_DECODE_BYTES = 256 << 20  # decoded f32 rows per plain PQ scan step
 
 
 # ---------------------------------------------------------------------------
@@ -339,11 +343,18 @@ def _pad16(n: int) -> int:
 # ---------------------------------------------------------------------------
 
 
+def _nib(store: Dict[str, torch.Tensor]) -> bool:
+    """Whether a PQ store's codes are nibble-packed (two 4-bit codes a byte,
+    models/ivf.py): their rows are then m/2 bytes wide."""
+    return store["codes"].shape[1] != store["books"].shape[0]
+
+
 def _scan_chunk(
-    q: torch.Tensor,  # (nq, d) f32
+    q: torch.Tensor,  # (nq, d) f32 (OPQ-rotated for pq)
     store: Dict[str, torch.Tensor],
     row_start: torch.Tensor,  # (Tc,)
     nrows: torch.Tensor,  # (Tc,)
+    list_id: torch.Tensor,  # (Tc,)
     qids: torch.Tensor,  # (Tc, Qg)
     keep_sorted: Optional[torch.Tensor],  # (nb_pad + slack,) bool or None
     *,
@@ -351,13 +362,25 @@ def _scan_chunk(
     kk: int,
     is_l2: bool,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-f32 task scan (raw kind): (scores (Tc,Qg,kk) larger-is-better,
-    positions (Tc,Qg,kk)); -inf / -1 for empty slots."""
+    """Full-f32 task scan: (scores (Tc,Qg,kk) larger-is-better, positions
+    (Tc,Qg,kk)); -inf / -1 for empty slots. PQ stores decode each row as its
+    codewords plus the list's scan-frame centroid (cent_scan under OPQ)."""
     rows_idx = row_start.long()[:, None] + torch.arange(B, device=q.device)[None, :]
-    rows = store["data"][rows_idx].float()  # (Tc, B, d)
+    if "codebooks" in store:
+        books = store["codebooks"]  # (m, ksub, sub) f32
+        m, ksub, sub = books.shape
+        code = unpack_codes(store["codes"][rows_idx], m, _nib(store)) + torch.arange(m, device=q.device) * ksub
+        rows = books.reshape(m * ksub, sub)[code].reshape(*rows_idx.shape, m * sub)
+        cents = store.get("cent_scan", store["centroids"])
+        rows = torch.nn.functional.pad(rows, (0, cents.shape[1] - m * sub))
+        rows = rows + cents[list_id.long()][:, None, :]
+        norms = (rows * rows).sum(-1) if is_l2 else None
+    else:
+        rows = store["data"][rows_idx].float()  # (Tc, B, d)
+        norms = store["norms"][rows_idx] if is_l2 else None
     qs = q[qids.long().clamp(min=0)]  # (Tc, Qg, d)
     dots = torch.bmm(qs, rows.transpose(1, 2))
-    score = 2.0 * dots - store["norms"][rows_idx][:, None, :] if is_l2 else dots
+    score = 2.0 * dots - norms[:, None, :] if is_l2 else dots
     ok = (torch.arange(B, device=q.device)[None, :] < nrows.long()[:, None])[:, None, :]
     if keep_sorted is not None:
         ok = ok & keep_sorted[rows_idx][:, None, :]
@@ -485,6 +508,17 @@ def scan_available(d: int, k: int, offsets: np.ndarray, prec: str) -> bool:
     return prec in ("fast", "bf16") and d % 128 == 0 and k >= 1 and _aligned(offsets)
 
 
+def adc_available(store: dict, d: int, k: int, offsets: np.ndarray) -> bool:
+    """The ADC scan serves PQ stores over aligned lists (the counterpart of
+    the reference's pallas_adc_available, without its 8192-entry LUT cap:
+    the kernel walks subspaces in chunks). It needs d % 128 == 0 and a block
+    whose shared memory fits."""
+    if "books" not in store or d % 128 != 0 or k < 1 or not _aligned(offsets):
+        return False
+    m, ksub, _ = store["books"].shape
+    return adc_smem_bytes(d, m, ksub, _nib(store)) <= SMEM_LIMIT
+
+
 def _empty(nq: int, k: int, dev) -> Tuple[torch.Tensor, torch.Tensor]:
     return (
         torch.full((nq, k), NEG_INF, dtype=torch.float32, device=dev),
@@ -494,28 +528,30 @@ def _empty(nq: int, k: int, dev) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def _device_tasks_chunked(probes_dev, store, lens_arr, B: int, Qg: int, chunk: int):
     """On-device task build with static bounds from the list geometry.
-    Returns (row_start, nrows, qids (total,Qg), slots (total,Qg), Tc, S)."""
+    Returns (row_start, nrows, list_id, qids (total,Qg), slots (total,Qg),
+    Tc, S)."""
     nq_p, nprobe = probes_dev.shape
     T_max, G_max, S_max = device_task_bounds(nq_p, nprobe, lens_arr, B, Qg)
     Tc = min(chunk, T_max)
-    row_start, nrows, _, qids_t, slots_t = build_scan_tasks_torch(
+    tasks = build_scan_tasks_torch(
         probes_dev, store["offsets_dev"], store["lens_dev"],
         B=B, Qg=Qg, T_max=T_max, G_max=G_max, nlist=len(lens_arr),
     )
-    return row_start, nrows, qids_t, slots_t, Tc, _pad16(S_max)
+    return (*tasks, Tc, _pad16(S_max))
 
 
 def _tasks(q_dev, store, probes, list_offsets, lens_arr, B, Qg, chunk):
-    """(row_start, nrows, qids, slots, Tc, S) on the device, or None when no
-    query probes a non-empty list. Device probes build on the device; host
-    probes (tiny batches, full probe) build with numpy."""
+    """(row_start, nrows, list_id, qids, slots, Tc, S) on the device, or None
+    when no query probes a non-empty list. Device probes build on the device;
+    host probes (tiny batches, full probe, widening retries) build with
+    numpy."""
     if isinstance(probes, torch.Tensor):
         return _device_tasks_chunked(probes, store, lens_arr, B, Qg, chunk)
     batch = _build_tasks(probes, q_dev.shape[0], list_offsets, B, Qg, lens_arr)
     if batch is None:
         return None
-    packed = [to_device(a.astype(np.int32)) for a in (batch.row_start, batch.nrows, batch.qids, batch.slots)]
-    return (*packed, chunk, _pad16(batch.n_slots))
+    arrays = (batch.row_start, batch.nrows, batch.list_id, batch.qids, batch.slots)
+    return (*[to_device(a.astype(np.int32)) for a in arrays], chunk, _pad16(batch.n_slots))
 
 
 def ivf_scan_search(
@@ -529,7 +565,8 @@ def ivf_scan_search(
     prec: Optional[str] = None,
     list_lengths: Optional[np.ndarray] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Scan a raw f32 store. Returns (scores (nq,k) larger-is-better,
+    """Scan a raw f32 store or a PQ store (one that holds "codebooks"; q_dev
+    then in the OPQ-rotated frame). Returns (scores (nq,k) larger-is-better,
     positions (nq,k) int32 into the sorted storage; -1 padded), both on the
     device."""
     from .distances import matmul_precision_name
@@ -556,24 +593,30 @@ def ivf_scan_search(
     while Qg < min(avg, cap):
         Qg *= 2
 
-    if prec == "int8":
-        if int8_available(store, d, k, list_offsets):
-            return _int8_search(q_dev, store, probes, list_offsets, lens_arr, k, is_l2, Qg, keep_sorted)
-        prec = "fast"  # no int8 sidecar: the f32 ranking path
-    if scan_available(d, k, list_offsets, prec):
-        return _f32_search(q_dev, store, probes, list_offsets, lens_arr, k, is_l2, Qg, prec, keep_sorted)
+    pq = "codebooks" in store
+    if pq:
+        if prec != "exact" and adc_available(store, d, k, list_offsets):
+            return _adc_search(q_dev, store, probes, list_offsets, lens_arr, k, is_l2, Qg, keep_sorted)
+    else:
+        if prec == "int8":
+            if int8_available(store, d, k, list_offsets):
+                return _int8_search(q_dev, store, probes, list_offsets, lens_arr, k, is_l2, Qg, keep_sorted)
+            prec = "fast"  # no int8 sidecar: the f32 ranking path
+        if scan_available(d, k, list_offsets, prec):
+            return _f32_search(q_dev, store, probes, list_offsets, lens_arr, k, is_l2, Qg, prec, keep_sorted)
 
     # plain full-f32 task scan; blocks shrink for small-list layouts
     B = 256 if float(lens_arr.mean() or 1.0) <= 256 else 512
     kk = min(k, B)
-    tasks = _tasks(q_dev, store, probes, list_offsets, lens_arr, B, Qg, _PLAIN_TASK_CHUNK)
+    chunk = max(32, _DECODE_BYTES // (B * d * 4)) if pq else _PLAIN_TASK_CHUNK
+    tasks = _tasks(q_dev, store, probes, list_offsets, lens_arr, B, Qg, chunk)
     if tasks is None:
         return _empty(nq, k, q_dev.device)
-    rs, nr, qids, slots, Tc, S = tasks
+    rs, nr, lid, qids, slots, Tc, S = tasks
     parts = [
         _scan_chunk(
-            q_dev, store, rs[c : c + Tc], nr[c : c + Tc], qids[c : c + Tc], keep_sorted,
-            B=B, kk=kk, is_l2=is_l2,
+            q_dev, store, rs[c : c + Tc], nr[c : c + Tc], lid[c : c + Tc], qids[c : c + Tc],
+            keep_sorted, B=B, kk=kk, is_l2=is_l2,
         )
         for c in range(0, rs.shape[0], Tc)
     ]
@@ -601,7 +644,7 @@ def _int8_search(q_dev, store, probes, list_offsets, lens_arr, k, is_l2, Qg, kee
     tasks = _tasks(q_dev, store, probes, list_offsets, lens_arr, B, Qg, _kernel_chunk(Qg, d))
     if tasks is None:
         return _empty(nq, k, q_dev.device)
-    rs, nr, qids, slots, Tc, S = tasks
+    rs, nr, _, qids, slots, Tc, S = tasks
     blk = rs // B
     s_parts, p_parts = [], []
     for c in range(0, rs.shape[0], Tc):
@@ -624,7 +667,7 @@ def _f32_search(q_dev, store, probes, list_offsets, lens_arr, k, is_l2, Qg, prec
     tasks = _tasks(q_dev, store, probes, list_offsets, lens_arr, B, Qg, _kernel_chunk(Qg, d))
     if tasks is None:
         return _empty(nq, k, q_dev.device)
-    rs, nr, qids, slots, Tc, S = tasks
+    rs, nr, _, qids, slots, Tc, S = tasks
     blk = rs // B
     s_parts, p_parts = [], []
     for c in range(0, rs.shape[0], Tc):
@@ -632,6 +675,30 @@ def _f32_search(q_dev, store, probes, list_offsets, lens_arr, k, is_l2, Qg, prec
         s, p = f32_scan_tasks(
             blk[c : c + Tc], nr[c : c + Tc], q_dev[safe], store["data"], keep_sorted,
             B=B, kk=kk, is_l2=is_l2, three_pass=prec == "fast",
+        )
+        s_parts.append(s)
+        p_parts.append(p)
+    return _merge_tasks(torch.cat(s_parts), torch.cat(p_parts), qids, slots, nq=nq, S=S, kk=kk, k=k)
+
+
+def _adc_search(q_dev, store, probes, list_offsets, lens_arr, k, is_l2, Qg, keep_sorted=None):
+    """PQ ADC scan (kernel: adc_cuda.adc_scan_tasks) over the whole batch;
+    q_dev is in the OPQ-rotated frame, the centroid terms use cent_scan."""
+    nq, d = q_dev.shape
+    B = LIST_ALIGN
+    kk = task_kk(k, B)
+    tasks = _tasks(q_dev, store, probes, list_offsets, lens_arr, B, Qg, _kernel_chunk(Qg, d))
+    if tasks is None:
+        return _empty(nq, k, q_dev.device)
+    rs, nr, lid, qids, slots, Tc, S = tasks
+    blk = rs // B
+    cents = store.get("cent_scan", store["centroids"])
+    s_parts, p_parts = [], []
+    for c in range(0, rs.shape[0], Tc):
+        safe = qids[c : c + Tc].long().clamp(min=0)
+        s, p = adc_scan_tasks(
+            blk[c : c + Tc], nr[c : c + Tc], lid[c : c + Tc], q_dev[safe], store["books"], store["clut"],
+            cents, store["codes"], keep_sorted, B=B, kk=kk, is_l2=is_l2, nib=_nib(store),
         )
         s_parts.append(s)
         p_parts.append(p)

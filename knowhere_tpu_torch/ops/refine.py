@@ -1,30 +1,64 @@
 """Refine pass — exact re-scoring of gathered candidates (counterpart of
-knowhere_tpu/ops/refine.py, raw kind).
+knowhere_tpu/ops/refine.py).
 
 The scan returns a widened candidate pool; this pass gathers the candidates'
-raw rows and recomputes exact distances in one batched full-f32 product, then
-re-selects the top-k (ties to the earlier candidate, as ``jax.lax.top_k``).
-The reference leaves this to XLA; here it is plain torch ops.
+refine rows (raw f32/fp16/bf16 rows, or SQ8 codes decoded with per-dim
+affine parameters) and recomputes their distances in one batched full-f32
+product, then re-selects the top-k (ties to the earlier candidate, as
+``jax.lax.top_k``). The reference leaves this to XLA; here it is plain torch
+ops.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from dataclasses import dataclass
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from .topk import topk_leftmost
 
+SQ8_LEVELS = 256
+
+
+def sq8_encode(x: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """SQ8 refine rows (the reference's sq_train + sq_encode, SQ8): per-dim
+    vmin / vdiff from the rows, codes floor((x - vmin) / vdiff * 256) clipped
+    to [0, 255]. Returns (codes (n, d) uint8, vmin (d,) f32, vdiff (d,) f32)."""
+    vmin = x.min(axis=0).astype(np.float32)
+    vdiff = np.maximum(x.max(axis=0).astype(np.float32) - vmin, 1e-20).astype(np.float32)
+    codes = np.clip(np.floor((x - vmin[None, :]) / vdiff[None, :] * SQ8_LEVELS), 0, SQ8_LEVELS - 1)
+    return codes.astype(np.uint8), vmin, vdiff
+
+
+@dataclass
+class RefineStore:
+    """Device rows the refine pass scores: kind 'raw' (f32, fp16 or bf16 rows)
+    or 'sq8' (uint8 codes with per-dim vmin / vdiff)."""
+
+    kind: str
+    data: torch.Tensor  # (nb_pad [+ slack], d) rows in sorted storage order
+    vmin: Optional[torch.Tensor] = None
+    vdiff: Optional[torch.Tensor] = None
+
+    def rows(self, pos: torch.Tensor) -> torch.Tensor:
+        """f32 rows at storage positions ``pos`` (any shape, all >= 0)."""
+        vecs = self.data[pos.long()]
+        if self.kind == "sq8":
+            return self.vmin + (vecs.float() + 0.5) / SQ8_LEVELS * self.vdiff
+        return vecs.float()
+
 
 def refine_topk_device(
     q: torch.Tensor,  # (nq, d) f32
-    data: torch.Tensor,  # (nb_pad + slack, d) raw rows in sorted storage order
-    cand: torch.Tensor,  # (nq, R) int32 positions into data, -1 padded
+    store: RefineStore,
+    cand: torch.Tensor,  # (nq, R) int32 positions into store.data, -1 padded
     k: int,
     is_l2: bool,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (dists (nq,k) native convention, positions (nq,k), -1 pad)."""
-    vecs = data[cand.clamp(min=0).long()].float()  # (nq, R, d)
+    vecs = store.rows(cand.clamp(min=0))  # (nq, R, d)
     dots = torch.einsum("qd,qrd->qr", q, vecs)
     if is_l2:
         dist = (q * q).sum(1, keepdim=True) - 2.0 * dots + (vecs * vecs).sum(2)

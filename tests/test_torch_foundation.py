@@ -35,7 +35,7 @@ def test_status_enum_matches_reference():
 
 def test_only_flat_and_ivf_flat_registered():
     names = {name for name, _ in ktt.IndexFactory.Instance()._registry}
-    assert names == {"FLAT", "IVF_FLAT"}
+    assert names == {"FLAT", "IVF_FLAT", "IVF_PQ", "GPU_FAISS_IVF_PQ"}
 
 
 def _probe(pkg, name, action):
@@ -94,8 +94,8 @@ def test_misuse_status_matches_reference(name, action, want):
 
 
 def test_unported_family_gives_unknown_index_status():
-    assert kt.IndexFactory.Instance().Create("IVF_PQ").has_value()
-    got = ktt.IndexFactory.Instance().Create("IVF_PQ")
+    assert kt.IndexFactory.Instance().Create("HNSW").has_value()
+    got = ktt.IndexFactory.Instance().Create("HNSW")
     unknown = ktt.IndexFactory.Instance().Create("NO_SUCH_INDEX")
     assert got.error() == unknown.error() == ktt.Status.invalid_index_error
 
