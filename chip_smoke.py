@@ -20,15 +20,25 @@ Run from the root of a checkout on a machine with one CUDA GPU. In order:
    Serialize/Deserialize round trip, and an EXACT-precision search of the
    first 1,000 queries (the plain decode scan) that FAST must come within
    0.01 recall of;
-6. the bench's GIST leg of IVF_PQ (m=96, nbits=8, FP16 refine, so
+6. IVF_SQ8 on the SIFT1M-like corpus (nlist=1024, sq_type SQ8, FAST,
+   nprobe=16, k=10; the bench's SQ8 leg): served by the int8 scan over the
+   u8 codes with an SQ8-decode rerank; recall@10 against the FLAT truth,
+   warm QPS, a 50% bitset search, a Serialize/Deserialize round trip, EXACT
+   on the first 1,000 queries; then the same BinarySet loaded with
+   KNOWHERE_DISABLE_INT8_SCAN=1, served by the SQ scan kernel;
+7. IVF_RABITQ on the same corpus (nlist=1024, raw refine, FAST, nprobe=16,
+   refine_k=8, k=10): served by the RaBitQ scan kernel; recall, warm QPS,
+   bitset, round trip, EXACT on 1,000 queries;
+8. the bench's GIST leg of IVF_PQ (m=96, nbits=8, FP16 refine, so
    m * ksub = 24,576 LUT entries) at a reduced size: a GIST-like corpus of
    100,000 x 960 with 1,000 queries instead of 1M, nlist=256 instead of
    1024 and nprobe=32 instead of 384 (refine_k=32), all cut for chip time;
    FLAT ground truth on that corpus, FAST recall within 0.01 of EXACT;
-7. print the kernel summary, the card line, and the contract line
-   {"ok": true, "device": {...}} last.
+9. print the kernel summary (each kernel's time, plain-version time and
+   bound), the card line, and the contract line {"ok": true, "device":
+   {...}} last.
 
-Kernel launch counters are zeroed right before each of phases 4-6 and read
+Kernel launch counters are zeroed right before each of phases 4-8 and read
 right after it; every kernel must have launched on its path.
 
 Every phase raises on failure; the script then exits non-zero and prints no
@@ -69,11 +79,29 @@ F32_PATH_RECALL_FLOOR = 0.95
 ADC_RTOL, ADC_ATOL, ADC_POS_AGREE = 1e-3, 1e-2, 0.99
 PQ_RECALL_FLOOR = 0.945  # IVF_PQ recall@10 at nprobe=12
 PQ_TPU_ANCHOR = 0.9544  # the JAX package's recall on a TPU (docs/BENCHMARKS.md:16)
-PQ_FAST_VS_EXACT = 0.01  # FAST recall may trail EXACT recall by this much
 IVF_PQ_BUILD = {"metric_type": "L2", "nlist": 1024, "m": 16, "nbits": 8, "refine": True, "refine_type": "FP16"}
 IVF_PQ_SEARCH = {"metric_type": "L2", "k": 10, "nprobe": 12, "refine_k": 8}
 GIST_PQ_BUILD = {"metric_type": "L2", "nlist": 256, "m": 96, "nbits": 8, "refine": True, "refine_type": "FP16"}
 GIST_PQ_SEARCH = {"metric_type": "L2", "k": 10, "nprobe": 32, "refine_k": 32}
+# SQ: decoded values and queries are rounded to bf16 in both (single pass) or
+# kept f32 (three_pass); the products are exact, the sums and the f32 norms
+# run in other orders: the f32 scan's tolerances hold.
+SQ8_BUILD = {"metric_type": "L2", "nlist": 1024, "sq_type": "SQ8"}
+SQ8_SEARCH = {"metric_type": "L2", "k": 10, "nprobe": 16}
+SQ8_RECALL_FLOOR = 0.945  # IVF_SQ8 recall@10 at nprobe=16
+SQ8_TPU_ANCHOR = 0.9520  # the JAX package's recall on a TPU (docs/BENCHMARKS.md:19)
+SQ_SCAN_RECALL_FLOOR = 0.90  # the same index served by the SQ scan kernel
+SQ_SCAN_VS_EXACT = 0.03
+# RaBitQ: the same +/-bf16(qr) terms in both, summed in another order; |qr|^2
+# and <q,c> too: the f32 scan's tolerances hold.
+RBQ_BUILD = {"metric_type": "L2", "nlist": 1024}
+RBQ_SEARCH = {"metric_type": "L2", "k": 10, "nprobe": 16, "refine_k": 8}
+RBQ_RECALL_FLOOR = 0.85
+FAST_VS_EXACT = 0.01  # FAST recall may trail EXACT recall by this much
+# Published H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W): device
+# memory bytes/s, and operations/s by operand type.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
 
 
 def gen_corpus(nb, nq, dim, n_clusters=500, intrinsic_dim=48, seed=0, center_scale=(0.9, 1.6)):
@@ -123,6 +151,60 @@ def recall_at(ids: np.ndarray, gt: np.ndarray) -> float:
     return hits / gt.size
 
 
+def bound(nbytes: float, ops: dict) -> dict:
+    """The least time the card could take for a kernel's work: the larger of
+    its bytes (each input read once, each output written once) over the
+    memory rate and its operations ({operand type: count}) over the peak
+    rate of their type. Returns {"bound_ms", "bound_by"}."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = sum(n / PEAK_OPS_PER_S[kind] for kind, n in ops.items())
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3, "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _task_work(blk, nrows, keep, Qg, kk, B=512):
+    """What a task scan's data needs: the distinct list blocks it reads, the
+    rows it scores (the sum of nrows), and the bytes of the task indices,
+    the mask of the blocks read and the (score, position) outputs."""
+    import torch
+
+    n_blocks = int(torch.unique(blk).numel())
+    rows = int(nrows.long().sum())
+    T = blk.numel()
+    side = T * 8 + T * Qg * kk * 8 + (n_blocks * B if keep is not None else 0)
+    return n_blocks, rows, side
+
+
+def _dot_ops(three_pass: bool, dots: int, f32_ops: int) -> dict:
+    """A scan's operations by type: its dots in f32 (three_pass, full f32) or
+    bf16 (the single bf16 pass), plus f32_ops more in f32."""
+    ops = {"f32": f32_ops}
+    key = "f32" if three_pass else "bf16"
+    ops[key] = ops.get(key, 0) + dots
+    return ops
+
+
+def _run_case(name, kernel, plain, args, kw, rtol, atol, pos_agree, work, reps=5, **desc):
+    """Run one kernel case and its plain version on the same inputs, time
+    both, compare (scores within rtol/atol, positions on >= pos_agree of
+    slots) and raise on disagreement. work = (bytes, ops) for the bound."""
+    import torch
+
+    s_k, p_k = kernel(*args, **kw)
+    s_p, p_p = plain(*args, **kw)
+    torch.cuda.synchronize()
+    err = (s_k - s_p).abs().max().item()
+    ok = torch.allclose(s_k, s_p, rtol=rtol, atol=atol)
+    pos_eq = (p_k == p_p).float().mean().item()
+    ms = time_ms(lambda: kernel(*args, **kw), reps=reps)
+    plain_ms = time_ms(lambda: plain(*args, **kw), reps=3)
+    line = dict(desc, kk=kw["kk"], mask=args[-1] is not None, is_l2=kw["is_l2"], max_abs_err=err,
+                pos_agree=pos_eq, ms=ms, plain_ms=plain_ms, **bound(*work))
+    print(name, json.dumps(line))
+    if not ok or pos_eq < pos_agree:
+        raise AssertionError(f"{name} disagrees with its plain version: {line}")
+    return line
+
+
 # ---------------------------------------------------------------------------
 # 3. kernels vs plain versions
 # ---------------------------------------------------------------------------
@@ -153,7 +235,7 @@ def check_ivf_kernels(dev, n_tasks=4096, n_blocks=2048, Qg=128, d=128):
     sz = torch.rand((n_tasks, Qg, 1), generator=g, device=dev) * 0.01
     rows = torch.randn((nb_pad, d), generator=g, device=dev)
     qf = torch.randn((n_tasks, Qg, d), generator=g, device=dev)
-    results = {"ivf_int8_scan": [], "ivf_f32_scan": []}
+    results = {"ivf_int8_scan": [], "ivf_f32_scan": [], "ivf_sq_scan": [], "ivf_rbq_scan": []}
 
     # (kk, mask, is_l2, u8 codes): the main path's L2 cases first, then IP
     # and the SQ8 u8-code branch of the same kernel
@@ -161,43 +243,69 @@ def check_ivf_kernels(dev, n_tasks=4096, n_blocks=2048, Qg=128, d=128):
                   (32, keep, True, False), (16, keep, False, False), (16, None, True, True)]
     for kk, mask, is_l2, u8 in int8_cases:
         c = codes.view(torch.uint8) if u8 else codes
-        args = (blk, nrows, q8, sz, c, nrm, mask)
-        kw = dict(B=B, kk=kk, is_l2=is_l2)
-        s_k, p_k = ivf_cuda.int8_scan_tasks(*args, **kw)
-        s_p, p_p = ivf_cuda.int8_scan_plain(*args, **kw)
-        torch.cuda.synchronize()
-        err = (s_k - s_p).abs().max().item()
-        rel_ok = torch.allclose(s_k, s_p, rtol=INT8_RTOL, atol=0.0)
-        pos_eq = (p_k == p_p).float().mean().item()
-        ms = time_ms(lambda: ivf_cuda.int8_scan_tasks(*args, **kw))
-        plain_ms = time_ms(lambda: ivf_cuda.int8_scan_plain(*args, **kw), reps=3)
-        line = dict(kk=kk, mask=mask is not None, is_l2=is_l2, u8=u8, max_abs_err=err,
-                    pos_agree=pos_eq, ms=ms, plain_ms=plain_ms)
-        print("ivf_int8_scan", json.dumps(line))
-        if not rel_ok or pos_eq != 1.0:
-            raise AssertionError(f"ivf_int8_scan disagrees with its plain version: {line}")
-        results["ivf_int8_scan"].append(line)
+        n_blk, n_rows, side = _task_work(blk, nrows, mask, Qg, kk)
+        nbytes = n_blk * B * (d + 4 * is_l2) + n_tasks * Qg * (d + 4) + side
+        results["ivf_int8_scan"].append(_run_case(
+            "ivf_int8_scan", ivf_cuda.int8_scan_tasks, ivf_cuda.int8_scan_plain, (blk, nrows, q8, sz, c, nrm, mask),
+            dict(B=B, kk=kk, is_l2=is_l2), INT8_RTOL, 0.0, 1.0, (nbytes, {"int8": 2 * n_rows * Qg * d}),
+            reps=10, u8=u8,
+        ))
 
     # (three_pass, kk, mask, is_l2)
     f32_cases = [(True, 16, None, True), (True, 32, keep, True), (False, 16, None, True),
                  (False, 32, keep, True), (True, 16, keep, False)]
     for three_pass, kk, mask, is_l2 in f32_cases:
-        args = (blk, nrows, qf, rows, mask)
-        kw = dict(B=B, kk=kk, is_l2=is_l2, three_pass=three_pass)
-        s_k, p_k = ivf_cuda.f32_scan_tasks(*args, **kw)
-        s_p, p_p = ivf_cuda.f32_scan_plain(*args, **kw)
-        torch.cuda.synchronize()
-        err = (s_k - s_p).abs().max().item()
-        ok = torch.allclose(s_k, s_p, rtol=F32_RTOL, atol=F32_ATOL)
-        pos_eq = (p_k == p_p).float().mean().item()
-        ms = time_ms(lambda: ivf_cuda.f32_scan_tasks(*args, **kw), reps=5)
-        plain_ms = time_ms(lambda: ivf_cuda.f32_scan_plain(*args, **kw), reps=3)
-        line = dict(three_pass=three_pass, kk=kk, mask=mask is not None, is_l2=is_l2, max_abs_err=err,
-                    pos_agree=pos_eq, ms=ms, plain_ms=plain_ms)
-        print("ivf_f32_scan", json.dumps(line))
-        if not ok or pos_eq < F32_POS_AGREE:
-            raise AssertionError(f"ivf_f32_scan disagrees with its plain version: {line}")
-        results["ivf_f32_scan"].append(line)
+        n_blk, n_rows, side = _task_work(blk, nrows, mask, Qg, kk)
+        nbytes = n_blk * B * d * 4 + n_tasks * Qg * d * 4 + side
+        ops = _dot_ops(three_pass, 2 * n_rows * Qg * d, 2 * n_blk * B * d * is_l2)  # dots + L2 norms
+        results["ivf_f32_scan"].append(_run_case(
+            "ivf_f32_scan", ivf_cuda.f32_scan_tasks, ivf_cuda.f32_scan_plain, (blk, nrows, qf, rows, mask),
+            dict(B=B, kk=kk, is_l2=is_l2, three_pass=three_pass), F32_RTOL, F32_ATOL, F32_POS_AGREE,
+            (nbytes, ops), three_pass=three_pass,
+        ))
+    del rows, codes, q8
+
+    # SQ: u8 codes and the grid; (three_pass, kk, mask, is_l2, levels), the
+    # path's single bf16 pass first
+    codes_u8 = torch.randint(0, 256, (nb_pad, d), generator=g, device=dev, dtype=torch.int32).to(torch.uint8)
+    vmin = torch.randn(d, generator=g, device=dev) - 2.0
+    vdiff = torch.rand(d, generator=g, device=dev) * 4.0 + 0.5
+    sq_cases = [(False, 16, None, True, 256), (False, 32, keep, True, 256), (False, 16, keep, False, 256),
+                (False, 32, None, True, 64), (True, 16, None, True, 256)]
+    for three_pass, kk, mask, is_l2, levels in sq_cases:
+        c = codes_u8 if levels == 256 else codes_u8 >> 2
+        n_blk, n_rows, side = _task_work(blk, nrows, mask, Qg, kk)
+        nbytes = n_blk * B * d + 2 * d * 4 + n_tasks * Qg * d * 4 + side
+        # the dots, plus the decode (and the norms for L2) once per code
+        ops = _dot_ops(three_pass, 2 * n_rows * Qg * d, 2 * n_blk * B * d * (1 + is_l2))
+        results["ivf_sq_scan"].append(_run_case(
+            "ivf_sq_scan", ivf_cuda.sq_scan_tasks, ivf_cuda.sq_scan_plain, (blk, nrows, qf, c, vmin, vdiff, mask),
+            dict(B=B, kk=kk, levels=levels, is_l2=is_l2, three_pass=three_pass), F32_RTOL, F32_ATOL,
+            F32_POS_AGREE, (nbytes, ops), three_pass=three_pass, levels=levels,
+        ))
+    del codes_u8
+
+    # RaBitQ: packed sign bits, corrections, rotated centroids; (three_pass,
+    # kk, mask, is_l2), the path's single bf16 pass at kk=32 first
+    nlist = 1024
+    signs = torch.randint(0, 256, (nb_pad, d // 8), generator=g, device=dev, dtype=torch.int32).to(torch.uint8)
+    rn = torch.rand(nb_pad, generator=g, device=dev) * 4.0
+    tt = torch.rand(nb_pad, generator=g, device=dev) * 0.3 + 0.6
+    cents = torch.randn((nlist, d), generator=g, device=dev)
+    lids = torch.randint(0, nlist, (n_tasks,), generator=g, device=dev, dtype=torch.int32)
+    n_lids = int(torch.unique(lids).numel())
+    rbq_cases = [(False, 32, None, True), (False, 16, keep, True), (False, 16, keep, False), (True, 32, None, True)]
+    for three_pass, kk, mask, is_l2 in rbq_cases:
+        n_blk, n_rows, side = _task_work(blk, nrows, mask, Qg, kk)
+        nbytes = n_blk * B * (d // 8 + 8) + n_lids * d * 4 + n_tasks * (Qg * d * 4 + 4) + side
+        # the sign dots, plus qr and |qr|^2 or <q,c> once per query row
+        ops = _dot_ops(three_pass, 2 * n_rows * Qg * d, 3 * n_tasks * Qg * d)
+        results["ivf_rbq_scan"].append(_run_case(
+            "ivf_rbq_scan", ivf_cuda.rbq_scan_tasks, ivf_cuda.rbq_scan_plain,
+            (blk, nrows, lids, qf, cents, signs, rn, tt, mask),
+            dict(B=B, kk=kk, is_l2=is_l2, three_pass=three_pass), F32_RTOL, F32_ATOL, F32_POS_AGREE,
+            (nbytes, ops), three_pass=three_pass,
+        ))
     return results
 
 
@@ -242,23 +350,19 @@ def check_adc_kernel(dev):
         codes = torch.randint(0, 256 if nib else ksub, (nb_pad + 2048, mb), generator=g, device=dev,
                               dtype=torch.int32).to(torch.uint8)
         keep = torch.rand(nb_pad + 2048, generator=g, device=dev) < 0.5
+        n_lids = int(torch.unique(lids).numel())
         for kk, masked, is_l2 in cases:
-            args = (blk, nrows, lids, q, books, clut, cents, codes, keep if masked else None)
-            kw = dict(B=512, kk=kk, is_l2=is_l2, nib=nib)
-            s_k, p_k = adc_cuda.adc_scan_tasks(*args, **kw)
-            s_p, p_p = adc_cuda.adc_scan_plain(*args, **kw)
-            torch.cuda.synchronize()
-            err = (s_k - s_p).abs().max().item()
-            ok = torch.allclose(s_k, s_p, rtol=ADC_RTOL, atol=ADC_ATOL)
-            pos_eq = (p_k == p_p).float().mean().item()
-            ms = time_ms(lambda: adc_cuda.adc_scan_tasks(*args, **kw), reps=5)
-            plain_ms = time_ms(lambda: adc_cuda.adc_scan_plain(*args, **kw), reps=2)
-            line = dict(tasks=n_tasks, d=d, m=m, ksub=ksub, nib=nib, kk=kk, mask=masked, is_l2=is_l2,
-                        max_abs_err=err, pos_agree=pos_eq, ms=ms, plain_ms=plain_ms)
-            print("ivf_adc_scan", json.dumps(line))
-            if not ok or pos_eq < ADC_POS_AGREE:
-                raise AssertionError(f"ivf_adc_scan disagrees with its plain version: {line}")
-            out.append(line)
+            mask = keep if masked else None
+            n_blk, n_rows, side = _task_work(blk, nrows, mask, 128, kk)
+            nbytes = (n_blk * 512 * mb + n_tasks * (128 * d * 4 + 4) + m * ksub * sub * 2
+                      + n_lids * (m * ksub * 2 + d * 4) + side)
+            # the LUT of every task (hi and lo bf16 passes), then m lookups a row
+            ops = {"bf16": 2 * 2 * n_tasks * 128 * m * ksub * sub, "f32": n_rows * 128 * m}
+            out.append(_run_case(
+                "ivf_adc_scan", adc_cuda.adc_scan_tasks, adc_cuda.adc_scan_plain,
+                (blk, nrows, lids, q, books, clut, cents, codes, mask), dict(B=512, kk=kk, is_l2=is_l2, nib=nib),
+                ADC_RTOL, ADC_ATOL, ADC_POS_AGREE, (nbytes, ops), tasks=n_tasks, d=d, m=m, ksub=ksub, nib=nib,
+            ))
     return out
 
 
@@ -277,15 +381,17 @@ def check_flat_kernel(dev, xb: np.ndarray, xq: np.ndarray):
         v_p, g_p = cuda_flat.flat_group_scan_plain(*args)
         torch.cuda.synchronize()
         err = (v_k - v_p).abs().max().item()
-        bound = FLAT_ATOL + FLAT_RTOL * v_p.abs().max().item()
+        tol = FLAT_ATOL + FLAT_RTOL * v_p.abs().max().item()
         gk, gp = g_k.cpu().numpy(), g_p.cpu().numpy()
         agree = np.mean([len(set(gk[i]) & set(gp[i])) / k for i in range(len(gk))])
         ms = time_ms(lambda: cuda_flat.flat_group_scan(*args), reps=5)
         plain_ms = time_ms(lambda: cuda_flat.flat_group_scan_plain(*args), reps=3)
-        line = dict(nb=store.nb, nq=q.shape[0], k=k, is_l2=is_l2, max_abs_err=err, id_agree=agree,
-                    ms=ms, plain_ms=plain_ms)
+        nq = q.shape[0]
+        nbytes = store.nb * (store.d + 1) * 4 + nq * store.d * 4 + v_k.numel() * 4 + g_k.numel() * 4
+        line = dict(nb=store.nb, nq=nq, k=k, is_l2=is_l2, max_abs_err=err, id_agree=agree, ms=ms,
+                    plain_ms=plain_ms, **bound(nbytes, {"f32": 2 * store.nb * nq * store.d}))
         print("flat_group_scan", json.dumps(line))
-        if err > bound or agree < FLAT_ID_AGREE:
+        if err > tol or agree < FLAT_ID_AGREE:
             raise AssertionError(f"flat_group_scan disagrees with its plain version: {line}")
         out.append(line)
         del store
@@ -400,63 +506,129 @@ def _flat_truth(kt, xb, xq, k=10):
     return flat, _search(flat, kt, xq, {"metric_type": "L2", "k": k})[0]
 
 
-def _exact_vs_fast(kt, idx, xq, gt, cfg):
+def _exact_vs_fast(kt, idx, xq, gt, cfg, name="IVF_PQ"):
     """recall@k of EXACT (the plain decode scan) and FAST on the same queries;
-    FAST must come within PQ_FAST_VS_EXACT."""
+    FAST must come within FAST_VS_EXACT."""
     kt.KnowhereConfig.SetSimdType("GENERIC")  # EXACT
     try:
         exact = recall_at(_search(idx, kt, xq, cfg)[0], gt)
     finally:
         kt.KnowhereConfig.SetSimdType("AUTO")  # back to FAST
     fast = recall_at(_search(idx, kt, xq, cfg)[0], gt)
-    if fast < exact - PQ_FAST_VS_EXACT:
-        raise AssertionError(f"IVF_PQ FAST recall {fast} < EXACT recall {exact} - {PQ_FAST_VS_EXACT}")
+    if fast < exact - FAST_VS_EXACT:
+        raise AssertionError(f"{name} FAST recall {fast} < EXACT recall {exact} - {FAST_VS_EXACT}")
     return exact, fast
 
 
-def pq_path(kt, xb, xq, gt, flat, search_reps=5):
-    """IVF_PQ at the north-star configuration through the public API."""
-    nq, k = len(xq), IVF_PQ_SEARCH["k"]
+def _serve(kt, name, tag, xb, xq, gt, build, search, floor, search_reps=5):
+    """Build `name`, then a warm-up and search_reps timed FAST searches of all
+    queries; recall@k against gt must reach floor. Returns (index, ids,
+    numbers keyed by tag)."""
+    nq, k = len(xq), search["k"]
     out = {}
-    pq = kt.IndexFactory.Instance().Create("IVF_PQ").value()
-    st, out["pq_build_s"] = _timed(lambda: pq.Build(kt.GenDataSetFromArray(xb), IVF_PQ_BUILD))
+    idx = kt.IndexFactory.Instance().Create(name).value()
+    st, out[f"{tag}_build_s"] = _timed(lambda: idx.Build(kt.GenDataSetFromArray(xb), build))
     if st != kt.Status.success:
-        raise RuntimeError(f"IVF_PQ Build: {st.name}")
-    ids, dists = _search(pq, kt, xq, IVF_PQ_SEARCH)  # warm-up
+        raise RuntimeError(f"{name} Build: {st.name}")
+    ids, dists = _search(idx, kt, xq, search)  # warm-up
     times = []
     for _ in range(search_reps):
-        (ids, dists), dt = _timed(lambda: _search(pq, kt, xq, IVF_PQ_SEARCH))
+        (ids, dists), dt = _timed(lambda: _search(idx, kt, xq, search))
         times.append(dt)
-    out["pq_search_s_median"] = float(np.median(times))
-    out["pq_search_s_all"] = times
-    out["pq_qps"] = nq / out["pq_search_s_median"]
-    out["pq_recall_at_10"] = recall_at(ids, gt)
-    out["pq_tpu_anchor_recall_at_10"] = PQ_TPU_ANCHOR  # the reference's, not the port's
+    out[f"{tag}_search_s_median"] = float(np.median(times))
+    out[f"{tag}_search_s_all"] = times
+    out[f"{tag}_qps"] = nq / out[f"{tag}_search_s_median"]
+    out[f"{tag}_recall_at_10"] = recall_at(ids, gt)
     if not np.isfinite(dists).all() or ids.shape != (nq, k) or (ids < 0).any():
-        raise AssertionError("IVF_PQ results not finite / wrong shape / short")
-    if out["pq_recall_at_10"] < PQ_RECALL_FLOOR:
-        raise AssertionError(f"IVF_PQ recall@10 {out['pq_recall_at_10']} < {PQ_RECALL_FLOOR}")
+        raise AssertionError(f"{name} results not finite / wrong shape / short")
+    if out[f"{tag}_recall_at_10"] < floor:
+        raise AssertionError(f"{name} recall@10 {out[f'{tag}_recall_at_10']} < {floor}")
+    return idx, ids, out
 
+
+def _filtered_and_round_trip(kt, name, tag, idx, ids, xb, xq, flat, search):
+    """A 50% bitset search (no filtered or empty id; recall against the
+    filtered FLAT truth) and a Serialize/Deserialize round trip that must
+    give identical ids. Returns (numbers keyed by tag, the BinarySet)."""
+    out = {}
     drop = np.random.default_rng(1).random(len(xb)) < 0.5
-    fids, _ = _search(pq, kt, xq, IVF_PQ_SEARCH, kt.BitsetView.from_bool_array(drop))
+    fids, _ = _search(idx, kt, xq, search, kt.BitsetView.from_bool_array(drop))
     if (fids < 0).any() or drop[fids].any():
-        raise AssertionError("IVF_PQ filtered search returned a filtered or empty id")
-    fgt, _ = _search(flat, kt, xq, {"metric_type": "L2", "k": k}, kt.BitsetView.from_bool_array(drop))
-    out["pq_filtered_recall_at_10"] = recall_at(fids, fgt)
+        raise AssertionError(f"{name} filtered search returned a filtered or empty id")
+    fgt, _ = _search(flat, kt, xq, {"metric_type": "L2", "k": search["k"]}, kt.BitsetView.from_bool_array(drop))
+    out[f"{tag}_filtered_recall_at_10"] = recall_at(fids, fgt)
 
     bs = kt.BinarySet()
-    if pq.Serialize(bs) != kt.Status.success:
-        raise RuntimeError("IVF_PQ Serialize failed")
-    again = kt.IndexFactory.Instance().Create("IVF_PQ").value()
+    if idx.Serialize(bs) != kt.Status.success:
+        raise RuntimeError(f"{name} Serialize failed")
+    again = kt.IndexFactory.Instance().Create(name).value()
     if again.Deserialize(bs) != kt.Status.success:
-        raise RuntimeError("IVF_PQ Deserialize failed")
-    out["pq_roundtrip_ids_identical"] = bool(np.array_equal(_search(again, kt, xq, IVF_PQ_SEARCH)[0], ids))
-    if not out["pq_roundtrip_ids_identical"]:
-        raise AssertionError("IVF_PQ Serialize/Deserialize changed the result ids")
-    del again
+        raise RuntimeError(f"{name} Deserialize failed")
+    out[f"{tag}_roundtrip_ids_identical"] = bool(np.array_equal(_search(again, kt, xq, search)[0], ids))
+    if not out[f"{tag}_roundtrip_ids_identical"]:
+        raise AssertionError(f"{name} Serialize/Deserialize changed the result ids")
+    return out, bs
 
+
+def pq_path(kt, xb, xq, gt, flat):
+    """IVF_PQ at the north-star configuration through the public API."""
+    pq, ids, out = _serve(kt, "IVF_PQ", "pq", xb, xq, gt, IVF_PQ_BUILD, IVF_PQ_SEARCH, PQ_RECALL_FLOOR)
+    out["pq_tpu_anchor_recall_at_10"] = PQ_TPU_ANCHOR  # the reference's, not the port's
+    out.update(_filtered_and_round_trip(kt, "IVF_PQ", "pq", pq, ids, xb, xq, flat, IVF_PQ_SEARCH)[0])
     out["pq_exact_recall_1k"], out["pq_fast_recall_1k"] = _exact_vs_fast(
         kt, pq, xq[:1000], gt[:1000], IVF_PQ_SEARCH
+    )
+    return out
+
+
+def sq8_path(kt, xb, xq, gt, flat):
+    """IVF_SQ8 (SQ8) through the public API: FAST serves from the int8 scan
+    over the u8 codes; then the same BinarySet, loaded without the int8
+    sidecar, serves from the SQ scan kernel."""
+    from knowhere_tpu_torch.ops import ivf_cuda
+
+    sq, ids, out = _serve(kt, "IVF_SQ8", "sq8", xb, xq, gt, SQ8_BUILD, SQ8_SEARCH, SQ8_RECALL_FLOOR)
+    out["sq8_tpu_anchor_recall_at_10"] = SQ8_TPU_ANCHOR  # the reference's, not the port's
+    if ivf_cuda.int8_scan_tasks.launches == 0:
+        raise AssertionError("IVF_SQ8 FAST did not run the int8 scan")
+    more, bs = _filtered_and_round_trip(kt, "IVF_SQ8", "sq8", sq, ids, xb, xq, flat, SQ8_SEARCH)
+    out.update(more)
+    exact, out["sq8_fast_recall_1k"] = _exact_vs_fast(kt, sq, xq[:1000], gt[:1000], SQ8_SEARCH, "IVF_SQ8")
+    out["sq8_exact_recall_1k"] = exact
+    del sq
+
+    # the same BinarySet without the int8 sidecar: FAST serves from the SQ scan
+    os.environ["KNOWHERE_DISABLE_INT8_SCAN"] = "1"
+    try:
+        sq_idx = kt.IndexFactory.Instance().Create("IVF_SQ8").value()
+        if sq_idx.Deserialize(bs) != kt.Status.success:
+            raise RuntimeError("IVF_SQ8 Deserialize (SQ scan) failed")
+    finally:
+        del os.environ["KNOWHERE_DISABLE_INT8_SCAN"]
+    before = ivf_cuda.sq_scan_tasks.launches
+    ids_sq, _ = _search(sq_idx, kt, xq, SQ8_SEARCH)  # warm-up
+    times = []
+    for _ in range(3):
+        (ids_sq, _), dt = _timed(lambda: _search(sq_idx, kt, xq, SQ8_SEARCH))
+        times.append(dt)
+    if ivf_cuda.sq_scan_tasks.launches == before:
+        raise AssertionError("IVF_SQ8 without the int8 sidecar did not run the SQ scan")
+    out["sq_scan_search_s_all"] = times
+    out["sq_scan_qps"] = len(xq) / float(np.median(times))
+    out["sq_scan_recall_at_10"] = recall_at(ids_sq, gt)
+    out["sq_scan_recall_1k"] = recall_at(ids_sq[:1000], gt[:1000])
+    if out["sq_scan_recall_at_10"] < SQ_SCAN_RECALL_FLOOR or out["sq_scan_recall_1k"] < exact - SQ_SCAN_VS_EXACT:
+        raise AssertionError(f"IVF_SQ8 SQ-scan recall {out['sq_scan_recall_at_10']} (first 1,000: "
+                             f"{out['sq_scan_recall_1k']}, EXACT {exact}) below its floor")
+    return out
+
+
+def rabitq_path(kt, xb, xq, gt, flat):
+    """IVF_RABITQ with its default raw refine store through the public API."""
+    rbq, ids, out = _serve(kt, "IVF_RABITQ", "rbq", xb, xq, gt, RBQ_BUILD, RBQ_SEARCH, RBQ_RECALL_FLOOR)
+    out.update(_filtered_and_round_trip(kt, "IVF_RABITQ", "rbq", rbq, ids, xb, xq, flat, RBQ_SEARCH)[0])
+    out["rbq_exact_recall_1k"], out["rbq_fast_recall_1k"] = _exact_vs_fast(
+        kt, rbq, xq[:1000], gt[:1000], RBQ_SEARCH, "IVF_RABITQ"
     )
     return out
 
@@ -537,16 +709,29 @@ def main() -> int:
         "ivf_f32_scan": ivf_cuda.f32_scan_tasks,
         "flat_group_scan": cuda_flat.flat_group_scan,
         "ivf_adc_scan": adc_cuda.adc_scan_tasks,
+        "ivf_sq_scan": ivf_cuda.sq_scan_tasks,
+        "ivf_rbq_scan": ivf_cuda.rbq_scan_tasks,
     }
+    # each kernel's launches are reported from the path that introduced it
     (e2e, flat, gt), counts = _run_path(
         "main path", wrappers, ("ivf_int8_scan", "ivf_f32_scan", "flat_group_scan"),
         lambda: main_path(kt, xb, xq),
     )
     print("main path:", json.dumps(e2e))
-    launches = dict(counts)
+    launches = {n: counts[n] for n in ("ivf_int8_scan", "ivf_f32_scan", "flat_group_scan")}
     pq_out, counts = _run_path("ivf_pq path", wrappers, ("ivf_adc_scan",), lambda: pq_path(kt, xb, xq, gt, flat))
     print("ivf_pq path:", json.dumps(pq_out))
     launches["ivf_adc_scan"] = counts["ivf_adc_scan"]
+    sq_out, counts = _run_path(
+        "ivf_sq8 path", wrappers, ("ivf_int8_scan", "ivf_sq_scan"), lambda: sq8_path(kt, xb, xq, gt, flat)
+    )
+    print("ivf_sq8 path:", json.dumps(sq_out))
+    launches["ivf_sq_scan"] = counts["ivf_sq_scan"]
+    rbq_out, counts = _run_path(
+        "ivf_rabitq path", wrappers, ("ivf_rbq_scan",), lambda: rabitq_path(kt, xb, xq, gt, flat)
+    )
+    print("ivf_rabitq path:", json.dumps(rbq_out))
+    launches["ivf_rbq_scan"] = counts["ivf_rbq_scan"]
     del flat
     gist_out, _ = _run_path("gist ivf_pq path", wrappers, ("ivf_adc_scan", "flat_group_scan"), lambda: gist_pq_path(kt))
     print("gist ivf_pq path:", json.dumps(gist_out))
@@ -557,6 +742,8 @@ def main() -> int:
         ("ivf_f32_scan", ivf_checks["ivf_f32_scan"]),
         ("flat_group_scan", flat_checks),
         ("ivf_adc_scan", adc_checks),
+        ("ivf_sq_scan", ivf_checks["ivf_sq_scan"]),
+        ("ivf_rbq_scan", ivf_checks["ivf_rbq_scan"]),
     )}
     meta = {
         "ivf_int8_scan": ("knowhere_tpu_torch/csrc/ivf_scan.cu", "knowhere_tpu/ops/ivf_pallas.py:400"),
@@ -566,12 +753,18 @@ def main() -> int:
             "knowhere_tpu_torch/csrc/ivf_adc.cu",
             "knowhere_tpu/ops/ivf_pallas.py:556 and knowhere_tpu/ops/ivf_pallas.py:732",
         ),
+        "ivf_sq_scan": ("knowhere_tpu_torch/csrc/ivf_sq.cu", "knowhere_tpu/ops/ivf_pallas.py:236"),
+        "ivf_rbq_scan": ("knowhere_tpu_torch/csrc/ivf_rbq.cu", "knowhere_tpu/ops/ivf_pallas.py:966"),
     }
+    # library_ms is null for every kernel: no single PyTorch call computes a
+    # per-task masked top-kk over gathered list blocks (or FLAT's top-k of
+    # 16-row group maxima); a product without the top-k is another function
     kernels = [
         {
             "name": name, "route": "cuda", "source": meta[name][0], "replaces": meta[name][1],
             "launches": launches[name], "max_abs_err": first[name]["max_abs_err"],
             "ms": first[name]["ms"], "plain_ms": first[name]["plain_ms"],
+            "bound_ms": first[name]["bound_ms"], "bound_by": first[name]["bound_by"], "library_ms": None,
         }
         for name in wrappers
     ]

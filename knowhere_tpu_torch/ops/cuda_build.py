@@ -41,6 +41,12 @@ _SIGNATURES = {
     "kw_ivf_int8_scan": [_P] * 9 + [_I] * 6 + [_P],
     # blk, nrows, q, data, keep, out_s, out_p, T, Qg, d, kk, is_l2, three_pass, stream
     "kw_ivf_f32_scan": [_P] * 7 + [_I] * 6 + [_P],
+    # blk, nrows, q, codes, vmin, vdiff, keep, out_s, out_p, T, Qg, d, kk,
+    # levels, is_l2, three_pass, stream
+    "kw_ivf_sq_scan": [_P] * 9 + [_I] * 7 + [_P],
+    # blk, nrows, lids, q, cents, signs, rn, t, keep, out_s, out_p, T, Qg, d,
+    # kk, is_l2, three_pass, stream
+    "kw_ivf_rbq_scan": [_P] * 11 + [_I] * 6 + [_P],
     # blk, nrows, lids, q, books, clut, cents, codes, keep, out_s, out_p,
     # T, Qg, d, m, ksub, sub, kk, is_l2, nib, stream
     "kw_ivf_adc_scan": [_P] * 11 + [_I] * 9 + [_P],

@@ -110,6 +110,15 @@ def pairwise_distance(metric_name: str, q, b, aux=None) -> torch.Tensor:
     raise ValueError(f"unknown metric {metric_name}")
 
 
+def unpack_bits_host(packed: np.ndarray, dim_bits: int) -> np.ndarray:
+    """(rows, dim_bits/8) uint8 -> (rows, dim_bits) int8 in {0,1}, LSB first
+    (the reference's and faiss's bit order)."""
+    packed = np.asarray(packed, dtype=np.uint8)
+    rows = packed.shape[0]
+    bits = np.unpackbits(packed.reshape(rows, -1), axis=1, bitorder="little")
+    return bits[:, :dim_bits].astype(np.int8)
+
+
 def base_aux(metric_name: str, b: torch.Tensor):
     """|b|^2 for L2, |b| for COSINE, None for IP."""
     m = metric_name.upper()

@@ -1,13 +1,20 @@
 """IVF task-scan kernels (counterpart of knowhere_tpu/ops/ivf_pallas.py).
 
 A task is one aligned LIST_ALIGN-row list block scanned by one group of Qg
-queries (ops/ivf_scan.py builds them). Two scans serve IVF_FLAT:
+queries (ops/ivf_scan.py builds them). Four scans:
 
 - ``int8_scan_tasks``: int8 queries . int8 codes -> int32, score
-  ``2*sz*dot - nrm`` (L2) or ``sz*dot`` (IP); the FAST serving scan, whose
-  candidate pool is re-ranked exactly afterwards. Replaces ``_int8_kernel``.
+  ``2*sz*dot - nrm`` (L2) or ``sz*dot`` (IP); the FAST serving scan of
+  IVF_FLAT (int8 sidecar) and IVF_SQ8 (its u8 codes), whose candidate pool
+  is re-ranked exactly afterwards. Replaces ``_int8_kernel``.
 - ``f32_scan_tasks``: f32 queries . f32 rows, single-pass bf16 or full f32,
   in-scan norms, score ``2*dot - |x|^2`` or ``dot``. Replaces ``_scan_kernel``.
+- ``sq_scan_tasks``: the same scores over u8 SQ8/SQ6 codes decoded as
+  ``vmin + (c + 0.5) * (1/levels) * vdiff``. Replaces ``_sq_kernel``.
+- ``rbq_scan_tasks``: the RaBitQ estimator over packed sign bits, score
+  ``-(|qr|^2 + rn^2 - 2 est)`` (L2) or ``<q,c> + est`` (IP) with
+  ``est = rn * <bf16(qr), s> / (max(t, 1e-6) sqrt(d))``. Replaces
+  ``_rbq_kernel``.
 
 Each returns the per-task top-kk as (scores (Tc,Qg,kk), positions (Tc,Qg,kk)
 into the padded storage), with the reference's result contract: larger is
@@ -23,6 +30,7 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from . import cuda_build
@@ -226,3 +234,179 @@ def f32_scan_tasks(
 
 
 f32_scan_tasks.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# SQ scan (u8 SQ8/SQ6 codes decoded in the scan)
+# ---------------------------------------------------------------------------
+
+
+def _sq_rows(codes_blk, vmin, vdiff, levels):
+    """The kernel's decode order: vmin + ((c + 0.5) * (1/levels)) * vdiff (the
+    reference's plain decode divides by levels; for power-of-two levels the
+    two give the same bits)."""
+    return vmin + (codes_blk.float() + 0.5) * (1.0 / levels) * vdiff
+
+
+def sq_scan_plain(blk, nrows, q_task, codes, vmin, vdiff, keep=None, *, B, kk, levels, is_l2, three_pass):
+    """Plain PyTorch version of the SQ scan: decode the block to f32 rows,
+    then the f32 scan's arithmetic (bf16-rounded operands for
+    three_pass=False, full f32 otherwise); L2 norms from the f32 rows."""
+    out_s, out_p = [], []
+    for c0 in range(0, blk.shape[0], _PLAIN_CHUNK):
+        sl = slice(c0, c0 + _PLAIN_CHUNK)
+        b = blk[sl]
+        rows = _sq_rows(codes[_block_rows(b, B)], vmin, vdiff, levels)
+        q = q_task[sl].float()
+        if three_pass:
+            dots = torch.bmm(q, rows.transpose(1, 2))
+        else:
+            dots = torch.bmm(_bf16_round(q), _bf16_round(rows).transpose(1, 2))
+        score = 2.0 * dots - (rows * rows).sum(-1)[:, None, :] if is_l2 else dots
+        s, p = _finish(score, b, nrows[sl], keep, B, kk)
+        out_s.append(s)
+        out_p.append(p)
+    return torch.cat(out_s), torch.cat(out_p)
+
+
+def sq_scan_tasks(
+    blk: torch.Tensor,  # (Tc,) int32
+    nrows: torch.Tensor,  # (Tc,) int32
+    q_task: torch.Tensor,  # (Tc, Qg, d) f32 pre-gathered query groups
+    codes: torch.Tensor,  # (nb_pad + slack, d) uint8 codes
+    vmin: torch.Tensor,  # (d,) f32 (zeros in padded columns)
+    vdiff: torch.Tensor,  # (d,) f32 (zeros in padded columns)
+    keep: Optional[torch.Tensor] = None,  # (>= nb_pad,) bool keep-mask
+    *,
+    B: int,
+    kk: int,
+    levels: int,
+    is_l2: bool,
+    three_pass: bool,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    if not q_task.is_cuda:
+        return sq_scan_plain(
+            blk, nrows, q_task, codes, vmin, vdiff, keep,
+            B=B, kk=kk, levels=levels, is_l2=is_l2, three_pass=three_pass,
+        )
+    Tc, Qg, d = q_task.shape
+    if B != LIST_ALIGN or d % 4 or not 1 <= kk <= 32 or levels not in (64, 256):
+        raise ValueError(f"sq scan takes B={LIST_ALIGN}, d%4==0, kk<=32, levels 64/256 (got {B}, {d}, {kk}, {levels})")
+    if codes.dtype != torch.uint8 or q_task.dtype != torch.float32:
+        raise TypeError("sq scan takes f32 queries and uint8 codes")
+    _check_task_args(blk, nrows, q_task, codes, keep, d)
+    if vmin.shape != (d,) or vdiff.shape != (d,) or vmin.device != q_task.device or vdiff.device != q_task.device:
+        raise ValueError("sq scan: vmin and vdiff must be (d,) on the queries' device")
+    blk, nrows = blk.int().contiguous(), nrows.int().contiguous()
+    q_task, codes = q_task.contiguous(), codes.contiguous()
+    vmin, vdiff = vmin.float().contiguous(), vdiff.float().contiguous()
+    keep_u8 = keep.contiguous().view(torch.uint8) if keep is not None else None
+    out_s = torch.empty((Tc, Qg, kk), dtype=torch.float32, device=q_task.device)
+    out_p = torch.empty((Tc, Qg, kk), dtype=torch.int32, device=q_task.device)
+    p = cuda_build.ptr
+    code = cuda_build.lib().kw_ivf_sq_scan(
+        p(blk), p(nrows), p(q_task), p(codes), p(vmin), p(vdiff), p(keep_u8), p(out_s), p(out_p),
+        Tc, Qg, d, kk, levels, int(is_l2), int(three_pass), cuda_build.stream_of(q_task),
+    )
+    cuda_build.check(code, "ivf_sq_scan")
+    sq_scan_tasks.launches += 1
+    return out_s, out_p
+
+
+sq_scan_tasks.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# RaBitQ scan (packed sign bits)
+# ---------------------------------------------------------------------------
+
+
+def unpack_signs(packed: torch.Tensor, d: int) -> torch.Tensor:
+    """(..., d/8) little-endian sign bytes -> (..., d) f32 +/-1 (bit set = +1)."""
+    shifts = torch.arange(8, device=packed.device, dtype=torch.uint8)
+    bits = (packed[..., None] >> shifts) & 1
+    return bits.reshape(*packed.shape[:-1], -1)[..., :d].float() * 2.0 - 1.0
+
+
+def rbq_scan_plain(blk, nrows, lids, q_task, cents_rot, signs, r_norm, t, keep=None, *, B, kk, is_l2, three_pass):
+    """Plain PyTorch version of the RaBitQ scan. qr = q - c_rot[lid] in f32;
+    the sign dot takes bf16(qr) (three_pass=False) or the f32 qr; |qr|^2 and
+    <q, c> are f32; sqrt(d) is the scanned (device) width."""
+    d = q_task.shape[2]
+    sqrt_d = float(np.sqrt(d))
+    out_s, out_p = [], []
+    for c0 in range(0, blk.shape[0], _PLAIN_CHUNK):
+        sl = slice(c0, c0 + _PLAIN_CHUNK)
+        b = blk[sl]
+        rows = _block_rows(b, B)
+        q = q_task[sl].float()
+        c = cents_rot[lids[sl].long()].float()[:, None, :]
+        qr = q - c
+        s_pm = unpack_signs(signs[rows], d)
+        dots = torch.bmm(qr if three_pass else _bf16_round(qr), s_pm.transpose(1, 2))
+        rn, tt = r_norm[rows][:, None, :], t[rows][:, None, :]
+        ip_est = rn * dots / (torch.clamp(tt, min=1e-6) * sqrt_d)
+        if is_l2:
+            score = -((qr * qr).sum(-1, keepdim=True) + rn * rn - 2.0 * ip_est)
+        else:
+            score = (q * c).sum(-1, keepdim=True) + ip_est
+        s, p = _finish(score, b, nrows[sl], keep, B, kk)
+        out_s.append(s)
+        out_p.append(p)
+    return torch.cat(out_s), torch.cat(out_p)
+
+
+def rbq_scan_tasks(
+    blk: torch.Tensor,  # (Tc,) int32
+    nrows: torch.Tensor,  # (Tc,) int32
+    lids: torch.Tensor,  # (Tc,) int32 list of each task (its rotated centroid row)
+    q_task: torch.Tensor,  # (Tc, Qg, d) f32 pre-gathered rotated queries
+    cents_rot: torch.Tensor,  # (nlist, d) f32 rotated centroids
+    signs: torch.Tensor,  # (nb_pad + slack, d/8) uint8 packed sign bits
+    r_norm: torch.Tensor,  # (>= nb_pad,) f32 residual norms
+    t: torch.Tensor,  # (>= nb_pad,) f32 alignment corrections
+    keep: Optional[torch.Tensor] = None,  # (>= nb_pad,) bool keep-mask
+    *,
+    B: int,
+    kk: int,
+    is_l2: bool,
+    three_pass: bool,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    if not q_task.is_cuda:
+        return rbq_scan_plain(
+            blk, nrows, lids, q_task, cents_rot, signs, r_norm, t, keep,
+            B=B, kk=kk, is_l2=is_l2, three_pass=three_pass,
+        )
+    Tc, Qg, d = q_task.shape
+    if B != LIST_ALIGN or d % 32 or not 1 <= kk <= 32:
+        raise ValueError(f"rbq scan takes B={LIST_ALIGN}, d%32==0, kk<=32 (got {B}, {d}, {kk})")
+    if signs.dtype != torch.uint8 or q_task.dtype != torch.float32 or cents_rot.dtype != torch.float32:
+        raise TypeError("rbq scan takes f32 queries and centroids and uint8 packed signs")
+    if signs.dim() != 2 or signs.shape[1] != d // 8 or signs.shape[0] % LIST_ALIGN:
+        raise ValueError(f"signs must be (n * {LIST_ALIGN}, {d // 8}) packed bytes")
+    if keep is not None and (keep.dtype != torch.bool or keep.numel() < signs.shape[0]):
+        raise ValueError("keep must be a bool mask covering every stored row")
+    tensors = [blk, nrows, lids, cents_rot, signs, r_norm, t] + ([keep] if keep is not None else [])
+    if any(x.device != q_task.device for x in tensors):
+        raise ValueError("rbq scan inputs must share one CUDA device")
+    if blk.shape != (Tc,) or nrows.shape != (Tc,) or lids.shape != (Tc,) or cents_rot.shape[1] != d:
+        raise ValueError("blk, nrows and lids must be (Tc,) and cents_rot (nlist, d)")
+    if r_norm.dtype != torch.float32 or t.dtype != torch.float32 or min(r_norm.numel(), t.numel()) < signs.shape[0]:
+        raise ValueError("r_norm and t must be f32 and cover every stored row")
+    blk, nrows, lids = blk.int().contiguous(), nrows.int().contiguous(), lids.int().contiguous()
+    q_task, cents_rot, signs = q_task.contiguous(), cents_rot.contiguous(), signs.contiguous()
+    r_norm, t = r_norm.contiguous(), t.contiguous()
+    keep_u8 = keep.contiguous().view(torch.uint8) if keep is not None else None
+    out_s = torch.empty((Tc, Qg, kk), dtype=torch.float32, device=q_task.device)
+    out_p = torch.empty((Tc, Qg, kk), dtype=torch.int32, device=q_task.device)
+    p = cuda_build.ptr
+    code = cuda_build.lib().kw_ivf_rbq_scan(
+        p(blk), p(nrows), p(lids), p(q_task), p(cents_rot), p(signs), p(r_norm), p(t), p(keep_u8),
+        p(out_s), p(out_p), Tc, Qg, d, kk, int(is_l2), int(three_pass), cuda_build.stream_of(q_task),
+    )
+    cuda_build.check(code, "ivf_rbq_scan")
+    rbq_scan_tasks.launches += 1
+    return out_s, out_p
+
+
+rbq_scan_tasks.launches = 0

@@ -1,5 +1,5 @@
-"""IVF list-scan engine in PyTorch (counterpart of knowhere_tpu/ops/ivf_scan.py,
-raw and pq kinds).
+"""IVF list-scan engine in PyTorch (counterpart of knowhere_tpu/ops/ivf_scan.py:
+the raw, pq, sq and rabitq kinds).
 
 The (query, probed-list) pairs of a batch are inverted into dense tasks:
 
@@ -10,12 +10,15 @@ so each task is a dense (Qg x B x d) product and each list block is read
 once per query group. Results are merged per query by inverting (task row ->
 query slot) and running one final top-k over the (nq, S*kk) pool.
 
-Dispatch is the reference's on-TPU dispatch on every device. Raw stores:
-FAST/BF16 with an aligned store and an int8 sidecar (d % 128 == 0) always
-take the int8 scan kernel; without the sidecar FAST/BF16 take the f32 scan
-kernel. PQ stores: every precision but EXACT takes the ADC scan kernel over an
-aligned store. EXACT and unaligned small corpora take the plain task scan
-(``_scan_chunk``, which decodes PQ codes). Only the kernel wrappers
+Dispatch is the reference's on-TPU dispatch on every device, in its order:
+the int8 scan kernel for int8 precision over raw stores with the int8
+sidecar and SQ8 stores with theirs (the u8 codes scanned in place); the ADC
+kernel for PQ stores below EXACT; the f32 scan kernel for FAST/BF16 raw
+stores; the RaBitQ kernel for RaBitQ stores below EXACT; the SQ kernel for
+SQ8/SQ6 stores at FAST/BF16. Every kernel needs an aligned store and
+d % 128 == 0. EXACT and everything else take the plain task scan
+(``_scan_chunk``, which decodes PQ, SQ and RaBitQ codes). The store's kind
+is read from its keys (``store_kind``). Only the kernel wrappers
 (ops/ivf_cuda.py, ops/adc_cuda.py) look at the tensors' device.
 """
 
@@ -29,7 +32,10 @@ import torch
 
 from ..device import to_device
 from .adc_cuda import SMEM_LIMIT, adc_scan_tasks, adc_smem_bytes, unpack_codes
-from .ivf_cuda import LIST_ALIGN, f32_scan_tasks, int8_scan_tasks, task_kk
+from .ivf_cuda import (
+    LIST_ALIGN, f32_scan_tasks, int8_scan_tasks, rbq_scan_tasks, sq_scan_tasks, task_kk, unpack_signs,
+)
+from .quant import sq_decode
 from .topk import topk_leftmost
 
 NEG_INF = -float("inf")
@@ -349,8 +355,17 @@ def _nib(store: Dict[str, torch.Tensor]) -> bool:
     return store["codes"].shape[1] != store["books"].shape[0]
 
 
+def store_kind(store: Dict[str, torch.Tensor]) -> str:
+    """'pq', 'rabitq', 'sq' or 'raw', from the keys models/ivf.py uploads."""
+    if "codebooks" in store:
+        return "pq"
+    if "signs" in store:
+        return "rabitq"
+    return "sq" if "codes" in store else "raw"
+
+
 def _scan_chunk(
-    q: torch.Tensor,  # (nq, d) f32 (OPQ-rotated for pq)
+    q: torch.Tensor,  # (nq, d) f32 (OPQ-rotated for pq, rotated for rabitq)
     store: Dict[str, torch.Tensor],
     row_start: torch.Tensor,  # (Tc,)
     nrows: torch.Tensor,  # (Tc,)
@@ -361,26 +376,47 @@ def _scan_chunk(
     B: int,
     kk: int,
     is_l2: bool,
+    sq_levels: int = 0,
+    sq_packed4: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-f32 task scan: (scores (Tc,Qg,kk) larger-is-better, positions
     (Tc,Qg,kk)); -inf / -1 for empty slots. PQ stores decode each row as its
-    codewords plus the list's scan-frame centroid (cent_scan under OPQ)."""
+    codewords plus the list's scan-frame centroid (cent_scan under OPQ); SQ
+    stores decode their codes (SQ4 unpacked, FP16/BF16 widened); RaBitQ
+    stores score the estimator with the f32 query residual, sqrt(d) at the
+    scanned width d."""
+    d = q.shape[1]
     rows_idx = row_start.long()[:, None] + torch.arange(B, device=q.device)[None, :]
-    if "codebooks" in store:
-        books = store["codebooks"]  # (m, ksub, sub) f32
-        m, ksub, sub = books.shape
-        code = unpack_codes(store["codes"][rows_idx], m, _nib(store)) + torch.arange(m, device=q.device) * ksub
-        rows = books.reshape(m * ksub, sub)[code].reshape(*rows_idx.shape, m * sub)
-        cents = store.get("cent_scan", store["centroids"])
-        rows = torch.nn.functional.pad(rows, (0, cents.shape[1] - m * sub))
-        rows = rows + cents[list_id.long()][:, None, :]
-        norms = (rows * rows).sum(-1) if is_l2 else None
-    else:
-        rows = store["data"][rows_idx].float()  # (Tc, B, d)
-        norms = store["norms"][rows_idx] if is_l2 else None
     qs = q[qids.long().clamp(min=0)]  # (Tc, Qg, d)
-    dots = torch.bmm(qs, rows.transpose(1, 2))
-    score = 2.0 * dots - norms[:, None, :] if is_l2 else dots
+    kind = store_kind(store)
+    if kind == "rabitq":
+        c_rot = store["centroids_rot"][list_id.long()][:, None, :]
+        qr = qs - c_rot
+        dots = torch.bmm(qr, unpack_signs(store["signs"][rows_idx], d).transpose(1, 2))
+        rn = store["r_norm"][rows_idx][:, None, :]
+        ip_est = rn * dots / (torch.clamp(store["t"][rows_idx], min=1e-6)[:, None, :] * float(np.sqrt(d)))
+        if is_l2:
+            score = -((qr * qr).sum(-1, keepdim=True) + rn * rn - 2.0 * ip_est)
+        else:
+            score = (qs * c_rot).sum(-1, keepdim=True) + ip_est
+    else:
+        if kind == "pq":
+            books = store["codebooks"]  # (m, ksub, sub) f32
+            m, ksub, sub = books.shape
+            code = unpack_codes(store["codes"][rows_idx], m, _nib(store)) + torch.arange(m, device=q.device) * ksub
+            rows = books.reshape(m * ksub, sub)[code].reshape(*rows_idx.shape, m * sub)
+            cents = store.get("cent_scan", store["centroids"])
+            rows = torch.nn.functional.pad(rows, (0, cents.shape[1] - m * sub))
+            rows = rows + cents[list_id.long()][:, None, :]
+            norms = (rows * rows).sum(-1) if is_l2 else None
+        elif kind == "sq":
+            rows = sq_decode(store["codes"][rows_idx], store.get("vmin"), store.get("vdiff"), sq_levels, sq_packed4, d)
+            norms = (rows * rows).sum(-1) if is_l2 else None
+        else:
+            rows = store["data"][rows_idx].float()  # (Tc, B, d)
+            norms = store["norms"][rows_idx] if is_l2 else None
+        dots = torch.bmm(qs, rows.transpose(1, 2))
+        score = 2.0 * dots - norms[:, None, :] if is_l2 else dots
     ok = (torch.arange(B, device=q.device)[None, :] < nrows.long()[:, None])[:, None, :]
     if keep_sorted is not None:
         ok = ok & keep_sorted[rows_idx][:, None, :]
@@ -498,8 +534,9 @@ def _aligned(offsets: np.ndarray) -> bool:
 
 
 def int8_available(store: dict, d: int, k: int, offsets: np.ndarray) -> bool:
-    """The int8 scan serves raw stores that carry the int8 sidecar."""
-    return "data_i8" in store and d % 128 == 0 and k >= 1 and _aligned(offsets)
+    """The int8 scan serves raw and SQ8 stores that carry the int8 sidecar
+    (its norms, "i8_nrm")."""
+    return "i8_nrm" in store and d % 128 == 0 and k >= 1 and _aligned(offsets)
 
 
 def scan_available(d: int, k: int, offsets: np.ndarray, prec: str) -> bool:
@@ -517,6 +554,22 @@ def adc_available(store: dict, d: int, k: int, offsets: np.ndarray) -> bool:
         return False
     m, ksub, _ = store["books"].shape
     return adc_smem_bytes(d, m, ksub, _nib(store)) <= SMEM_LIMIT
+
+
+def sq_available(d: int, code_dim: int, k: int, offsets: np.ndarray, sq_levels: int, sq_packed4: bool,
+                 prec: str) -> bool:
+    """The SQ scan serves one-code-a-byte SQ8/SQ6 stores at FAST/BF16 (the
+    reference's pallas_sq_available): not SQ4's packed nibbles, not FP16/BF16
+    rows, not EXACT."""
+    if sq_levels <= 0 or sq_packed4 or code_dim != d or prec not in ("fast", "bf16"):
+        return False
+    return d % 128 == 0 and k >= 1 and _aligned(offsets)
+
+
+def rbq_available(store: dict, d: int, k: int, offsets: np.ndarray) -> bool:
+    """The RaBitQ scan serves RaBitQ stores over aligned lists (the
+    reference's pallas_rbq_available)."""
+    return "signs" in store and d % 128 == 0 and k >= 1 and _aligned(offsets)
 
 
 def _empty(nq: int, k: int, dev) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -564,11 +617,12 @@ def ivf_scan_search(
     keep_sorted: Optional[torch.Tensor] = None,
     prec: Optional[str] = None,
     list_lengths: Optional[np.ndarray] = None,
+    sq_levels: int = 0,
+    sq_packed4: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Scan a raw f32 store or a PQ store (one that holds "codebooks"; q_dev
-    then in the OPQ-rotated frame). Returns (scores (nq,k) larger-is-better,
-    positions (nq,k) int32 into the sorted storage; -1 padded), both on the
-    device."""
+    """Scan one store (q_dev in the OPQ frame for PQ, rotated for RaBitQ).
+    Returns (scores (nq,k) larger-is-better, positions (nq,k) int32 into the
+    sorted storage; -1 padded), both on the device."""
     from .distances import matmul_precision_name
 
     if prec is None:
@@ -593,22 +647,25 @@ def ivf_scan_search(
     while Qg < min(avg, cap):
         Qg *= 2
 
-    pq = "codebooks" in store
-    if pq:
-        if prec != "exact" and adc_available(store, d, k, list_offsets):
-            return _adc_search(q_dev, store, probes, list_offsets, lens_arr, k, is_l2, Qg, keep_sorted)
-    else:
-        if prec == "int8":
-            if int8_available(store, d, k, list_offsets):
-                return _int8_search(q_dev, store, probes, list_offsets, lens_arr, k, is_l2, Qg, keep_sorted)
-            prec = "fast"  # no int8 sidecar: the f32 ranking path
-        if scan_available(d, k, list_offsets, prec):
-            return _f32_search(q_dev, store, probes, list_offsets, lens_arr, k, is_l2, Qg, prec, keep_sorted)
+    kind = store_kind(store)
+    args = (q_dev, store, probes, list_offsets, lens_arr, k, is_l2, Qg, keep_sorted)
+    if prec == "int8":
+        if kind in ("raw", "sq") and int8_available(store, d, k, list_offsets):
+            return _int8_search(*args)
+        prec = "fast"  # no int8 sidecar: the f32 ranking path
+    if kind == "pq" and prec != "exact" and adc_available(store, d, k, list_offsets):
+        return _adc_search(*args)
+    if kind == "raw" and scan_available(d, k, list_offsets, prec):
+        return _f32_search(*args, three_pass=prec == "fast")
+    if kind == "rabitq" and prec != "exact" and rbq_available(store, d, k, list_offsets):
+        return _rbq_search(*args, three_pass=prec == "fast")
+    if kind == "sq" and sq_available(d, store["codes"].shape[1], k, list_offsets, sq_levels, sq_packed4, prec):
+        return _sq_search(*args, levels=sq_levels, three_pass=prec == "fast")
 
     # plain full-f32 task scan; blocks shrink for small-list layouts
     B = 256 if float(lens_arr.mean() or 1.0) <= 256 else 512
     kk = min(k, B)
-    chunk = max(32, _DECODE_BYTES // (B * d * 4)) if pq else _PLAIN_TASK_CHUNK
+    chunk = _PLAIN_TASK_CHUNK if kind == "raw" else max(32, _DECODE_BYTES // (B * d * 4))
     tasks = _tasks(q_dev, store, probes, list_offsets, lens_arr, B, Qg, chunk)
     if tasks is None:
         return _empty(nq, k, q_dev.device)
@@ -616,7 +673,7 @@ def ivf_scan_search(
     parts = [
         _scan_chunk(
             q_dev, store, rs[c : c + Tc], nr[c : c + Tc], lid[c : c + Tc], qids[c : c + Tc],
-            keep_sorted, B=B, kk=kk, is_l2=is_l2,
+            keep_sorted, B=B, kk=kk, is_l2=is_l2, sq_levels=sq_levels, sq_packed4=sq_packed4,
         )
         for c in range(0, rs.shape[0], Tc)
     ]
@@ -631,75 +688,99 @@ def _kernel_chunk(Qg: int, d: int) -> int:
     return max(8, min(16384, (512 << 20) // max(Qg * d * 4, 1)) // 8 * 8)
 
 
-def _int8_search(q_dev, store, probes, list_offsets, lens_arr, k, is_l2, Qg, keep_sorted=None):
-    """int8 candidate scan (kernel: ivf_cuda.int8_scan_tasks). Queries are
-    quantized per batch on the device; the caller re-ranks the merged pool
-    exactly, so this path never returns final distances."""
+def _kernel_search(q_dev, store, probes, list_offsets, lens_arr, k, Qg, kk, scan):
+    """The kernel paths' shared frame: aligned B=LIST_ALIGN tasks, one
+    ``scan(blk, nrows, lids, qids)`` call per chunk of tasks (qids clamped to
+    valid rows), then the merge."""
     nq, d = q_dev.shape
     B = LIST_ALIGN
-    # the rerank only recovers what the scan kept: kk=16 for small k, the
-    # task_kk cap of 32 above k=32 (decides the pool, kept for parity)
-    kk = min(task_kk(k, B), 16 if k <= 32 else 32)
-    zi, szv = quantize_queries_int8(q_dev, store["i8_mu"], store["i8_scale"])
-    tasks = _tasks(q_dev, store, probes, list_offsets, lens_arr, B, Qg, _kernel_chunk(Qg, d))
-    if tasks is None:
-        return _empty(nq, k, q_dev.device)
-    rs, nr, _, qids, slots, Tc, S = tasks
-    blk = rs // B
-    s_parts, p_parts = [], []
-    for c in range(0, rs.shape[0], Tc):
-        safe = qids[c : c + Tc].long().clamp(min=0)
-        s, p = int8_scan_tasks(
-            blk[c : c + Tc], nr[c : c + Tc], zi[safe], szv[safe][..., None],
-            store["data_i8"], store["i8_nrm"], keep_sorted, B=B, kk=kk, is_l2=is_l2,
-        )
-        s_parts.append(s)
-        p_parts.append(p)
-    return _merge_tasks(torch.cat(s_parts), torch.cat(p_parts), qids, slots, nq=nq, S=S, kk=kk, k=k)
-
-
-def _f32_search(q_dev, store, probes, list_offsets, lens_arr, k, is_l2, Qg, prec, keep_sorted=None):
-    """Raw f32 scan (kernel: ivf_cuda.f32_scan_tasks); FAST runs the full-f32
-    product (the TPU's 3-pass), BF16 the single bf16 pass."""
-    nq, d = q_dev.shape
-    B = LIST_ALIGN
-    kk = task_kk(k, B)
-    tasks = _tasks(q_dev, store, probes, list_offsets, lens_arr, B, Qg, _kernel_chunk(Qg, d))
-    if tasks is None:
-        return _empty(nq, k, q_dev.device)
-    rs, nr, _, qids, slots, Tc, S = tasks
-    blk = rs // B
-    s_parts, p_parts = [], []
-    for c in range(0, rs.shape[0], Tc):
-        safe = qids[c : c + Tc].long().clamp(min=0)
-        s, p = f32_scan_tasks(
-            blk[c : c + Tc], nr[c : c + Tc], q_dev[safe], store["data"], keep_sorted,
-            B=B, kk=kk, is_l2=is_l2, three_pass=prec == "fast",
-        )
-        s_parts.append(s)
-        p_parts.append(p)
-    return _merge_tasks(torch.cat(s_parts), torch.cat(p_parts), qids, slots, nq=nq, S=S, kk=kk, k=k)
-
-
-def _adc_search(q_dev, store, probes, list_offsets, lens_arr, k, is_l2, Qg, keep_sorted=None):
-    """PQ ADC scan (kernel: adc_cuda.adc_scan_tasks) over the whole batch;
-    q_dev is in the OPQ-rotated frame, the centroid terms use cent_scan."""
-    nq, d = q_dev.shape
-    B = LIST_ALIGN
-    kk = task_kk(k, B)
     tasks = _tasks(q_dev, store, probes, list_offsets, lens_arr, B, Qg, _kernel_chunk(Qg, d))
     if tasks is None:
         return _empty(nq, k, q_dev.device)
     rs, nr, lid, qids, slots, Tc, S = tasks
     blk = rs // B
-    cents = store.get("cent_scan", store["centroids"])
     s_parts, p_parts = [], []
     for c in range(0, rs.shape[0], Tc):
-        safe = qids[c : c + Tc].long().clamp(min=0)
-        s, p = adc_scan_tasks(
-            blk[c : c + Tc], nr[c : c + Tc], lid[c : c + Tc], q_dev[safe], store["books"], store["clut"],
-            cents, store["codes"], keep_sorted, B=B, kk=kk, is_l2=is_l2, nib=_nib(store),
-        )
+        sl = slice(c, c + Tc)
+        s, p = scan(blk[sl], nr[sl], lid[sl], qids[sl].long().clamp(min=0))
         s_parts.append(s)
         p_parts.append(p)
     return _merge_tasks(torch.cat(s_parts), torch.cat(p_parts), qids, slots, nq=nq, S=S, kk=kk, k=k)
+
+
+def _int8_search(q_dev, store, probes, list_offsets, lens_arr, k, is_l2, Qg, keep_sorted=None):
+    """int8 candidate scan (kernel: ivf_cuda.int8_scan_tasks) over the raw
+    store's int8 sidecar or SQ8's own u8 codes. Queries are quantized per
+    batch on the device; the caller re-ranks the merged pool, so this path
+    never returns final distances."""
+    # the rerank only recovers what the scan kept: kk=16 for small k, the
+    # task_kk cap of 32 above k=32 (decides the pool, kept for parity)
+    kk = min(task_kk(k, LIST_ALIGN), 16 if k <= 32 else 32)
+    zi, szv = quantize_queries_int8(q_dev, store["i8_mu"], store["i8_scale"])
+    codes = store.get("data_i8", store.get("codes"))
+
+    def scan(blk, nr, _lid, safe):
+        return int8_scan_tasks(
+            blk, nr, zi[safe], szv[safe][..., None], codes, store["i8_nrm"], keep_sorted,
+            B=LIST_ALIGN, kk=kk, is_l2=is_l2,
+        )
+
+    return _kernel_search(q_dev, store, probes, list_offsets, lens_arr, k, Qg, kk, scan)
+
+
+def _f32_search(q_dev, store, probes, list_offsets, lens_arr, k, is_l2, Qg, keep_sorted=None, *, three_pass):
+    """Raw f32 scan (kernel: ivf_cuda.f32_scan_tasks); FAST runs the full-f32
+    product (the TPU's 3-pass), BF16 the single bf16 pass."""
+    kk = task_kk(k, LIST_ALIGN)
+
+    def scan(blk, nr, _lid, safe):
+        return f32_scan_tasks(
+            blk, nr, q_dev[safe], store["data"], keep_sorted,
+            B=LIST_ALIGN, kk=kk, is_l2=is_l2, three_pass=three_pass,
+        )
+
+    return _kernel_search(q_dev, store, probes, list_offsets, lens_arr, k, Qg, kk, scan)
+
+
+def _adc_search(q_dev, store, probes, list_offsets, lens_arr, k, is_l2, Qg, keep_sorted=None):
+    """PQ ADC scan (kernel: adc_cuda.adc_scan_tasks) over the whole batch;
+    q_dev is in the OPQ-rotated frame, the centroid terms use cent_scan."""
+    kk = task_kk(k, LIST_ALIGN)
+    cents = store.get("cent_scan", store["centroids"])
+
+    def scan(blk, nr, lid, safe):
+        return adc_scan_tasks(
+            blk, nr, lid, q_dev[safe], store["books"], store["clut"], cents, store["codes"], keep_sorted,
+            B=LIST_ALIGN, kk=kk, is_l2=is_l2, nib=_nib(store),
+        )
+
+    return _kernel_search(q_dev, store, probes, list_offsets, lens_arr, k, Qg, kk, scan)
+
+
+def _sq_search(q_dev, store, probes, list_offsets, lens_arr, k, is_l2, Qg, keep_sorted=None, *, levels, three_pass):
+    """SQ8/SQ6 scan (kernel: ivf_cuda.sq_scan_tasks), the codes decoded in
+    the scan (the reference's _pallas_scan_search, kind 'sq')."""
+    kk = task_kk(k, LIST_ALIGN)
+
+    def scan(blk, nr, _lid, safe):
+        return sq_scan_tasks(
+            blk, nr, q_dev[safe], store["codes"], store["vmin"], store["vdiff"], keep_sorted,
+            B=LIST_ALIGN, kk=kk, levels=levels, is_l2=is_l2, three_pass=three_pass,
+        )
+
+    return _kernel_search(q_dev, store, probes, list_offsets, lens_arr, k, Qg, kk, scan)
+
+
+def _rbq_search(q_dev, store, probes, list_offsets, lens_arr, k, is_l2, Qg, keep_sorted=None, *, three_pass):
+    """RaBitQ sign-plane scan (kernel: ivf_cuda.rbq_scan_tasks); q_dev is in
+    the rotated frame, each task reads its list's rotated centroid (the
+    reference's _pallas_rbq_search)."""
+    kk = task_kk(k, LIST_ALIGN)
+
+    def scan(blk, nr, lid, safe):
+        return rbq_scan_tasks(
+            blk, nr, lid, q_dev[safe], store["centroids_rot"], store["signs"], store["r_norm"], store["t"],
+            keep_sorted, B=LIST_ALIGN, kk=kk, is_l2=is_l2, three_pass=three_pass,
+        )
+
+    return _kernel_search(q_dev, store, probes, list_offsets, lens_arr, k, Qg, kk, scan)

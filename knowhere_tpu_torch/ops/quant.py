@@ -1,6 +1,8 @@
-"""Product quantizer in PyTorch (counterpart of knowhere_tpu/ops/quant.py, PQ
-part): per-subspace codebooks trained on IVF residuals (faiss
-by_residual=true), nearest-codeword encode, decode, and OPQ.
+"""Quantizers in PyTorch (counterpart of knowhere_tpu/ops/quant.py): the
+product quantizer (per-subspace codebooks trained on IVF residuals, faiss
+by_residual=true, nearest-codeword encode, decode, and OPQ), the scalar
+quantizers (SQ8/SQ6/SQ4 affine grids, FP16/BF16 rows) and RaBitQ (1-bit
+signs of the rotated residual plus two per-row corrections).
 
 The host RNG is numpy ``default_rng(seed)`` drawn in the reference's order,
 so the training subsample and the initial codebooks are the reference's;
@@ -12,7 +14,7 @@ Procrustes step with the same numpy SVD on the host.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -135,3 +137,131 @@ def opq_train(
         u, _, vt = np.linalg.svd(xs.T @ dec)
         R = (u @ vt).T.astype(np.float32)
     return R, pq_train(x @ R.T, m, nbits, seed=seed)
+
+
+# ---------------------------------------------------------------------------
+# Scalar quantizers (host numpy, byte-identical to the reference's codes)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class SQCodec:
+    sq_type: str  # SQ8 | SQ6 | SQ4 | FP16 | BF16
+    vmin: Optional[np.ndarray] = None  # (d,) f32
+    vdiff: Optional[np.ndarray] = None  # (d,) f32
+    dim: int = 0
+
+    @property
+    def levels(self) -> int:
+        return {"SQ8": 256, "SQ6": 64, "SQ4": 16}[self.sq_type]
+
+
+def sq_train(x: np.ndarray, sq_type: str) -> SQCodec:
+    """Per-dim vmin / vdiff over the rows (FP16/BF16 store rows directly)."""
+    sq_type = sq_type.upper()
+    d = x.shape[1]
+    if sq_type in ("FP16", "BF16"):
+        return SQCodec(sq_type, dim=d)
+    vmin = x.min(axis=0).astype(np.float32)
+    vmax = x.max(axis=0).astype(np.float32)
+    vdiff = np.maximum(vmax - vmin, 1e-20).astype(np.float32)
+    return SQCodec(sq_type, vmin, vdiff, dim=d)
+
+
+def sq_encode(codec: SQCodec, x: np.ndarray) -> np.ndarray:
+    """(n, d) rows -> codes: uint8 floor((x - vmin) / vdiff * levels) clipped
+    to the grid (SQ4 packs two codes a byte, low nibble first), or the rows
+    as float16 / bfloat16."""
+    t = codec.sq_type
+    if t == "FP16":
+        return x.astype(np.float16)
+    if t == "BF16":
+        import ml_dtypes  # the reference's host bf16 type
+
+        return x.astype(ml_dtypes.bfloat16)
+    levels = codec.levels
+    q = np.clip(
+        np.floor((x - codec.vmin[None, :]) / codec.vdiff[None, :] * levels), 0, levels - 1
+    ).astype(np.uint8)
+    if t == "SQ4":
+        if q.shape[1] % 2:
+            q = np.concatenate([q, np.zeros((q.shape[0], 1), np.uint8)], axis=1)
+        return (q[:, 0::2] | (q[:, 1::2] << 4)).astype(np.uint8)
+    return q
+
+
+def unpack_sq4(codes: torch.Tensor, d: int) -> torch.Tensor:
+    """(..., ceil(d/2)) packed SQ4 bytes -> (..., d) codes as f32."""
+    lo, hi = (codes & 0xF).float(), (codes >> 4).float()
+    return torch.stack([lo, hi], dim=-1).reshape(*codes.shape[:-1], -1)[..., :d]
+
+
+def sq_decode(codes: torch.Tensor, vmin: Optional[torch.Tensor], vdiff: Optional[torch.Tensor],
+              levels: int, packed4: bool = False, d: int = 0) -> torch.Tensor:
+    """Codes -> f32 rows, vmin + (code + 0.5) / levels * vdiff (faiss's bin
+    centres); levels=0 means FP16/BF16 rows, which only widen."""
+    if levels <= 0:
+        return codes.float()
+    c = unpack_sq4(codes, d) if packed4 else codes.float()
+    return vmin + (c + 0.5) / levels * vdiff
+
+
+# ---------------------------------------------------------------------------
+# RaBitQ (1-bit binary quantization of the rotated residual + corrections)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class RaBitQCodec:
+    rotation: np.ndarray  # (d, d) orthonormal
+    dim: int
+
+
+def rabitq_make(dim: int, seed: int = 1234) -> RaBitQCodec:
+    """The random orthonormal rotation: numpy QR of a seeded gaussian, as the
+    reference draws it (bit-identical rotation)."""
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((dim, dim)).astype(np.float64)
+    q, _ = np.linalg.qr(a)
+    return RaBitQCodec(q.astype(np.float32), dim)
+
+
+def rabitq_encode(
+    codec: RaBitQCodec, x: np.ndarray, centroids: np.ndarray, assign: np.ndarray, chunk: int = 131072
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Returns (bits_packed (n, ceil(d/8)) uint8, r_norm (n,) f32, t (n,) f32):
+    the signs of the rotated residual rr = (x - c) @ P^T packed little-endian
+    (bit set where rr >= 0), |rr|, and t = <rr, sign(rr)> / (|rr| sqrt(d)),
+    the RaBitQ correction (d the true dim). Computed on the port's device."""
+    n, d = x.shape
+    P = to_device(np.asarray(codec.rotation, np.float32))
+    bits = np.empty((n, d), dtype=bool)
+    r_norm = np.empty(n, dtype=np.float32)
+    t_out = np.empty(n, dtype=np.float32)
+    for s0 in range(0, n, chunk):
+        e = min(s0 + chunk, n)
+        xc = to_device(np.asarray(x[s0:e], np.float32))
+        cc = to_device(np.asarray(centroids[assign[s0:e]], np.float32))
+        rr = (xc - cc) @ P.T
+        norm = torch.linalg.norm(rr, dim=1)
+        s = torch.where(rr >= 0, 1.0, -1.0)
+        t = (rr * s).sum(1) / (torch.clamp(norm, min=1e-20) * np.sqrt(d))
+        bits[s0:e] = (rr >= 0).cpu().numpy()
+        r_norm[s0:e] = norm.cpu().numpy()
+        t_out[s0:e] = t.cpu().numpy()
+    return np.packbits(bits, axis=1, bitorder="little"), r_norm, t_out
+
+
+def rabitq_estimate(
+    q_rot_res: torch.Tensor,  # (nq, d) rotated query residual P(q - c_list)
+    sign_planes: torch.Tensor,  # (nb, d) +/-1
+    r_norm: torch.Tensor,  # (nb,)
+    t: torch.Tensor,  # (nb,)
+    q_res_norm_sqr: torch.Tensor,  # (nq,) |q - c|^2
+) -> torch.Tensor:
+    """Estimated squared L2 distance (the RaBitQ estimator, plain f32):
+    |q-c|^2 + |r|^2 - 2 |r| <q_rot_res, s> / (sqrt(d) t)."""
+    d = q_rot_res.shape[1]
+    dots = q_rot_res.float() @ sign_planes.float().T
+    ip_est = r_norm[None, :] * dots / (torch.clamp(t, min=1e-6)[None, :] * np.sqrt(d))
+    return q_res_norm_sqr[:, None] + (r_norm**2)[None, :] - 2.0 * ip_est

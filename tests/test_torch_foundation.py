@@ -35,7 +35,10 @@ def test_status_enum_matches_reference():
 
 def test_only_flat_and_ivf_flat_registered():
     names = {name for name, _ in ktt.IndexFactory.Instance()._registry}
-    assert names == {"FLAT", "IVF_FLAT", "IVF_PQ", "GPU_FAISS_IVF_PQ"}
+    assert names == {
+        "FLAT", "IVF_FLAT", "IVF_PQ", "GPU_FAISS_IVF_PQ", "IVF_SQ8", "GPU_FAISS_IVF_SQ8",
+        "IVF_RABITQ", "IVF_RABITQ_FASTSCAN",
+    }
 
 
 def _probe(pkg, name, action):

@@ -10,8 +10,6 @@ both search the same queries through the public API. The ensure_topk_full
 repair is held for IVF_FLAT and IVF_PQ.
 """
 
-import os
-
 import numpy as np
 import pytest
 import torch
@@ -21,8 +19,6 @@ import jax.numpy as jnp
 import knowhere_tpu as kt
 import knowhere_tpu_torch as ktt
 from knowhere_tpu.ops import quant as jquant
-from knowhere_tpu.ops.distances import DistancePrecision as JP
-from knowhere_tpu.ops.distances import set_distance_precision as jset_prec
 from knowhere_tpu.ops.ivf_pallas import (
     LIST_ALIGN,
     adc_mc_geometry,
@@ -34,8 +30,8 @@ from knowhere_tpu.ops.ivf_scan import compute_qlut as jcompute_qlut
 from knowhere_tpu_torch.ops import adc_cuda
 from knowhere_tpu_torch.ops import ivf_scan as tscan
 from knowhere_tpu_torch.ops import quant as tquant
-from knowhere_tpu_torch.ops.distances import DistancePrecision as TP
-from knowhere_tpu_torch.ops.distances import set_distance_precision as tset_prec
+
+from .torch_parity import build, cross_load, interpret_env, ivf_corpus, recall, search, set_precision
 
 torch.set_num_threads(2)
 ktt.set_device("cpu")
@@ -54,36 +50,12 @@ ADC_RTOL, ADC_ATOL, ADC_POS_AGREE = 1e-3, 1e-2, 0.99
 
 @pytest.fixture(scope="module", autouse=True)
 def _interpret_env():
-    saved = {k: os.environ.get(k) for k in ("KNOWHERE_PALLAS_INTERPRET", "KNOWHERE_IVF_ALIGN_MIN")}
-    os.environ["KNOWHERE_PALLAS_INTERPRET"] = "1"
-    os.environ["KNOWHERE_IVF_ALIGN_MIN"] = "4096"  # aligned lists at test scale
-    yield
-    for k, v in saved.items():
-        if v is None:
-            os.environ.pop(k, None)
-        else:
-            os.environ[k] = v
-    jset_prec(JP.EXACT)
-    tset_prec(TP.EXACT)
-
-
-def _precision(fast: bool):
-    jset_prec(JP.FAST if fast else JP.EXACT)
-    tset_prec(TP.FAST if fast else TP.EXACT)
+    yield from interpret_env()
 
 
 @pytest.fixture(scope="module")
 def corpus():
-    # the generator of tests/test_pallas_interpret_e2e.py, with more queries
-    rng = np.random.default_rng(0)
-    nc, intr = 64, 32
-    centers = rng.standard_normal((nc, DIM)).astype(np.float32)
-    W = rng.standard_normal((intr, DIM)).astype(np.float32) * np.sqrt(DIM / intr) / np.sqrt(intr)
-    xb = centers[rng.integers(0, nc, NB)] + rng.standard_normal((NB, intr)).astype(np.float32) @ W
-    xq = centers[rng.integers(0, nc, NQ)] + rng.standard_normal((NQ, intr)).astype(np.float32) @ W
-    d2 = (xq**2).sum(1)[:, None] - 2.0 * xq @ xb.T + (xb**2).sum(1)[None, :]
-    gt = np.argsort(d2, 1)[:, :K]
-    return xb, xq, gt
+    return ivf_corpus(NB, NQ, DIM, K)
 
 
 def _residuals(xb, n=4096):
@@ -276,35 +248,6 @@ def test_adc_available_drops_the_lut_cap():
 # ---------------------------------------------------------------------------
 
 
-def _build(pkg, name, xb, cfg):
-    idx = pkg.IndexFactory.Instance().Create(name).value()
-    assert idx.Build(pkg.GenDataSetFromArray(xb), cfg) == pkg.Status.success
-    return idx
-
-
-def _search(idx, pkg, xq, cfg=SEARCH, bitset=None):
-    res = idx.Search(pkg.GenDataSetFromArray(xq), cfg, bitset or pkg.BitsetView())
-    assert res.has_value(), res.what()
-    k = cfg["k"]
-    return res.value().ids.reshape(-1, k), res.value().distance.reshape(-1, k)
-
-
-def _cross(src_idx, dst_pkg, name="IVF_PQ"):
-    """Load src_idx's BinarySet bytes into a fresh index of dst_pkg."""
-    src_pkg = kt if isinstance(src_idx, kt.Index) else ktt
-    bs = src_pkg.BinarySet()
-    assert src_idx.Serialize(bs) == src_pkg.Status.success
-    bs2 = dst_pkg.BinarySet()
-    bs2.Append(name, bs.GetByName(name).tobytes())
-    idx = dst_pkg.IndexFactory.Instance().Create(name).value()
-    assert idx.Deserialize(bs2) == dst_pkg.Status.success
-    return idx
-
-
-def _recall(ids, gt):
-    return np.mean([len(set(ids[i]) & set(gt[i])) / gt.shape[1] for i in range(len(gt))])
-
-
 def _assert_parity(ids_j, d_j, ids_t, d_t):
     same = ids_j == ids_t
     assert same.mean() >= 0.99
@@ -313,17 +256,17 @@ def _assert_parity(ids_j, d_j, ids_t, d_t):
 
 @pytest.fixture(scope="module")
 def jax_pq(corpus):
-    return _build(kt, "IVF_PQ", corpus[0], BUILD)
+    return build(kt, "IVF_PQ", corpus[0], BUILD)
 
 
 @pytest.fixture(scope="module")
 def port_from_jax(jax_pq):
-    return _cross(jax_pq, ktt)
+    return cross_load(jax_pq, ktt)
 
 
 @pytest.fixture(scope="module")
 def port_pq(corpus):
-    return _build(ktt, "IVF_PQ", corpus[0], BUILD)
+    return build(ktt, "IVF_PQ", corpus[0], BUILD)
 
 
 @pytest.mark.parametrize("fast", [True, False])
@@ -332,23 +275,23 @@ def test_jax_built_index_cross_loads(corpus, jax_pq, port_from_jax, fast, monkey
     hits = []
     orig = tscan._adc_search
     monkeypatch.setattr(tscan, "_adc_search", lambda *a, **kw: hits.append(1) or orig(*a, **kw))
-    _precision(fast)
-    ids_j, d_j = _search(jax_pq, kt, xq)
-    ids_t, d_t = _search(port_from_jax, ktt, xq)
+    set_precision(fast)
+    ids_j, d_j = search(jax_pq, kt, xq, SEARCH)
+    ids_t, d_t = search(port_from_jax, ktt, xq, SEARCH)
     assert bool(hits) == fast, "FAST must take the ADC scan, EXACT the decode scan"
     _assert_parity(ids_j, d_j, ids_t, d_t)
-    assert _recall(ids_t, gt) >= 0.9
+    assert recall(ids_t, gt) >= 0.9
 
 
 @pytest.mark.parametrize("fast", [True, False])
 def test_nibble_codes_cross_load(corpus, fast):
     """nbits=4 (ksub=16): the port stores the 4-bit nibble layout."""
     xb, xq, _ = corpus
-    jidx = _build(kt, "IVF_PQ", xb, dict(BUILD, nbits=4))
-    tidx = _cross(jidx, ktt)
+    jidx = build(kt, "IVF_PQ", xb, dict(BUILD, nbits=4))
+    tidx = cross_load(jidx, ktt)
     assert tidx.node._store["codes"].shape[1] == 8
-    _precision(fast)
-    _assert_parity(*_search(jidx, kt, xq), *_search(tidx, ktt, xq))
+    set_precision(fast)
+    _assert_parity(*search(jidx, kt, xq, SEARCH), *search(tidx, ktt, xq, SEARCH))
 
 
 @pytest.mark.parametrize("refine_type", ["DATA_VIEW", "BF16", "SQ8"])
@@ -356,42 +299,42 @@ def test_refine_stores_cross_load(corpus, refine_type):
     """The raw f32, bf16 and SQ8 refine stores, built by JAX, re-score the
     same candidates in the port."""
     xb, xq, _ = corpus
-    jidx = _build(kt, "IVF_PQ", xb, dict(BUILD, refine_type=refine_type, opq=False))
-    tidx = _cross(jidx, ktt)
+    jidx = build(kt, "IVF_PQ", xb, dict(BUILD, refine_type=refine_type, opq=False))
+    tidx = cross_load(jidx, ktt)
     assert tidx.node._refine_store.kind == ("sq8" if refine_type == "SQ8" else "raw")
-    _precision(True)
-    _assert_parity(*_search(jidx, kt, xq), *_search(tidx, ktt, xq))
+    set_precision(True)
+    _assert_parity(*search(jidx, kt, xq, SEARCH), *search(tidx, ktt, xq, SEARCH))
 
 
 def test_port_build_recall_and_jax_loads_it(corpus, jax_pq, port_pq):
     xb, xq, gt = corpus
-    _precision(True)
-    ids_t, d_t = _search(port_pq, ktt, xq)
-    ids_jb, _ = _search(jax_pq, kt, xq)
-    assert _recall(ids_t, gt) >= _recall(ids_jb, gt) - 0.02
-    ids_j, d_j = _search(_cross(port_pq, kt), kt, xq)
+    set_precision(True)
+    ids_t, d_t = search(port_pq, ktt, xq, SEARCH)
+    ids_jb, _ = search(jax_pq, kt, xq, SEARCH)
+    assert recall(ids_t, gt) >= recall(ids_jb, gt) - 0.02
+    ids_j, d_j = search(cross_load(port_pq, kt), kt, xq, SEARCH)
     _assert_parity(ids_j, d_j, ids_t, d_t)
 
 
 def test_serialize_round_trip_identical(corpus, port_pq):
-    _precision(True)
+    set_precision(True)
     xq = corpus[1]
-    np.testing.assert_array_equal(_search(_cross(port_pq, ktt), ktt, xq)[0], _search(port_pq, ktt, xq)[0])
+    np.testing.assert_array_equal(search(cross_load(port_pq, ktt), ktt, xq, SEARCH)[0], search(port_pq, ktt, xq, SEARCH)[0])
 
 
 def test_filtered_search_matches_jax(corpus, jax_pq, port_from_jax):
     _, xq, _ = corpus
     drop = np.random.default_rng(1).random(NB) < 0.5
-    _precision(True)
-    ids_j, d_j = _search(jax_pq, kt, xq, bitset=kt.BitsetView.from_bool_array(drop))
-    ids_t, d_t = _search(port_from_jax, ktt, xq, bitset=ktt.BitsetView.from_bool_array(drop))
+    set_precision(True)
+    ids_j, d_j = search(jax_pq, kt, xq, SEARCH, bitset=kt.BitsetView.from_bool_array(drop))
+    ids_t, d_t = search(port_from_jax, ktt, xq, SEARCH, bitset=ktt.BitsetView.from_bool_array(drop))
     assert (ids_t >= 0).all() and not drop[ids_t].any()
     _assert_parity(ids_j, d_j, ids_t, d_t)
 
 
 @pytest.fixture(scope="module")
 def jax_flat(corpus):
-    return _build(kt, "IVF_FLAT", corpus[0], {"metric_type": "L2", "nlist": NLIST})
+    return build(kt, "IVF_FLAT", corpus[0], {"metric_type": "L2", "nlist": NLIST})
 
 
 @pytest.mark.parametrize("name", ["IVF_FLAT", "IVF_PQ"])
@@ -402,14 +345,14 @@ def test_ensure_topk_full_widens(corpus, jax_flat, jax_pq, name):
     ids."""
     _, xq, _ = corpus
     jidx = jax_flat if name == "IVF_FLAT" else jax_pq
-    tidx = _cross(jidx, ktt, name)
+    tidx = cross_load(jidx, ktt)
     drop = np.random.default_rng(2).random(NB) < 0.95
     cfg = {"metric_type": "L2", "k": 40, "nprobe": 1, "refine_k": 2}
-    _precision(False)
-    short, _ = _search(tidx, ktt, xq, dict(cfg, ensure_topk_full=False), ktt.BitsetView.from_bool_array(drop))
+    set_precision(False)
+    short, _ = search(tidx, ktt, xq, dict(cfg, ensure_topk_full=False), ktt.BitsetView.from_bool_array(drop))
     assert (short < 0).any()
-    ids_j, d_j = _search(jidx, kt, xq, cfg, kt.BitsetView.from_bool_array(drop))
-    ids_t, d_t = _search(tidx, ktt, xq, cfg, ktt.BitsetView.from_bool_array(drop))
+    ids_j, d_j = search(jidx, kt, xq, cfg, kt.BitsetView.from_bool_array(drop))
+    ids_t, d_t = search(tidx, ktt, xq, cfg, ktt.BitsetView.from_bool_array(drop))
     assert (ids_t >= 0).all() and not drop[ids_t].any()
     np.testing.assert_array_equal(ids_t, ids_j)
     np.testing.assert_allclose(d_t, d_j, rtol=1e-4)

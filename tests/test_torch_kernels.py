@@ -24,6 +24,8 @@ from knowhere_tpu.ops.pallas_flat import flat_topk as jflat_topk
 from knowhere_tpu_torch.ops import cuda_flat, ivf_cuda
 from knowhere_tpu_torch.ops import ivf_scan as tscan
 
+from .torch_parity import assert_same_topk
+
 torch.set_num_threads(2)
 ktt.set_device("cpu")
 
@@ -47,19 +49,6 @@ def _tasks(rng, n_blocks, Qg, nq):
     nrows[0] = LIST_ALIGN
     qids = rng.integers(0, nq, (Tc, Qg)).astype(np.int32)
     return blk, nrows, qids
-
-
-def _assert_same_topk(s_j, p_j, s_t, p_t, rtol, atol):
-    np.testing.assert_allclose(s_t, s_j, rtol=rtol, atol=atol)
-    # positions are identical except where two candidate scores lie within
-    # the tolerance of each other (the order of near-ties may flip)
-    diff = p_t != p_j
-    if diff.any():
-        gap = np.abs(np.diff(s_j, axis=-1))
-        near = np.zeros_like(diff)
-        near[..., 1:] |= gap <= atol + rtol * np.abs(s_j[..., 1:])
-        near[..., :-1] |= gap <= atol + rtol * np.abs(s_j[..., :-1])
-        assert (~diff | near).all()
 
 
 @pytest.mark.parametrize("is_l2", [True, False])
@@ -150,7 +139,7 @@ def test_f32_scan_matches_jax(three_pass, is_l2):
     s_t, p_t = ivf_cuda.f32_scan_tasks(
         T(blk), T(nrows), T(q[qids]), T(x), T(keep), B=B, kk=kk, is_l2=is_l2, three_pass=three_pass
     )
-    _assert_same_topk(np.asarray(s_j), np.asarray(p_j), s_t.numpy(), p_t.numpy(), 1e-5, 1e-3)
+    assert_same_topk(np.asarray(s_j), np.asarray(p_j), s_t.numpy(), p_t.numpy(), 1e-5, 1e-3)
 
 
 @pytest.mark.parametrize(
