@@ -29,16 +29,27 @@ Run from the root of a checkout on a machine with one CUDA GPU. In order:
 7. IVF_RABITQ on the same corpus (nlist=1024, raw refine, FAST, nprobe=16,
    refine_k=8, k=10): served by the RaBitQ scan kernel; recall, warm QPS,
    bitset, round trip, EXACT on 1,000 queries;
-8. the bench's GIST leg of IVF_PQ (m=96, nbits=8, FP16 refine, so
+8. HNSW at the bench's configuration on the same corpus (M=16,
+   efConstruction=200, L2, FAST): the build (its all-pairs kNN graph runs
+   through the f32 scan kernel; the inline walk must be active), recall@10
+   and warm QPS at ef=48, the ef ladder 32 / 48 / 64, a 50% bitset, a 95%
+   bitset (the exact-scan fallback), a Serialize/Deserialize round trip, the
+   same BinarySet in lean mode (KNOWHERE_GRAPH_INLINE=0, the general walk),
+   and one torch-profiler pass over one search;
+9. the single-pass fused kNN scan (fused_knn, the counterpart of the
+   reference's pallas_knn) over all queries at k=10, held against its plain
+   version on the same inputs, recall@10 against the FLAT truth and its wall
+   time beside FLAT's;
+10. the bench's GIST leg of IVF_PQ (m=96, nbits=8, FP16 refine, so
    m * ksub = 24,576 LUT entries) at a reduced size: a GIST-like corpus of
    100,000 x 960 with 1,000 queries instead of 1M, nlist=256 instead of
    1024 and nprobe=32 instead of 384 (refine_k=32), all cut for chip time;
    FLAT ground truth on that corpus, FAST recall within 0.01 of EXACT;
-9. print the kernel summary (each kernel's time, plain-version time and
+11. print the kernel summary (each kernel's time, plain-version time and
    bound), the card line, and the contract line {"ok": true, "device":
    {...}} last.
 
-Kernel launch counters are zeroed right before each of phases 4-8 and read
+Kernel launch counters are zeroed right before each of phases 4-10 and read
 right after it; every kernel must have launched on its path.
 
 Every phase raises on failure; the script then exits non-zero and prints no
@@ -98,6 +109,18 @@ RBQ_BUILD = {"metric_type": "L2", "nlist": 1024}
 RBQ_SEARCH = {"metric_type": "L2", "k": 10, "nprobe": 16, "refine_k": 8}
 RBQ_RECALL_FLOOR = 0.85
 FAST_VS_EXACT = 0.01  # FAST recall may trail EXACT recall by this much
+# fused kNN scan: both round the same bf16 inputs and sum exact products in
+# f32 in other orders: scores within 1e-4 relative + 1e-3, id sets equal on
+# >= 99.9% of slots.
+FUSED_RTOL, FUSED_ATOL, FUSED_ID_AGREE = 1e-4, 1e-3, 0.999
+FUSED_RECALL_FLOOR = 0.95
+# HNSW floors, each just under the JAX package's TPU anchor
+# (docs/BENCHMARKS.md:17,20,22; the reference's figures, not the port's)
+HNSW_BUILD = {"metric_type": "L2", "M": 16, "efConstruction": 200}
+HNSW_RECALL_FLOOR, HNSW_TPU_ANCHOR = 0.96, 0.9728  # ef=48, 4-bit inline walk
+HNSW_FILTERED_FLOOR, HNSW_FILTERED_ANCHOR = 0.94, 0.9575  # 50% bitset
+HNSW_LEAN_FLOOR, HNSW_LEAN_ANCHOR = 0.96, 0.9734  # general walk
+HNSW_FALLBACK_FLOOR = 0.99  # 95% bitset: the exact scan
 # Published H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W): device
 # memory bytes/s, and operations/s by operand type.
 HBM_BYTES_PER_S = 3.35e12
@@ -398,6 +421,47 @@ def check_flat_kernel(dev, xb: np.ndarray, xq: np.ndarray):
     return out
 
 
+def check_fused_kernel(dev, xb: np.ndarray, xq: np.ndarray):
+    """fused_knn_scan against fused_knn_scan_plain on the 1M corpus with
+    1,024 queries: k=10 and k=100 L2, k=10 IP, and a corpus whose row count
+    is not a tile multiple (padded as fused_knn pads it). Also times the
+    two-call yardstick torch.topk(2 (q_bf16 @ b_bf16^T) - norms, k)."""
+    import torch
+
+    from knowhere_tpu_torch.ops import fused_topk
+
+    out = []
+    q = torch.from_numpy(xq[:1024]).to(dev)
+    for nb, k, is_l2 in ((len(xb), 10, True), (len(xb), 100, True), (len(xb), 10, False), (len(xb) - 37, 10, True)):
+        b = torch.from_numpy(xb[:nb]).to(dev)
+        nrm = (b * b).sum(1) if is_l2 else torch.zeros(nb, device=dev)
+        base, norms = fused_topk.pad_base(b, nrm)
+        args, kw = (q, base, norms), dict(k=k, is_l2=is_l2)
+        s_k, i_k = fused_topk.fused_knn_scan(*args, **kw)
+        s_p, i_p = fused_topk.fused_knn_scan_plain(*args, **kw)
+        torch.cuda.synchronize()
+        err = (s_k - s_p).abs().max().item()
+        ok = torch.allclose(s_k, s_p, rtol=FUSED_RTOL, atol=FUSED_ATOL)
+        ik, ip_ = i_k.cpu().numpy(), i_p.cpu().numpy()
+        agree = float(np.mean([len(set(ik[i]) & set(ip_[i])) / k for i in range(len(ik))]))
+        ms = time_ms(lambda: fused_topk.fused_knn_scan(*args, **kw), reps=5)
+        plain_ms = time_ms(lambda: fused_topk.fused_knn_scan_plain(*args, **kw), reps=3)
+        nq, d = q.shape
+        nbytes = nb * (d + 1) * 4 + nq * d * 4 + nq * k * 8  # the base read once per launch
+        line = dict(nb=nb, nq=nq, k=k, is_l2=is_l2, max_abs_err=err, id_agree=agree, ms=ms, plain_ms=plain_ms,
+                    **bound(nbytes, {"bf16": 2 * nq * nb * d}))
+        if nb == len(xb) and k == 10 and is_l2:
+            qb, bb = q.to(torch.bfloat16), base[:nb].to(torch.bfloat16)
+            line["two_call_topk_ms"] = time_ms(lambda: torch.topk(2.0 * (qb @ bb.T).float() - nrm, k), reps=3)
+            del qb, bb
+        print("fused_knn_scan", json.dumps(line))
+        if not ok or agree < FUSED_ID_AGREE:
+            raise AssertionError(f"fused_knn_scan disagrees with its plain version: {line}")
+        out.append(line)
+        del base, norms, b
+    return out
+
+
 # ---------------------------------------------------------------------------
 # 4. the main path
 # ---------------------------------------------------------------------------
@@ -657,6 +721,176 @@ def gist_pq_path(kt, nb=100_000, nq=1_000):
     return out
 
 
+def _profile_search(fn) -> dict:
+    """One torch-profiler pass over fn(): wall ms, device busy ms (the sum of
+    the device kernels' time), the idle share, the device ms under each
+    library range (graph_inline.seed / walk / rerank, graph.walk,
+    hnsw.refine, hnsw.brute_force) and the top ops by device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+
+    def dev_ms(e, attr):
+        return (getattr(e, attr, None) or getattr(e, attr.replace("device", "cuda"), 0.0) or 0.0) / 1e3
+
+    avgs = prof.key_averages()
+    # the ranges appear twice: as host events (device time of the kernels
+    # they launched) and as spans on the device timeline, which busy skips
+    is_range = [e.key.startswith(("graph_inline.", "graph.", "hnsw.")) for e in avgs]
+    busy = sum(dev_ms(e, "self_device_time_total") for e, r in zip(avgs, is_range)
+               if e.device_type == DeviceType.CUDA and not r)
+    ranges = {e.key: round(dev_ms(e, "device_time_total"), 3) for e, r in zip(avgs, is_range)
+              if r and e.device_type == DeviceType.CPU}
+    ops = sorted((e for e in avgs if e.device_type != DeviceType.CUDA and e.key.startswith("aten::")),
+                 key=lambda e: dev_ms(e, "self_device_time_total"), reverse=True)
+    top = [(e.key, round(dev_ms(e, "self_device_time_total"), 3), e.count) for e in ops[:10]]
+    if busy > wall:
+        raise AssertionError(f"profile: device busy {busy} ms exceeds the wall {wall} ms (time counted twice)")
+    return {"wall_ms": wall, "device_busy_ms": busy, "idle_share": 1.0 - busy / wall, "ranges": ranges,
+            "top_ops": top}
+
+
+def hnsw_path(kt, xb, xq, gt, flat, search_reps=5):
+    """HNSW at the bench's configuration through the public API (see the
+    module docstring, step 8). Returns its numbers."""
+    from knowhere_tpu_torch.ops import ivf_cuda
+
+    nq, k = len(xq), 10
+    search = {"metric_type": "L2", "k": k, "ef": 48}
+    out = {}
+    idx = kt.IndexFactory.Instance().Create("HNSW").value()
+    f32_before = ivf_cuda.f32_scan_tasks.launches
+    os.environ["KNOWHERE_BUILD_TIMING"] = "1"  # the build prints its phases
+    try:
+        st, out["hnsw_build_s"] = _timed(lambda: idx.Build(kt.GenDataSetFromArray(xb), HNSW_BUILD))
+    finally:
+        del os.environ["KNOWHERE_BUILD_TIMING"]
+    if st != kt.Status.success:
+        raise RuntimeError(f"HNSW Build: {st.name}")
+    out["hnsw_build_f32_scan_launches"] = ivf_cuda.f32_scan_tasks.launches - f32_before
+    if out["hnsw_build_f32_scan_launches"] == 0:
+        raise AssertionError("the HNSW build's kNN graph did not run the f32 scan kernel")
+    inline = idx.node._inline
+    if inline is None:
+        raise AssertionError("the HNSW inline walk is not active at 1M rows")
+    out["hnsw_inline_bits"] = inline.bits
+    ids, dists = _search(idx, kt, xq, search)  # warm-up
+    times = []
+    for _ in range(search_reps):
+        (ids, dists), dt = _timed(lambda: _search(idx, kt, xq, search))
+        times.append(dt)
+    out["hnsw_search_s_all"] = times
+    out["hnsw_qps"] = nq / float(np.median(times))
+    out["hnsw_recall_at_10"] = recall_at(ids, gt)
+    out["hnsw_tpu_anchor_recall_at_10"] = HNSW_TPU_ANCHOR  # the reference's, not the port's
+    if not np.isfinite(dists).all() or ids.shape != (nq, k) or (ids < 0).any():
+        raise AssertionError("HNSW results not finite / wrong shape / short")
+    if out["hnsw_recall_at_10"] < HNSW_RECALL_FLOOR:
+        raise AssertionError(f"HNSW recall@10 {out['hnsw_recall_at_10']} < {HNSW_RECALL_FLOOR}")
+    out["hnsw_profile"] = _profile_search(lambda: _search(idx, kt, xq, search))
+    for ef in (32, 48, 64):
+        (ids_e, _), dt = _timed(lambda: _search(idx, kt, xq, dict(search, ef=ef)))
+        out[f"hnsw_ef{ef}"] = {"recall_at_10": recall_at(ids_e, gt), "qps": nq / dt}
+
+    drop = np.random.default_rng(1).random(len(xb)) < 0.5
+    (fids, _), out["hnsw_filtered_s"] = _timed(lambda: _search(idx, kt, xq, search, kt.BitsetView.from_bool_array(drop)))
+    if (fids < 0).any() or drop[fids].any():
+        raise AssertionError("HNSW filtered search returned a filtered or empty id")
+    fgt, _ = _search(flat, kt, xq, {"metric_type": "L2", "k": k}, kt.BitsetView.from_bool_array(drop))
+    out["hnsw_filtered_recall_at_10"] = recall_at(fids, fgt)
+    out["hnsw_filtered_tpu_anchor"] = HNSW_FILTERED_ANCHOR
+    if out["hnsw_filtered_recall_at_10"] < HNSW_FILTERED_FLOOR:
+        raise AssertionError(f"HNSW 50% bitset recall {out['hnsw_filtered_recall_at_10']} < {HNSW_FILTERED_FLOOR}")
+
+    # 95% filtered: the exact-scan fallback must answer
+    dense = np.random.default_rng(2).random(len(xb)) < 0.95
+    node, calls = idx.node, []
+    brute = node._brute_force
+    node._brute_force = lambda *a: (calls.append(1), brute(*a))[1]
+    try:
+        (bids, _), out["hnsw_fallback_s"] = _timed(
+            lambda: _search(idx, kt, xq, search, kt.BitsetView.from_bool_array(dense)))
+    finally:
+        del node._brute_force
+    bgt, _ = _search(flat, kt, xq, {"metric_type": "L2", "k": k}, kt.BitsetView.from_bool_array(dense))
+    out["hnsw_fallback_recall_at_10"] = recall_at(bids, bgt)
+    if not calls or (bids < 0).any() or dense[bids].any() or out["hnsw_fallback_recall_at_10"] < HNSW_FALLBACK_FLOOR:
+        raise AssertionError(f"HNSW 95% bitset: fallback calls {len(calls)}, recall {out['hnsw_fallback_recall_at_10']}")
+
+    bs = kt.BinarySet()
+    if idx.Serialize(bs) != kt.Status.success:
+        raise RuntimeError("HNSW Serialize failed")
+    again = kt.IndexFactory.Instance().Create("HNSW").value()
+    (st, out["hnsw_load_s"]) = _timed(lambda: again.Deserialize(bs))
+    if st != kt.Status.success:
+        raise RuntimeError("HNSW Deserialize failed")
+    out["hnsw_roundtrip_ids_identical"] = bool(np.array_equal(_search(again, kt, xq, search)[0], ids))
+    if not out["hnsw_roundtrip_ids_identical"]:
+        raise AssertionError("HNSW Serialize/Deserialize changed the result ids")
+    del idx, again, node, brute
+
+    # the same BinarySet in lean mode: the general walk
+    os.environ["KNOWHERE_GRAPH_INLINE"] = "0"
+    try:
+        lean = kt.IndexFactory.Instance().Create("HNSW").value()
+        if lean.Deserialize(bs) != kt.Status.success:
+            raise RuntimeError("HNSW Deserialize (lean mode) failed")
+    finally:
+        del os.environ["KNOWHERE_GRAPH_INLINE"]
+    if lean.node._inline is not None:
+        raise AssertionError("lean mode built the inline table")
+    ids_l, _ = _search(lean, kt, xq, search)  # warm-up
+    times = []
+    for _ in range(3):
+        (ids_l, _), dt = _timed(lambda: _search(lean, kt, xq, search))
+        times.append(dt)
+    out["hnsw_lean_profile"] = _profile_search(lambda: _search(lean, kt, xq, search))
+    out["hnsw_lean_search_s_all"] = times
+    out["hnsw_lean_qps"] = nq / float(np.median(times))
+    out["hnsw_lean_recall_at_10"] = recall_at(ids_l, gt)
+    out["hnsw_lean_tpu_anchor"] = HNSW_LEAN_ANCHOR
+    if out["hnsw_lean_recall_at_10"] < HNSW_LEAN_FLOOR:
+        raise AssertionError(f"HNSW lean-mode recall {out['hnsw_lean_recall_at_10']} < {HNSW_LEAN_FLOOR}")
+    return out
+
+
+def fused_knn_path(xb, xq, gt, flat_search_s, k=10):
+    """fused_knn (the single-pass scan) over every query against the 1M base."""
+    import torch
+
+    from knowhere_tpu_torch.device import to_device
+    from knowhere_tpu_torch.ops import fused_topk
+
+    base = to_device(xb)
+    fused_topk.fused_knn(xq[:64], base, k, "L2")  # warm-up
+    (dists, ids), wall = _timed(lambda: fused_topk.fused_knn(xq, base, k, "L2"))
+    # the plain version on the same padded inputs: this call's shape (all
+    # queries in one launch) splits the corpus unlike the kernel phase's
+    base_p, norms_p = fused_topk.pad_base(base, (base * base).sum(1))
+    q = torch.nn.functional.pad(to_device(xq), (0, base_p.shape[1] - base.shape[1]))
+    s_p, i_p = fused_topk.fused_knn_scan_plain(q, base_p, norms_p, k=k, is_l2=True)
+    dists_p, ids_p = fused_topk.host_result(s_p, i_p, xq, len(xb), True)
+    del base, base_p, norms_p, q, s_p, i_p
+    torch.cuda.empty_cache()
+    out = {"fused_knn_s": wall, "flat_exact_search_s": flat_search_s, "fused_recall_at_10": recall_at(ids, gt),
+           "plain_max_abs_err": float(np.abs(dists - dists_p).max()),
+           "plain_id_agree": float(np.mean([len(set(a) & set(b)) / k for a, b in zip(ids, ids_p)]))}
+    if not np.allclose(dists, dists_p, rtol=FUSED_RTOL, atol=FUSED_ATOL) or out["plain_id_agree"] < FUSED_ID_AGREE:
+        raise AssertionError(f"fused_knn over every query disagrees with the plain version: {out}")
+    if ids.shape != (len(xq), k) or (ids < 0).any() or not np.isfinite(dists).all():
+        raise AssertionError("fused_knn results not finite / wrong shape / short")
+    if out["fused_recall_at_10"] < FUSED_RECALL_FLOOR:
+        raise AssertionError(f"fused_knn recall@10 {out['fused_recall_at_10']} < {FUSED_RECALL_FLOOR}")
+    return out
+
+
 def _run_path(name, wrappers, must_launch, fn):
     """Drive one path with every launch counter zeroed just before it; the
     counts are read just after it, and each kernel of the path must have
@@ -683,7 +917,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     import knowhere_tpu_torch as kt
-    from knowhere_tpu_torch.ops import adc_cuda, cuda_build, cuda_flat, ivf_cuda
+    from knowhere_tpu_torch.ops import adc_cuda, cuda_build, cuda_flat, fused_topk, ivf_cuda
 
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
@@ -702,6 +936,7 @@ def main() -> int:
     xb, xq = gen_corpus(1_000_000, 10_000, 128, seed=0)
     print(f"corpus 1000000 x 128, 10000 queries, made in {time.perf_counter() - t0:.2f} s")
     flat_checks = check_flat_kernel(dev, xb, xq)
+    fused_checks = check_fused_kernel(dev, xb, xq)
 
     kt.KnowhereConfig.SetSimdType("AUTO")  # FAST: the kernels' serving scans
     wrappers = {
@@ -711,6 +946,7 @@ def main() -> int:
         "ivf_adc_scan": adc_cuda.adc_scan_tasks,
         "ivf_sq_scan": ivf_cuda.sq_scan_tasks,
         "ivf_rbq_scan": ivf_cuda.rbq_scan_tasks,
+        "fused_knn_scan": fused_topk.fused_knn_scan,
     }
     # each kernel's launches are reported from the path that introduced it
     (e2e, flat, gt), counts = _run_path(
@@ -732,7 +968,16 @@ def main() -> int:
     )
     print("ivf_rabitq path:", json.dumps(rbq_out))
     launches["ivf_rbq_scan"] = counts["ivf_rbq_scan"]
+    # HNSW before FLAT is dropped: its filtered truths need it
+    hnsw_out, _ = _run_path("hnsw path", wrappers, ("ivf_f32_scan",), lambda: hnsw_path(kt, xb, xq, gt, flat))
+    print("hnsw path:", json.dumps(hnsw_out))
     del flat
+    torch.cuda.empty_cache()
+    fused_out, counts = _run_path(
+        "fused knn path", wrappers, ("fused_knn_scan",), lambda: fused_knn_path(xb, xq, gt, e2e["flat_search_s"])
+    )
+    print("fused knn path:", json.dumps(fused_out))
+    launches["fused_knn_scan"] = counts["fused_knn_scan"]
     gist_out, _ = _run_path("gist ivf_pq path", wrappers, ("ivf_adc_scan", "flat_group_scan"), lambda: gist_pq_path(kt))
     print("gist ivf_pq path:", json.dumps(gist_out))
     torch.cuda.synchronize()
@@ -744,6 +989,7 @@ def main() -> int:
         ("ivf_adc_scan", adc_checks),
         ("ivf_sq_scan", ivf_checks["ivf_sq_scan"]),
         ("ivf_rbq_scan", ivf_checks["ivf_rbq_scan"]),
+        ("fused_knn_scan", fused_checks),
     )}
     meta = {
         "ivf_int8_scan": ("knowhere_tpu_torch/csrc/ivf_scan.cu", "knowhere_tpu/ops/ivf_pallas.py:400"),
@@ -755,10 +1001,13 @@ def main() -> int:
         ),
         "ivf_sq_scan": ("knowhere_tpu_torch/csrc/ivf_sq.cu", "knowhere_tpu/ops/ivf_pallas.py:236"),
         "ivf_rbq_scan": ("knowhere_tpu_torch/csrc/ivf_rbq.cu", "knowhere_tpu/ops/ivf_pallas.py:966"),
+        "fused_knn_scan": ("knowhere_tpu_torch/csrc/fused_knn.cu", "knowhere_tpu/ops/pallas_topk.py:73"),
     }
     # library_ms is null for every kernel: no single PyTorch call computes a
-    # per-task masked top-kk over gathered list blocks (or FLAT's top-k of
-    # 16-row group maxima); a product without the top-k is another function
+    # per-task masked top-kk over gathered list blocks, FLAT's top-k of
+    # 16-row group maxima, or a bf16 top-k scan (a product without the top-k
+    # is another function; the fused scan's two-call yardstick is printed in
+    # its kernel lines)
     kernels = [
         {
             "name": name, "route": "cuda", "source": meta[name][0], "replaces": meta[name][1],

@@ -37,7 +37,7 @@ def test_only_flat_and_ivf_flat_registered():
     names = {name for name, _ in ktt.IndexFactory.Instance()._registry}
     assert names == {
         "FLAT", "IVF_FLAT", "IVF_PQ", "GPU_FAISS_IVF_PQ", "IVF_SQ8", "GPU_FAISS_IVF_SQ8",
-        "IVF_RABITQ", "IVF_RABITQ_FASTSCAN",
+        "IVF_RABITQ", "IVF_RABITQ_FASTSCAN", "HNSW", "HNSW_SQ", "HNSW_PQ", "HNSW_PRQ",
     }
 
 
@@ -97,8 +97,8 @@ def test_misuse_status_matches_reference(name, action, want):
 
 
 def test_unported_family_gives_unknown_index_status():
-    assert kt.IndexFactory.Instance().Create("HNSW").has_value()
-    got = ktt.IndexFactory.Instance().Create("HNSW")
+    assert kt.IndexFactory.Instance().Create("DISKANN").has_value()
+    got = ktt.IndexFactory.Instance().Create("DISKANN")
     unknown = ktt.IndexFactory.Instance().Create("NO_SUCH_INDEX")
     assert got.error() == unknown.error() == ktt.Status.invalid_index_error
 
