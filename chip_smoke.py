@@ -8,12 +8,17 @@ Run from the root of a checkout on a machine with one CUDA GPU. In order:
 1. require a CUDA device and print the card's name and power limit;
 2. build the CUDA kernels from knowhere_tpu_torch/csrc (nvcc, sm_90a);
 3. hold each kernel against its plain PyTorch version on the card, at the
-   shapes the main path gives it, and time both;
+   shapes the main path gives it, and time both (the f32 scan also at the
+   HNSW build's per-launch shape, 8,192 tasks at kk=32; FLAT phase 1 also as
+   its group-max and select launches apart, beside an f32 yardstick);
 4. run the main path through the public API on the SIFT1M-like corpus
-   (1M x 128 f32, 10,000 queries, seed 0): FLAT exact ground truth, IVF_FLAT
+   (1M x 128 f32, 10,000 queries, seed 0): FLAT exact ground truth, its
+   first 1,000 queries' ids held against an independent full-f32 answer
+   (torch.matmul + torch.topk) and its warm search time, IVF_FLAT
    (nlist=1024, L2) FAST search at nprobe=12, k=10, recall@10 and warm QPS,
    a 50% bitset search, a Serialize/Deserialize round trip, and the same
-   index served by the f32 scan (KNOWHERE_DISABLE_INT8_SCAN=1);
+   index served by the f32 scan (KNOWHERE_DISABLE_INT8_SCAN=1), its recall
+   and warm QPS;
 5. IVF_PQ at the north-star configuration on the same corpus (nlist=1024,
    m=16, nbits=8, OPQ, FP16 refine with refine_k=8, FAST, nprobe=12, k=10):
    recall@10 against the FLAT truth and warm QPS, a 50% bitset search, a
@@ -73,14 +78,21 @@ ROOT = Path(__file__).resolve().parent
 # int8: the dot is exact in both and the epilogue rounds the same f32 ops in
 # the same order, so scores agree to 1e-6 relative and positions exactly.
 INT8_RTOL = 1e-6
-# f32: the kernel sums FMAs in feature order, the plain version through
-# cuBLAS in another order: scores agree within 1e-4 relative + 1e-3, and
-# positions except near-ties (at least 99.9% equal).
+# f32: the kernel and the plain version compute the same exact bf16 products
+# (three passes, or one) and sum them in f32 in other orders (the tensor
+# cores' accumulators against cuBLAS): scores agree within 1e-4 relative +
+# 1e-3, and positions except near-ties (at least 99.9% equal).
 F32_RTOL, F32_ATOL, F32_POS_AGREE = 1e-4, 1e-3, 0.999
-# FLAT phase 1: the kernel is full f32, the plain version the reference's
-# 3-pass hi/lo bf16 (drops lo*lo, ~2^-16 relative): group maxima agree within
-# 1e-5 of the largest magnitude + 1e-3, group-id sets on >= 99.9% of entries.
+# FLAT phase 1: the kernel and the plain version both compute the
+# reference's 3-pass hi/lo bf16 product, summed in other orders: group maxima
+# agree within 1e-5 of the largest magnitude + 1e-3, group-id sets on
+# >= 99.9% of entries.
 FLAT_RTOL, FLAT_ATOL, FLAT_ID_AGREE = 1e-5, 1e-3, 0.999
+# FLAT against an independent full-f32 answer (torch.matmul + torch.topk,
+# TF32 off) on the first 1,000 queries: ids identical except where the k-th
+# and (k+1)-th exact distances lie within this much (and ranks swapped
+# between distances this close).
+FLAT_EXACT_TIE = 1e-3
 RECALL_FLOOR = 0.95  # IVF_FLAT recall@10 at nprobe=12 (reference: 0.9585)
 FILTERED_RECALL_FLOOR = 0.90
 F32_PATH_RECALL_FLOOR = 0.95
@@ -197,6 +209,16 @@ def _task_work(blk, nrows, keep, Qg, kk, B=512):
     return n_blocks, rows, side
 
 
+def _rows_read(blk, nrows):
+    """The rows of the distinct list blocks up to each block's largest
+    nrows: what a scan that stops at nrows must read."""
+    import torch
+
+    uniq, inv = torch.unique(blk, return_inverse=True)
+    most = torch.zeros(uniq.numel(), dtype=torch.long, device=blk.device)
+    return int(most.scatter_reduce_(0, inv, nrows.long(), "amax").sum())
+
+
 def _dot_ops(three_pass: bool, dots: int, f32_ops: int) -> dict:
     """A scan's operations by type: its dots in f32 (three_pass, full f32) or
     bf16 (the single bf16 pass), plus f32_ops more in f32."""
@@ -274,18 +296,34 @@ def check_ivf_kernels(dev, n_tasks=4096, n_blocks=2048, Qg=128, d=128):
             reps=10, u8=u8,
         ))
 
-    # (three_pass, kk, mask, is_l2)
-    f32_cases = [(True, 16, None, True), (True, 32, keep, True), (False, 16, None, True),
-                 (False, 32, keep, True), (True, 16, keep, False)]
-    for three_pass, kk, mask, is_l2 in f32_cases:
+    # (three_pass, kk, mask, is_l2, tasks): the path's shape first, then the
+    # HNSW build's per-launch shape (8,192 tasks, kk=32)
+    f32_cases = [(True, 16, None, True, n_tasks), (True, 32, keep, True, n_tasks), (False, 16, None, True, n_tasks),
+                 (False, 32, keep, True, n_tasks), (True, 16, keep, False, n_tasks), (True, 32, None, True, 8192)]
+    path_inputs = blk, nrows, qf
+    for three_pass, kk, mask, is_l2, tasks in f32_cases:
+        if tasks != n_tasks:  # its own generator: the later cases keep their inputs
+            g2 = torch.Generator(device=dev).manual_seed(2)
+            blk, nrows = _task_geometry(g2, n_blocks, tasks, dev)
+            qf = torch.randn((tasks, Qg, d), generator=g2, device=dev)
         n_blk, n_rows, side = _task_work(blk, nrows, mask, Qg, kk)
-        nbytes = n_blk * B * d * 4 + n_tasks * Qg * d * 4 + side
-        ops = _dot_ops(three_pass, 2 * n_rows * Qg * d, 2 * n_blk * B * d * is_l2)  # dots + L2 norms
+        # the kernel stops at nrows: each block's rows up to its tasks' largest
+        # nrows (every 512-row block in full: bound_full_blocks_ms)
+        rows_read = _rows_read(blk, nrows)
+        nbytes = rows_read * d * 4 + tasks * Qg * d * 4 + side
+        # the tensor cores' bf16 passes over the scored rows, the L2 norms in f32
+        ops = {"bf16": (3 if three_pass else 1) * 2 * n_rows * Qg * d, "f32": 2 * rows_read * d * is_l2}
+        full = n_blk * B * d * 4 + tasks * Qg * d * 4 + side
+        bound_full = bound(full, {"bf16": ops["bf16"], "f32": 2 * n_blk * B * d * is_l2})["bound_ms"]
+        # the bound as if the dots ran in f32 on the CUDA cores, for comparison
+        bound_f32 = bound(full, _dot_ops(three_pass, 2 * n_rows * Qg * d, 2 * n_blk * B * d * is_l2))["bound_ms"]
         results["ivf_f32_scan"].append(_run_case(
             "ivf_f32_scan", ivf_cuda.f32_scan_tasks, ivf_cuda.f32_scan_plain, (blk, nrows, qf, rows, mask),
             dict(B=B, kk=kk, is_l2=is_l2, three_pass=three_pass), F32_RTOL, F32_ATOL, F32_POS_AGREE,
-            (nbytes, ops), three_pass=three_pass,
+            (nbytes, ops), three_pass=three_pass, tasks=tasks, bound_full_blocks_ms=bound_full,
+            bound_f32_ms=bound_f32,
         ))
+    blk, nrows, qf = path_inputs
     del rows, codes, q8
 
     # SQ: u8 codes and the grid; (three_pass, kk, mask, is_l2, levels), the
@@ -390,34 +428,97 @@ def check_adc_kernel(dev):
 
 
 def check_flat_kernel(dev, xb: np.ndarray, xq: np.ndarray):
+    """flat_group_scan against flat_group_scan_plain on the 1M corpus with
+    1,024 queries (k=10 and k=100 L2, k=10 IP), and at d=256 on a random
+    corpus. Times the whole scan, its
+    group-max and select launches apart, and the f32 yardstick
+    topk(((a q @ base^T) - |x|^2) grouped by 16 and maxed) in full f32."""
     import torch
 
     from knowhere_tpu_torch.ops import cuda_flat
 
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: the f32 yardstick would not be full f32")
     base = torch.from_numpy(xb).to(dev)
     out = []
     for is_l2, k in ((True, 10), (True, 100), (False, 10)):
         store = cuda_flat.FlatScanStore(base, None, is_l2)
         q = torch.nn.functional.pad(torch.from_numpy(xq[:1024]).to(dev), (0, store.d_pad - store.d))
         args = (store.base, store.nrm, q, k, store.a_coef)
-        v_k, g_k = cuda_flat.flat_group_scan(*args)
-        v_p, g_p = cuda_flat.flat_group_scan_plain(*args)
-        torch.cuda.synchronize()
-        err = (v_k - v_p).abs().max().item()
-        tol = FLAT_ATOL + FLAT_RTOL * v_p.abs().max().item()
-        gk, gp = g_k.cpu().numpy(), g_p.cpu().numpy()
-        agree = np.mean([len(set(gk[i]) & set(gp[i])) / k for i in range(len(gk))])
+        err, agree = _flat_agreement(*args)
         ms = time_ms(lambda: cuda_flat.flat_group_scan(*args), reps=5)
-        plain_ms = time_ms(lambda: cuda_flat.flat_group_scan_plain(*args), reps=3)
         nq = q.shape[0]
-        nbytes = store.nb * (store.d + 1) * 4 + nq * store.d * 4 + v_k.numel() * 4 + g_k.numel() * 4
+        q_op = cuda_flat.query_operand(q)
+        gmax = cuda_flat.flat_group_max(store.base, store.nrm, q_op, store.a_coef)
+        group_max_ms = time_ms(lambda: cuda_flat.flat_group_max(store.base, store.nrm, q_op, store.a_coef), reps=5)
+        select_ms = time_ms(lambda: cuda_flat.flat_select(gmax, nq, k), reps=5)
+        del gmax
+        plain_ms = time_ms(lambda: cuda_flat.flat_group_scan_plain(*args), reps=3)
+        yardstick_ms = time_ms(lambda: torch.topk(
+            (store.a_coef * (q @ store.base.T) - store.nrm).view(nq, -1, cuda_flat.GROUP).amax(-1), k), reps=3)
+        nbytes = store.nb * (store.d + 1) * 4 + nq * store.d * 4 + nq * k * 8
+        dots = 2 * store.nb * nq * store.d
         line = dict(nb=store.nb, nq=nq, k=k, is_l2=is_l2, max_abs_err=err, id_agree=agree, ms=ms,
-                    plain_ms=plain_ms, **bound(nbytes, {"f32": 2 * store.nb * nq * store.d}))
+                    group_max_ms=group_max_ms, select_ms=select_ms, plain_ms=plain_ms, yardstick_ms=yardstick_ms,
+                    **bound(nbytes, {"bf16": 3 * dots}), bound_f32_ms=bound(nbytes, {"f32": dots})["bound_ms"])
         print("flat_group_scan", json.dumps(line))
-        if err > tol or agree < FLAT_ID_AGREE:
-            raise AssertionError(f"flat_group_scan disagrees with its plain version: {line}")
         out.append(line)
         del store
+    # d = 256 (two feature chunks: the corpus chunk is staged again for each
+    # query tile, as at GIST's d = 960) on a random corpus
+    g = torch.Generator(device=dev).manual_seed(3)
+    store = cuda_flat.FlatScanStore(torch.randn((65536, 256), generator=g, device=dev), None, True)
+    q = torch.randn((300, 256), generator=g, device=dev)
+    err, agree = _flat_agreement(store.base, store.nrm, q, 10, store.a_coef)
+    print("flat_group_scan", json.dumps(dict(nb=store.nb, nq=300, d=256, k=10, max_abs_err=err, id_agree=agree)))
+    return out
+
+
+def _flat_agreement(base, nrm, q, k, a_coef):
+    """flat_group_scan against its plain version on the same inputs: (max
+    abs error of the group maxima, mean share of equal group ids a query);
+    raises beyond FLAT_RTOL / FLAT_ATOL or under FLAT_ID_AGREE."""
+    import torch
+
+    from knowhere_tpu_torch.ops import cuda_flat
+
+    v_k, g_k = cuda_flat.flat_group_scan(base, nrm, q, k, a_coef)
+    v_p, g_p = cuda_flat.flat_group_scan_plain(base, nrm, q, k, a_coef)
+    torch.cuda.synchronize()
+    err = (v_k - v_p).abs().max().item()
+    tol = FLAT_ATOL + FLAT_RTOL * v_p.abs().max().item()
+    gk, gp = g_k.cpu().numpy(), g_p.cpu().numpy()
+    agree = float(np.mean([len(set(gk[i]) & set(gp[i])) / k for i in range(len(gk))]))
+    if err > tol or agree < FLAT_ID_AGREE:
+        raise AssertionError(f"flat_group_scan disagrees with its plain version: d={base.shape[1]} k={k} "
+                             f"max_abs_err={err} tol={tol} id_agree={agree}")
+    return err, agree
+
+
+def flat_vs_exact(xb: np.ndarray, xq: np.ndarray, ids: np.ndarray, k: int) -> dict:
+    """FLAT's ids against an independent full-f32 answer on the card:
+    |q|^2 - 2 q.x + |x|^2 by torch.matmul (TF32 off), torch.topk of k + 1.
+    A row may differ only where its k-th and (k+1)-th exact distances lie
+    within FLAT_EXACT_TIE (another id set) or where the swapped ranks'
+    distances do (another order)."""
+    import torch
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: the exact answer would not be full f32")
+    b, q = torch.from_numpy(xb).cuda(), torch.from_numpy(xq).cuda()
+    d2 = (q * q).sum(1, keepdim=True) - 2.0 * (q @ b.T) + (b * b).sum(1)[None, :]
+    dist, idx = torch.topk(d2, k + 1, dim=1, largest=False)
+    d_ids = torch.gather(d2, 1, torch.from_numpy(ids).long().cuda()).cpu().numpy()
+    ex, dist = idx.cpu().numpy(), dist.cpu().numpy()
+    del d2, b, q
+    diff = np.nonzero((ex[:, :k] != ids).any(1))[0]
+    other_set = [r for r in diff if set(ex[r, :k].tolist()) != set(ids[r].tolist())]
+    bad = [int(r) for r in diff if np.abs(d_ids[r] - dist[r, :k]).max() > FLAT_EXACT_TIE
+           or (r in other_set and dist[r, k] - dist[r, k - 1] > FLAT_EXACT_TIE)]
+    out = {"queries": len(ids), "rows_differing": int(len(diff)), "rows_other_id_set": len(other_set),
+           "rows_not_near_tie": len(bad)}
+    if bad:
+        raise AssertionError(f"FLAT ids disagree with the full-f32 answer beyond near-ties: {out}, rows {bad[:10]}")
     return out
 
 
@@ -506,6 +607,10 @@ def main_path(kt, xb, xq, k=10, nlist=1024, nprobe=12, search_reps=5):
         raise AssertionError("FLAT distances disagree with numpy on the first 64 queries")
     if not (np.diff(gt_d, axis=1) >= -1e-3).all():
         raise AssertionError("FLAT results are not sorted")
+    out["flat_vs_full_f32"] = flat_vs_exact(xb, xq[:1000], gt[:1000], k)
+    # the first search also built the device copy and the scan store
+    out["flat_warm_search_s_all"] = [_timed(lambda: _search(flat, kt, xq, cfg_flat))[1] for _ in range(3)]
+    out["flat_warm_search_s_median"] = float(np.median(out["flat_warm_search_s_all"]))
 
     ivf = kt.IndexFactory.Instance().Create("IVF_FLAT").value()
     st, out["ivf_build_s"] = _timed(
@@ -556,7 +661,13 @@ def main_path(kt, xb, xq, k=10, nlist=1024, nprobe=12, search_reps=5):
             raise RuntimeError("IVF_FLAT Deserialize (f32 scan) failed")
     finally:
         del os.environ["KNOWHERE_DISABLE_INT8_SCAN"]
-    ids3, _ = _search(f32_idx, kt, xq, cfg_ivf)
+    ids3, _ = _search(f32_idx, kt, xq, cfg_ivf)  # warm-up
+    times = []
+    for _ in range(search_reps):
+        (ids3, _), dt = _timed(lambda: _search(f32_idx, kt, xq, cfg_ivf))
+        times.append(dt)
+    out["f32_scan_search_s_all"] = times
+    out["f32_scan_qps"] = nq / float(np.median(times))
     out["f32_scan_recall_at_10"] = recall_at(ids3, gt)
     if out["f32_scan_recall_at_10"] < F32_PATH_RECALL_FLOOR:
         raise AssertionError(f"f32-scan recall {out['f32_scan_recall_at_10']} < {F32_PATH_RECALL_FLOOR}")
@@ -1017,6 +1128,11 @@ def main() -> int:
         }
         for name in wrappers
     ]
+    # the two tensor-core kernels also carry their f32-typed bound;
+    # FLAT its two launches apart and its f32 yardstick (several calls)
+    for entry in kernels:
+        extra = ("bound_f32_ms", "bound_full_blocks_ms", "group_max_ms", "select_ms", "yardstick_ms")
+        entry.update({key: first[entry["name"]][key] for key in extra if key in first[entry["name"]]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

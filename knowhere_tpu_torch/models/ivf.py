@@ -17,7 +17,8 @@ merges per query:
   the int8 scan kernel ranks a widened pool (max(4k, 48)), then an exact f32
   rerank over the raw rows returns the final distances.
 - IVF_FLAT, FAST/BF16 without the sidecar (KNOWHERE_DISABLE_INT8_SCAN=1): the
-  f32 scan kernel (3-pass-class f32 for FAST; bf16 plus exact rerank for BF16).
+  f32 scan kernel (the three-pass hi/lo bf16 product for FAST; bf16 plus exact
+  rerank for BF16).
 - IVF_PQ: queries rotate into the OPQ frame; FAST/BF16 run the ADC scan
   kernel over an aligned store, EXACT the plain scan over decoded codes. With
   a refine store the scan keeps k * refine_k candidates and the refine pass

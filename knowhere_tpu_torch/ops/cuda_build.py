@@ -50,7 +50,7 @@ _SIGNATURES = {
     # blk, nrows, lids, q, books, clut, cents, codes, keep, out_s, out_p,
     # T, Qg, d, m, ksub, sub, kk, is_l2, nib, stream
     "kw_ivf_adc_scan": [_P] * 11 + [_I] * 9 + [_P],
-    # base, nrm, q, gmax, nb_pad, nq_pad, d, a, stream
+    # base, nrm, q_op, gmax, nb_pad, nq_pad, d, a, stream
     "kw_flat_group_max": [_P] * 4 + [_I] * 3 + [ctypes.c_float, _P],
     # gmax, n, nq, k, out_v, out_g, stream
     "kw_flat_select": [_P, _I, _I, _I, _P, _P, _P],

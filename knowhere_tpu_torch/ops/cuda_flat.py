@@ -2,8 +2,11 @@
 knowhere_tpu/ops/pallas_flat.py).
 
 Phase 1 (``flat_group_scan``, CUDA kernel csrc/flat_scan.cu): scores
-``a*<x,q> - |x|^2`` (a=2 L2, 1 IP) over the corpus, the max of each GROUP=16
-consecutive rows, and the top-k groups by that maximum per query.
+``a*<x,q> - |x|^2`` (a=2 L2, 1 IP) over the corpus with the reference's
+three-pass hi/lo bf16 product, the max of each GROUP=16 consecutive rows, and
+the top-k groups by that maximum per query. The kernel splits the f32 corpus
+into hi/lo bf16 as it stages it, and reads the queries as a bf16 tile image
+(``query_operand``) that the wrapper builds once a launch.
 
 Phase 2 (torch): gather the k winning groups per query (16 contiguous rows
 each), rescore them exactly in f32 and take the final top-k of the k*16
@@ -30,7 +33,8 @@ NEG_INF = -1e38
 TILE = 2048  # corpus padding unit (kept from the reference layout)
 GROUP = 16
 NQ_BLOCK = 1024  # queries per phase-1 call; bounds the (NQ_BLOCK, nb/16) group maxima
-_Q_TILE = 64  # the kernel's query tile: query blocks are padded to it
+_OP_ROWS = 128  # rows of one operand tile: the kernel's corpus and query tiles
+_CHUNK = 128  # features per operand chunk (d is padded to it)
 _PLAIN_ROWS = 65536  # corpus rows per chunk of the plain phase 1
 
 
@@ -39,6 +43,31 @@ def hi_lo(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     hi = x.to(torch.bfloat16).float()
     lo = (x - hi).to(torch.bfloat16).float()
     return hi, lo
+
+
+def split_operand(x: torch.Tensor) -> torch.Tensor:
+    """The tensor-core kernel's operand image of x (R, d) f32, R % 128 == 0,
+    d % 128 == 0: (R/128, d/128, 32, 128, 8) bf16. For each tile of 128
+    rows and each 128-feature chunk, 32 slices of 8 features -- the chunk's
+    16 hi slices, then its 16 lo slices (``hi_lo``) -- each slice holding
+    the tile's rows one after another (wgmma's K-major core matrices without
+    swizzle, csrc/wgmma_common.cuh)."""
+    R, d = x.shape
+    rows = _OP_ROWS
+    if R % rows or d % _CHUNK:
+        raise ValueError(f"split_operand: ({R}, {d}) is not a multiple of ({rows}, {_CHUNK})")
+    hi, lo = hi_lo(x.float())
+    kc = d // _CHUNK
+    hl = torch.stack([hi.reshape(R, kc, _CHUNK), lo.reshape(R, kc, _CHUNK)], dim=2).to(torch.bfloat16)
+    return hl.reshape(R // rows, rows, kc, 32, 8).permute(0, 2, 3, 1, 4).contiguous()
+
+
+def query_operand(q: torch.Tensor) -> torch.Tensor:
+    """The queries' operand image: q (nq, d_pad) padded with zero rows to a
+    multiple of the kernel's 128-query tile, then ``split_operand``."""
+    nq, d = q.shape
+    pad = -nq % _OP_ROWS
+    return split_operand(torch.nn.functional.pad(q.float(), (0, 0, 0, pad)))
 
 
 def flat_group_scan_plain(base, nrm, q, k: int, a_coef: float):
@@ -58,38 +87,57 @@ def flat_group_scan_plain(base, nrm, q, k: int, a_coef: float):
     return vals, gids.int()
 
 
+def flat_group_max(base, nrm, q_op, a_coef: float) -> torch.Tensor:
+    """The group-max launch alone: (nq_pad, nb_pad/16) f32 group maxima of
+    base (nb_pad, d) f32 against the queries' ``query_operand`` image."""
+    nb_pad, d = base.shape
+    nq_pad = q_op.shape[0] * _OP_ROWS
+    gmax = torch.empty((nq_pad, nb_pad // GROUP), dtype=torch.float32, device=q_op.device)
+    p = cuda_build.ptr
+    cuda_build.check(
+        cuda_build.lib().kw_flat_group_max(
+            p(base), p(nrm), p(q_op), p(gmax), nb_pad, nq_pad, d, a_coef, cuda_build.stream_of(q_op)
+        ),
+        "flat_group_scan (group max)",
+    )
+    return gmax
+
+
+def flat_select(gmax: torch.Tensor, nq: int, k: int):
+    """The select launch alone: top-k (values, group ids) of gmax rows 0..nq-1."""
+    out_v = torch.empty((nq, k), dtype=torch.float32, device=gmax.device)
+    out_g = torch.empty((nq, k), dtype=torch.int32, device=gmax.device)
+    p = cuda_build.ptr
+    cuda_build.check(
+        cuda_build.lib().kw_flat_select(
+            p(gmax), gmax.shape[1], nq, k, p(out_v), p(out_g), cuda_build.stream_of(gmax)
+        ),
+        "flat_group_scan (select)",
+    )
+    return out_v, out_g
+
+
 def flat_group_scan(base: torch.Tensor, nrm: torch.Tensor, q: torch.Tensor, k: int, a_coef: float):
     """Phase 1: top-k 16-row groups per query. base (nb_pad, d_pad) f32 with
-    nb_pad % 64 == 0, nrm (nb_pad,) f32 (pad rows 1e38), q (nq, d_pad) f32.
+    nb_pad % 128 == 0 and d_pad % 128 == 0, nrm (nb_pad,) f32 (pad rows
+    1e38), q (nq, d_pad) f32. On the card the kernel reads base as it is and
+    the queries' ``query_operand`` image, built here.
     Returns (values (nq,k) f32, group ids (nq,k) int32, -1 for empty slots)."""
     if not q.is_cuda:
         return flat_group_scan_plain(base, nrm, q, k, a_coef)
     nb_pad, d = base.shape
     nq = q.shape[0]
     n_groups = nb_pad // GROUP
-    if nb_pad % _Q_TILE or d % 32 or not 1 <= k <= min(1024, n_groups) or q.shape[1] != d:
+    if nb_pad % _OP_ROWS or d % _CHUNK or not 1 <= k <= min(1024, n_groups) or q.shape[1] != d:
         raise ValueError(f"flat_group_scan: bad shape nb_pad={nb_pad} d={d} k={k}")
     if base.dtype != torch.float32 or nrm.dtype != torch.float32 or nrm.shape != (nb_pad,):
         raise TypeError("flat_group_scan takes f32 base (nb_pad, d) and f32 norms (nb_pad,)")
-    if base.device != q.device or nrm.device != q.device or not base.is_contiguous():
-        raise ValueError("flat_group_scan: base and norms must be contiguous on the query's device")
-    nq_pad = -(-nq // _Q_TILE) * _Q_TILE
-    qp = q.float()
-    if nq_pad != nq:
-        qp = torch.cat([qp, qp.new_zeros((nq_pad - nq, d))])
-    qp = qp.contiguous()
-    gmax = torch.empty((nq_pad, n_groups), dtype=torch.float32, device=q.device)
-    out_v = torch.empty((nq, k), dtype=torch.float32, device=q.device)
-    out_g = torch.empty((nq, k), dtype=torch.int32, device=q.device)
-    lib, p, stream = cuda_build.lib(), cuda_build.ptr, cuda_build.stream_of(q)
-    cuda_build.check(
-        lib.kw_flat_group_max(p(base), p(nrm), p(qp), p(gmax), nb_pad, nq_pad, d, a_coef, stream),
-        "flat_group_scan (group max)",
-    )
-    cuda_build.check(
-        lib.kw_flat_select(p(gmax), n_groups, nq, k, p(out_v), p(out_g), stream),
-        "flat_group_scan (select)",
-    )
+    if base.device != q.device or nrm.device != q.device:
+        raise ValueError("flat_group_scan: base and norms must be on the query's device")
+    if not base.is_contiguous() or not nrm.is_contiguous() or base.data_ptr() % 16:
+        raise ValueError("flat_group_scan: base must be contiguous and 16-byte aligned, norms contiguous")
+    gmax = flat_group_max(base, nrm, query_operand(q), a_coef)
+    out_v, out_g = flat_select(gmax, nq, k)
     flat_group_scan.launches += 1
     return out_v, out_g
 
@@ -143,7 +191,7 @@ def flat_topk(q: np.ndarray, store: FlatScanStore, k: int) -> Tuple[np.ndarray, 
     q_dev = to_device(q)
     qp_dev = torch.nn.functional.pad(q_dev, (0, store.d_pad - d))
     # phase 2 gathers (block, kg, GROUP, d) f32 rows: keep that near 1 GiB
-    block = min(NQ_BLOCK, max(_Q_TILE, (1 << 30) // (kg * GROUP * d * 4)))
+    block = min(NQ_BLOCK, max(64, (1 << 30) // (kg * GROUP * d * 4)))
     s_parts, i_parts = [], []
     for s0 in range(0, nq, block):
         _, gids = flat_group_scan(store.base, store.nrm, qp_dev[s0 : s0 + block], kg, store.a_coef)

@@ -7,8 +7,9 @@ queries (ops/ivf_scan.py builds them). Four scans:
   ``2*sz*dot - nrm`` (L2) or ``sz*dot`` (IP); the FAST serving scan of
   IVF_FLAT (int8 sidecar) and IVF_SQ8 (its u8 codes), whose candidate pool
   is re-ranked exactly afterwards. Replaces ``_int8_kernel``.
-- ``f32_scan_tasks``: f32 queries . f32 rows, single-pass bf16 or full f32,
-  in-scan norms, score ``2*dot - |x|^2`` or ``dot``. Replaces ``_scan_kernel``.
+- ``f32_scan_tasks``: f32 queries . f32 rows as the reference's single bf16
+  pass or its three-pass hi/lo bf16 product (tensor cores), in-scan f32
+  norms, score ``2*dot - |x|^2`` or ``dot``. Replaces ``_scan_kernel``.
 - ``sq_scan_tasks``: the same scores over u8 SQ8/SQ6 codes decoded as
   ``vmin + (c + 0.5) * (1/levels) * vdiff``. Replaces ``_sq_kernel``.
 - ``rbq_scan_tasks``: the RaBitQ estimator over packed sign bits, score
@@ -34,6 +35,7 @@ import numpy as np
 import torch
 
 from . import cuda_build
+from .cuda_flat import hi_lo
 
 NEG_INF = -1e38
 
@@ -173,9 +175,10 @@ def _bf16_round(x: torch.Tensor) -> torch.Tensor:
 
 
 def f32_scan_plain(blk, nrows, q_task, data, keep=None, *, B, kk, is_l2, three_pass):
-    """Plain PyTorch version of the f32 scan. three_pass=False rounds q and x
-    to bf16 and multiplies in f32 (the TPU's single bf16 pass);
-    three_pass=True is a full f32 product, as the kernel computes."""
+    """Plain PyTorch version of the f32 scan, with the reference's arithmetic
+    (ivf_pallas.py _scan_kernel). three_pass=False rounds q and x to bf16 and
+    multiplies in f32 (the TPU's single bf16 pass); three_pass=True is the
+    hi/lo split (hh + hl) + lh, each bf16 x bf16 product exact in f32."""
     out_s, out_p = [], []
     for c0 in range(0, blk.shape[0], _PLAIN_CHUNK):
         sl = slice(c0, c0 + _PLAIN_CHUNK)
@@ -183,7 +186,10 @@ def f32_scan_plain(blk, nrows, q_task, data, keep=None, *, B, kk, is_l2, three_p
         rows = data[_block_rows(b, B)].float()
         q = q_task[sl].float()
         if three_pass:
-            dots = torch.bmm(q, rows.transpose(1, 2))
+            qh, ql = hi_lo(q)
+            rh, rl = hi_lo(rows)
+            rh_t, rl_t = rh.transpose(1, 2), rl.transpose(1, 2)
+            dots = (torch.bmm(qh, rh_t) + torch.bmm(qh, rl_t)) + torch.bmm(ql, rh_t)
         else:
             dots = torch.bmm(_bf16_round(q), _bf16_round(rows).transpose(1, 2))
         if is_l2:
@@ -213,8 +219,8 @@ def f32_scan_tasks(
             blk, nrows, q_task, data, keep, B=B, kk=kk, is_l2=is_l2, three_pass=three_pass
         )
     Tc, Qg, d = q_task.shape
-    if B != LIST_ALIGN or not 1 <= kk <= 32:
-        raise ValueError(f"f32 scan takes B={LIST_ALIGN}, kk<=32 (got {B}, {kk})")
+    if B != LIST_ALIGN or d % 128 or not 1 <= kk <= 32:
+        raise ValueError(f"f32 scan takes B={LIST_ALIGN}, d%128==0, kk<=32 (got {B}, {d}, {kk})")
     if data.dtype != torch.float32 or q_task.dtype != torch.float32:
         raise TypeError("f32 scan takes f32 queries and rows")
     _check_task_args(blk, nrows, q_task, data, keep, d)

@@ -729,8 +729,8 @@ def _int8_search(q_dev, store, probes, list_offsets, lens_arr, k, is_l2, Qg, kee
 
 
 def _f32_search(q_dev, store, probes, list_offsets, lens_arr, k, is_l2, Qg, keep_sorted=None, *, three_pass):
-    """Raw f32 scan (kernel: ivf_cuda.f32_scan_tasks); FAST runs the full-f32
-    product (the TPU's 3-pass), BF16 the single bf16 pass."""
+    """Raw f32 scan (kernel: ivf_cuda.f32_scan_tasks); FAST runs the
+    reference's three-pass hi/lo bf16 product, BF16 the single bf16 pass."""
     kk = task_kk(k, LIST_ALIGN)
 
     def scan(blk, nr, _lid, safe):

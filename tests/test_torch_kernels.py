@@ -139,7 +139,11 @@ def test_f32_scan_matches_jax(three_pass, is_l2):
     s_t, p_t = ivf_cuda.f32_scan_tasks(
         T(blk), T(nrows), T(q[qids]), T(x), T(keep), B=B, kk=kk, is_l2=is_l2, three_pass=three_pass
     )
-    assert_same_topk(np.asarray(s_j), np.asarray(p_j), s_t.numpy(), p_t.numpy(), 1e-5, 1e-3)
+    # three passes: both sides sum the same exact bf16 products in f32, only
+    # in other orders (measured: 4.9e-7 relative, 3.1e-5 absolute at |s| <=
+    # 104); the single pass keeps the earlier tolerance
+    rtol, atol = (1e-6, 1e-4) if three_pass else (1e-5, 1e-3)
+    assert_same_topk(np.asarray(s_j), np.asarray(p_j), s_t.numpy(), p_t.numpy(), rtol, atol)
 
 
 @pytest.mark.parametrize(
