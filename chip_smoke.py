@@ -30,10 +30,12 @@ Run from the root of a checkout on a machine with one CUDA GPU. In order:
    u8 codes with an SQ8-decode rerank; recall@10 against the FLAT truth,
    warm QPS, a 50% bitset search, a Serialize/Deserialize round trip, EXACT
    on the first 1,000 queries; then the same BinarySet loaded with
-   KNOWHERE_DISABLE_INT8_SCAN=1, served by the SQ scan kernel;
+   KNOWHERE_DISABLE_INT8_SCAN=1, served by the SQ scan kernel, its recall,
+   warm QPS and one torch-profiler pass over one search;
 7. IVF_RABITQ on the same corpus (nlist=1024, raw refine, FAST, nprobe=16,
    refine_k=8, k=10): served by the RaBitQ scan kernel; recall, warm QPS,
-   bitset, round trip, EXACT on 1,000 queries;
+   one torch-profiler pass over one search, bitset, round trip, EXACT on
+   1,000 queries;
 8. HNSW at the bench's configuration on the same corpus (M=16,
    efConstruction=200, L2, FAST): the build (its all-pairs kNN graph runs
    through the f32 scan kernel; the inline walk must be active), recall@10
@@ -107,16 +109,17 @@ IVF_PQ_SEARCH = {"metric_type": "L2", "k": 10, "nprobe": 12, "refine_k": 8}
 GIST_PQ_BUILD = {"metric_type": "L2", "nlist": 256, "m": 96, "nbits": 8, "refine": True, "refine_type": "FP16"}
 GIST_PQ_SEARCH = {"metric_type": "L2", "k": 10, "nprobe": 32, "refine_k": 32}
 # SQ: decoded values and queries are rounded to bf16 in both (single pass) or
-# kept f32 (three_pass); the products are exact, the sums and the f32 norms
-# run in other orders: the f32 scan's tolerances hold.
+# split to hi/lo bf16 (three_pass); the products are exact, the sums and the
+# f32 norms run in other orders: the f32 scan's tolerances hold.
 SQ8_BUILD = {"metric_type": "L2", "nlist": 1024, "sq_type": "SQ8"}
 SQ8_SEARCH = {"metric_type": "L2", "k": 10, "nprobe": 16}
 SQ8_RECALL_FLOOR = 0.945  # IVF_SQ8 recall@10 at nprobe=16
 SQ8_TPU_ANCHOR = 0.9520  # the JAX package's recall on a TPU (docs/BENCHMARKS.md:19)
 SQ_SCAN_RECALL_FLOOR = 0.90  # the same index served by the SQ scan kernel
 SQ_SCAN_VS_EXACT = 0.03
-# RaBitQ: the same +/-bf16(qr) terms in both, summed in another order; |qr|^2
-# and <q,c> too: the f32 scan's tolerances hold.
+# RaBitQ: the same +/-bf16(qr) terms in both (qr_hi and qr_lo for three_pass),
+# summed in another order; |qr|^2 and <q,c> too: the f32 scan's tolerances
+# hold.
 RBQ_BUILD = {"metric_type": "L2", "nlist": 1024}
 RBQ_SEARCH = {"metric_type": "L2", "k": 10, "nprobe": 16, "refine_k": 8}
 RBQ_RECALL_FLOOR = 0.85
@@ -332,17 +335,21 @@ def check_ivf_kernels(dev, n_tasks=4096, n_blocks=2048, Qg=128, d=128):
     vmin = torch.randn(d, generator=g, device=dev) - 2.0
     vdiff = torch.rand(d, generator=g, device=dev) * 4.0 + 0.5
     sq_cases = [(False, 16, None, True, 256), (False, 32, keep, True, 256), (False, 16, keep, False, 256),
-                (False, 32, None, True, 64), (True, 16, None, True, 256)]
+                (False, 32, None, True, 64), (True, 16, None, True, 256), (True, 32, keep, True, 256)]
+    rows_read = _rows_read(blk, nrows)  # the kernels stop at nrows
     for three_pass, kk, mask, is_l2, levels in sq_cases:
         c = codes_u8 if levels == 256 else codes_u8 >> 2
         n_blk, n_rows, side = _task_work(blk, nrows, mask, Qg, kk)
-        nbytes = n_blk * B * d + 2 * d * 4 + n_tasks * Qg * d * 4 + side
-        # the dots, plus the decode (and the norms for L2) once per code
-        ops = _dot_ops(three_pass, 2 * n_rows * Qg * d, 2 * n_blk * B * d * (1 + is_l2))
+        nbytes = rows_read * d + 2 * d * 4 + n_tasks * Qg * d * 4 + side
+        # the tensor cores' bf16 passes over the scored rows, the decode (and
+        # the norms for L2) once per code read in f32
+        ops = {"bf16": (3 if three_pass else 1) * 2 * n_rows * Qg * d, "f32": 2 * rows_read * d * (1 + is_l2)}
+        full = n_blk * B * d + 2 * d * 4 + n_tasks * Qg * d * 4 + side
+        bound_f32 = bound(full, _dot_ops(three_pass, 2 * n_rows * Qg * d, 2 * n_blk * B * d * (1 + is_l2)))
         results["ivf_sq_scan"].append(_run_case(
             "ivf_sq_scan", ivf_cuda.sq_scan_tasks, ivf_cuda.sq_scan_plain, (blk, nrows, qf, c, vmin, vdiff, mask),
             dict(B=B, kk=kk, levels=levels, is_l2=is_l2, three_pass=three_pass), F32_RTOL, F32_ATOL,
-            F32_POS_AGREE, (nbytes, ops), three_pass=three_pass, levels=levels,
+            F32_POS_AGREE, (nbytes, ops), three_pass=three_pass, levels=levels, bound_f32_ms=bound_f32["bound_ms"],
         ))
     del codes_u8
 
@@ -355,17 +362,21 @@ def check_ivf_kernels(dev, n_tasks=4096, n_blocks=2048, Qg=128, d=128):
     cents = torch.randn((nlist, d), generator=g, device=dev)
     lids = torch.randint(0, nlist, (n_tasks,), generator=g, device=dev, dtype=torch.int32)
     n_lids = int(torch.unique(lids).numel())
-    rbq_cases = [(False, 32, None, True), (False, 16, keep, True), (False, 16, keep, False), (True, 32, None, True)]
+    rbq_cases = [(False, 32, None, True), (False, 16, keep, True), (False, 16, keep, False), (True, 32, None, True),
+                 (True, 16, keep, False)]
     for three_pass, kk, mask, is_l2 in rbq_cases:
         n_blk, n_rows, side = _task_work(blk, nrows, mask, Qg, kk)
-        nbytes = n_blk * B * (d // 8 + 8) + n_lids * d * 4 + n_tasks * (Qg * d * 4 + 4) + side
-        # the sign dots, plus qr and |qr|^2 or <q,c> once per query row
-        ops = _dot_ops(three_pass, 2 * n_rows * Qg * d, 3 * n_tasks * Qg * d)
+        nbytes = rows_read * (d // 8 + 8) + n_lids * d * 4 + n_tasks * (Qg * d * 4 + 4) + side
+        # the tensor cores' sign dots (two passes for three_pass) over the
+        # scored rows, plus qr and |qr|^2 or <q,c> once per query row in f32
+        ops = {"bf16": (2 if three_pass else 1) * 2 * n_rows * Qg * d, "f32": 3 * n_tasks * Qg * d}
+        full = n_blk * B * (d // 8 + 8) + n_lids * d * 4 + n_tasks * (Qg * d * 4 + 4) + side
+        bound_f32 = bound(full, _dot_ops(three_pass, 2 * n_rows * Qg * d, 3 * n_tasks * Qg * d))
         results["ivf_rbq_scan"].append(_run_case(
             "ivf_rbq_scan", ivf_cuda.rbq_scan_tasks, ivf_cuda.rbq_scan_plain,
             (blk, nrows, lids, qf, cents, signs, rn, tt, mask),
             dict(B=B, kk=kk, is_l2=is_l2, three_pass=three_pass), F32_RTOL, F32_ATOL, F32_POS_AGREE,
-            (nbytes, ops), three_pass=three_pass,
+            (nbytes, ops), three_pass=three_pass, bound_f32_ms=bound_f32["bound_ms"],
         ))
     return results
 
@@ -790,6 +801,7 @@ def sq8_path(kt, xb, xq, gt, flat):
         raise AssertionError("IVF_SQ8 without the int8 sidecar did not run the SQ scan")
     out["sq_scan_search_s_all"] = times
     out["sq_scan_qps"] = len(xq) / float(np.median(times))
+    out["sq_scan_profile"] = _profile_search(lambda: _search(sq_idx, kt, xq, SQ8_SEARCH))
     out["sq_scan_recall_at_10"] = recall_at(ids_sq, gt)
     out["sq_scan_recall_1k"] = recall_at(ids_sq[:1000], gt[:1000])
     if out["sq_scan_recall_at_10"] < SQ_SCAN_RECALL_FLOOR or out["sq_scan_recall_1k"] < exact - SQ_SCAN_VS_EXACT:
@@ -801,6 +813,7 @@ def sq8_path(kt, xb, xq, gt, flat):
 def rabitq_path(kt, xb, xq, gt, flat):
     """IVF_RABITQ with its default raw refine store through the public API."""
     rbq, ids, out = _serve(kt, "IVF_RABITQ", "rbq", xb, xq, gt, RBQ_BUILD, RBQ_SEARCH, RBQ_RECALL_FLOOR)
+    out["rbq_profile"] = _profile_search(lambda: _search(rbq, kt, xq, RBQ_SEARCH))
     out.update(_filtered_and_round_trip(kt, "IVF_RABITQ", "rbq", rbq, ids, xb, xq, flat, RBQ_SEARCH)[0])
     out["rbq_exact_recall_1k"], out["rbq_fast_recall_1k"] = _exact_vs_fast(
         kt, rbq, xq[:1000], gt[:1000], RBQ_SEARCH, "IVF_RABITQ"
@@ -836,7 +849,8 @@ def _profile_search(fn) -> dict:
     """One torch-profiler pass over fn(): wall ms, device busy ms (the sum of
     the device kernels' time), the idle share, the device ms under each
     library range (graph_inline.seed / walk / rerank, graph.walk,
-    hnsw.refine, hnsw.brute_force) and the top ops by device time."""
+    hnsw.refine, hnsw.brute_force), the device ms and launches of each of the
+    port's CUDA kernels (namespace kw) and the top ops by device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -862,10 +876,12 @@ def _profile_search(fn) -> dict:
     ops = sorted((e for e in avgs if e.device_type != DeviceType.CUDA and e.key.startswith("aten::")),
                  key=lambda e: dev_ms(e, "self_device_time_total"), reverse=True)
     top = [(e.key, round(dev_ms(e, "self_device_time_total"), 3), e.count) for e in ops[:10]]
+    kernels = {e.key.split("(")[0].replace("void ", "")[:90]: (round(dev_ms(e, "self_device_time_total"), 3), e.count)
+               for e in avgs if e.device_type == DeviceType.CUDA and "kw::" in e.key}
     if busy > wall:
         raise AssertionError(f"profile: device busy {busy} ms exceeds the wall {wall} ms (time counted twice)")
     return {"wall_ms": wall, "device_busy_ms": busy, "idle_share": 1.0 - busy / wall, "ranges": ranges,
-            "top_ops": top}
+            "kernels": kernels, "top_ops": top}
 
 
 def hnsw_path(kt, xb, xq, gt, flat, search_reps=5):
@@ -1128,8 +1144,9 @@ def main() -> int:
         }
         for name in wrappers
     ]
-    # the two tensor-core kernels also carry their f32-typed bound;
-    # FLAT its two launches apart and its f32 yardstick (several calls)
+    # the tensor-core kernels also carry their f32-typed bound (the f32 scan
+    # its whole-block one too); FLAT its two launches apart and its f32
+    # yardstick (several calls)
     for entry in kernels:
         extra = ("bound_f32_ms", "bound_full_blocks_ms", "group_max_ms", "select_ms", "yardstick_ms")
         entry.update({key: first[entry["name"]][key] for key in extra if key in first[entry["name"]]})

@@ -139,7 +139,7 @@ __global__ void __launch_bounds__(256, 1)
       for (int i = 0; i < kTileQ / 2; ++i) acc[i] = 0.f;
     }
     wgmma_fence();
-    chunk_product<kTileQ>(acc, smem_u32(sA) + wg * 64 * 16, kTileRows, smem_u32(sB0) + st * kOpBytes, true);
+    chunk_product<kTileQ>(acc, smem_u32(sA) + wg * 64 * 16, kTileRows, smem_u32(sB0) + st * kOpBytes, true, true);
     wgmma_commit();
     wgmma_wait0();
     __syncthreads();  // every warpgroup is done with stage st

@@ -1,7 +1,7 @@
-// Hopper building blocks shared by the tensor-core scans (flat_scan.cu,
-// ivf_scan.cu): wgmma on bf16 operands with f32 accumulators, the shared
-// memory descriptors they read, mbarriers with bulk (TMA) copies, cp.async,
-// and the three-pass hi/lo product of the reference.
+// Hopper building blocks shared by the tensor-core scans (flat_scan.cu and
+// the IVF task scans of ivf_task_scan.cuh): wgmma on bf16 operands with f32
+// accumulators, the shared memory descriptors they read, mbarriers with bulk
+// (TMA) copies, cp.async, and the three-pass hi/lo product of the reference.
 //
 // Operand layout (K-major, no swizzle). A tile of R rows x 256 bf16 holds
 // one 128-feature chunk as [hi: 16 slices of 8 | lo: 16 slices of 8]; slice
@@ -102,22 +102,21 @@ __device__ __forceinline__ void wgmma_tile(float (&d)[N / 2], uint64_t a, uint64
 
 // One 128-feature chunk of the product into acc: a_addr / b_addr are the
 // shared addresses of this warpgroup's A rows (64 of a_rows) and of B (N
-// rows), each laid out as described above. three: the hi.hi, hi.lo and lo.hi
-// passes; else hi.hi alone (the reference's single bf16 pass). The caller
+// rows), each laid out as described above. The hi.hi pass always runs (the
+// reference's single bf16 pass); b_lo adds hi.lo, a_lo adds lo.hi (both: the
+// three passes; b_lo alone: two, where A is exact in bf16). The caller
 // fences (wgmma_fence) before and commits / waits after.
 template <int N>
 __device__ __forceinline__ void chunk_product(float (&acc)[N / 2], uint32_t a_addr, int a_rows,
-                                              uint32_t b_addr, bool three) {
+                                              uint32_t b_addr, bool b_lo, bool a_lo) {
   const uint32_t a_lbo = a_rows * 16, b_lbo = N * 16;
-  const uint32_t a_lo = a_addr + kSlices * a_lbo, b_lo = b_addr + kSlices * b_lbo;
+  const uint32_t a_lo_addr = a_addr + kSlices * a_lbo, b_lo_addr = b_addr + kSlices * b_lbo;
 #pragma unroll
   for (int j = 0; j < kSlices / 2; ++j) {  // k16 steps: two slices each
     const uint32_t ao = 2 * j * a_lbo, bo = 2 * j * b_lbo;
     wgmma_tile<N>(acc, make_desc(a_addr + ao, a_lbo, 128), make_desc(b_addr + bo, b_lbo, 128));
-    if (three) {
-      wgmma_tile<N>(acc, make_desc(a_addr + ao, a_lbo, 128), make_desc(b_lo + bo, b_lbo, 128));
-      wgmma_tile<N>(acc, make_desc(a_lo + ao, a_lbo, 128), make_desc(b_addr + bo, b_lbo, 128));
-    }
+    if (b_lo) wgmma_tile<N>(acc, make_desc(a_addr + ao, a_lbo, 128), make_desc(b_lo_addr + bo, b_lbo, 128));
+    if (a_lo) wgmma_tile<N>(acc, make_desc(a_lo_addr + ao, a_lbo, 128), make_desc(b_addr + bo, b_lbo, 128));
   }
 }
 

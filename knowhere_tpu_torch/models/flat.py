@@ -26,6 +26,7 @@ from ..io.serialize import read_sections, write_sections
 from ..ops import distances as D
 from ..ops import topk as T
 from ..status import KnowhereException, Status, expected
+from ..utils.spill import release_spill, spill_array
 
 # the two-phase scan serves corpora at least this large (as the reference)
 TWO_PHASE_MIN_ROWS = 16384
@@ -52,6 +53,9 @@ class FlatIndexNode(IndexNode):
             if self._xb is None:
                 raise KnowhereException("index is empty", Status.empty_index)
             self._dev = to_device(self._xb)
+            # the device copy is the search structure; the host copy (read by
+            # Serialize, GetVectorByIds and Add) becomes a disk-backed memmap
+            self._xb = spill_array(self._xb)
         return self._dev
 
     def _check_metric(self, metric: str) -> None:
@@ -70,7 +74,10 @@ class FlatIndexNode(IndexNode):
     def Add(self, dataset: DataSet, cfg: Config) -> Status:
         xb = np.asarray(dataset.tensor)
         self._dim = dataset.dim
-        self._xb = xb if self._xb is None else np.concatenate([self._xb, xb], axis=0)
+        old = self._xb
+        self._xb = xb if old is None else np.concatenate([old, xb], axis=0)
+        if old is not None:
+            release_spill(old)
         self._dev = None
         self._scan_stores = {}
         return Status.success
@@ -78,6 +85,8 @@ class FlatIndexNode(IndexNode):
     def load_state(self, arrays: dict, meta: dict) -> None:
         """Install the state a FLAT node serializes: arrays {"xb"}, meta
         {dim, metric, data_type}."""
+        if self._xb is not None:
+            release_spill(self._xb)
         self._xb = np.asarray(arrays["xb"])
         self._dim = int(meta["dim"])
         self._metric = meta["metric"]

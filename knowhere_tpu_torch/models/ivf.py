@@ -71,6 +71,10 @@ from ..utils.logging import log_warning
 
 MIN_POINTS_PER_CENTROID = 39  # reference ivf.cc:478
 B_SLACK = 2048  # zero rows after the store: a block slice never runs off its end
+# host rows copied (and their norms taken) per step of an upload: one
+# zeroed buffer filled in chunks of this many bytes, never a full-size
+# float64 or padded temporary (as knowhere_tpu/models/ivf.py uploads)
+UPLOAD_CHUNK_BYTES = 256 << 20
 
 
 def match_nlist(rows: int, nlist: int) -> int:
@@ -146,6 +150,23 @@ def _bf16_dtype():
     import ml_dtypes  # the reference's host bf16 type; only bf16 refine stores need it
 
     return ml_dtypes.bfloat16
+
+
+def _row_chunks(n: int, row_bytes: int):
+    """(i0, i1) row ranges of about UPLOAD_CHUNK_BYTES each."""
+    ch = max(1, UPLOAD_CHUNK_BYTES // max(row_bytes, 1))
+    return ((i0, min(i0 + ch, n)) for i0 in range(0, n, ch))
+
+
+def _pad_cols(a: np.ndarray, width: int, slack: int = 0) -> np.ndarray:
+    """(n, d) host rows zero-padded to (n + slack, width) in one
+    preallocated buffer, filled in row chunks; a itself when nothing pads."""
+    if a.shape[1] == width and not slack:
+        return a
+    buf = np.zeros((a.shape[0] + slack, width), a.dtype)
+    for i0, i1 in _row_chunks(a.shape[0], a.shape[1] * a.dtype.itemsize):
+        buf[i0:i1, : a.shape[1]] = a[i0:i1]
+    return buf
 
 
 def _rows_to_device(a: np.ndarray) -> torch.Tensor:
@@ -398,9 +419,11 @@ class IvfIndexNode(IndexNode):
             data = self._sorted_payload["data"]
             nb_rows = data.shape[0]
             buf = np.zeros((nb_rows + B_SLACK, self._d_dev), np.float32)
-            buf[:nb_rows, :d] = data
             norms = np.zeros(nb_rows + B_SLACK, np.float32)
-            norms[:nb_rows] = np.einsum("ij,ij->i", data, data, dtype=np.float64)
+            for i0, i1 in _row_chunks(nb_rows, d * 4):
+                c = np.asarray(data[i0:i1], dtype=np.float32)
+                buf[i0:i1, :d] = c
+                norms[i0:i1] = np.einsum("ij,ij->i", c, c, dtype=np.float64)
             self._store["data"] = to_device(buf)
             self._store["norms"] = to_device(norms)
             self._build_int8_sidecar(data, dcol)
@@ -412,7 +435,7 @@ class IvfIndexNode(IndexNode):
             self._upload_pq(cpad)
         self._refine_store = None
         if self._refine_cfg and "refine" in self._sorted_payload:
-            rows = _rows_to_device(cpad(self._sorted_payload["refine"]))
+            rows = _rows_to_device(_pad_cols(self._sorted_payload["refine"], self._d_dev))
             if self._refine_cfg == "sq8":
                 self._refine_store = RefineStore(
                     "sq8", rows,
@@ -464,11 +487,8 @@ class IvfIndexNode(IndexNode):
         grid's vmin / vdiff; for SQ8 the int8 sidecar."""
         t = self._sq.sq_type
         codes = self._sorted_payload["codes"]
-        if t != "SQ4":
-            codes = cpad(codes)
-        buf = np.zeros((codes.shape[0] + B_SLACK, codes.shape[1]), codes.dtype)
-        buf[: codes.shape[0]] = codes
-        self._store["codes"] = _rows_to_device(buf)
+        width = codes.shape[1] if t == "SQ4" else self._d_dev
+        self._store["codes"] = _rows_to_device(_pad_cols(codes, width, B_SLACK))
         self._sq_levels, self._sq_packed4 = 0, False
         if t in ("SQ4", "SQ6", "SQ8"):
             self._store["vmin"] = to_device(cpad(self._sq.vmin))

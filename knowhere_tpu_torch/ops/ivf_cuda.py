@@ -11,18 +11,22 @@ queries (ops/ivf_scan.py builds them). Four scans:
   pass or its three-pass hi/lo bf16 product (tensor cores), in-scan f32
   norms, score ``2*dot - |x|^2`` or ``dot``. Replaces ``_scan_kernel``.
 - ``sq_scan_tasks``: the same scores over u8 SQ8/SQ6 codes decoded as
-  ``vmin + (c + 0.5) * (1/levels) * vdiff``. Replaces ``_sq_kernel``.
+  ``vmin + (c + 0.5) * (1/levels) * vdiff``, one bf16 pass or three hi/lo
+  passes (tensor cores). Replaces ``_sq_kernel``.
 - ``rbq_scan_tasks``: the RaBitQ estimator over packed sign bits, score
   ``-(|qr|^2 + rn^2 - 2 est)`` (L2) or ``<q,c> + est`` (IP) with
-  ``est = rn * <bf16(qr), s> / (max(t, 1e-6) sqrt(d))``. Replaces
+  ``est = rn * <qr, s> / (max(t, 1e-6) sqrt(d))``, the dot as one bf16 pass
+  or the hi/lo passes ``<qr_hi, s> + <qr_lo, s>`` (tensor cores). Replaces
   ``_rbq_kernel``.
 
 Each returns the per-task top-kk as (scores (Tc,Qg,kk), positions (Tc,Qg,kk)
 into the padded storage), with the reference's result contract: larger is
 better, empty slots hold -1e38 with position -1, ties go to the leftmost
-column. Each wrapper launches its CUDA kernel (csrc/ivf_scan.cu) for CUDA
-tensors and counts the launch in ``<wrapper>.launches``; for CPU tensors it
-runs the plain PyTorch version beside it. The plain versions are what the CPU
+column. Each wrapper launches its CUDA kernel (csrc/ivf_scan.cu, ivf_sq.cu,
+ivf_rbq.cu; the f32, SQ and RaBitQ scans share the tensor-core body of
+csrc/ivf_task_scan.cuh) for CUDA tensors and counts the launch in
+``<wrapper>.launches``; for CPU tensors it runs the plain PyTorch version
+beside it. The plain versions are what the CPU
 tests hold against the JAX kernels and what the chip check holds the kernels
 against.
 """
@@ -174,24 +178,28 @@ def _bf16_round(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).float()
 
 
+def _dots(q: torch.Tensor, rows: torch.Tensor, three_pass: bool) -> torch.Tensor:
+    """(T, Qg, d) . (T, B, d) -> (T, Qg, B) as the reference's scan kernels
+    compute it: the hi/lo split (hh + hl) + lh, each bf16 x bf16 product
+    exact in f32 (three_pass), or bf16-rounded operands multiplied in f32
+    (the TPU's single bf16 pass)."""
+    if three_pass:
+        qh, ql = hi_lo(q)
+        rh, rl = hi_lo(rows)
+        rh_t, rl_t = rh.transpose(1, 2), rl.transpose(1, 2)
+        return (torch.bmm(qh, rh_t) + torch.bmm(qh, rl_t)) + torch.bmm(ql, rh_t)
+    return torch.bmm(_bf16_round(q), _bf16_round(rows).transpose(1, 2))
+
+
 def f32_scan_plain(blk, nrows, q_task, data, keep=None, *, B, kk, is_l2, three_pass):
     """Plain PyTorch version of the f32 scan, with the reference's arithmetic
-    (ivf_pallas.py _scan_kernel). three_pass=False rounds q and x to bf16 and
-    multiplies in f32 (the TPU's single bf16 pass); three_pass=True is the
-    hi/lo split (hh + hl) + lh, each bf16 x bf16 product exact in f32."""
+    (ivf_pallas.py _scan_kernel, see _dots)."""
     out_s, out_p = [], []
     for c0 in range(0, blk.shape[0], _PLAIN_CHUNK):
         sl = slice(c0, c0 + _PLAIN_CHUNK)
         b = blk[sl]
         rows = data[_block_rows(b, B)].float()
-        q = q_task[sl].float()
-        if three_pass:
-            qh, ql = hi_lo(q)
-            rh, rl = hi_lo(rows)
-            rh_t, rl_t = rh.transpose(1, 2), rl.transpose(1, 2)
-            dots = (torch.bmm(qh, rh_t) + torch.bmm(qh, rl_t)) + torch.bmm(ql, rh_t)
-        else:
-            dots = torch.bmm(_bf16_round(q), _bf16_round(rows).transpose(1, 2))
+        dots = _dots(q_task[sl].float(), rows, three_pass)
         if is_l2:
             score = 2.0 * dots - (rows * rows).sum(-1)[:, None, :]
         else:
@@ -256,18 +264,14 @@ def _sq_rows(codes_blk, vmin, vdiff, levels):
 
 def sq_scan_plain(blk, nrows, q_task, codes, vmin, vdiff, keep=None, *, B, kk, levels, is_l2, three_pass):
     """Plain PyTorch version of the SQ scan: decode the block to f32 rows,
-    then the f32 scan's arithmetic (bf16-rounded operands for
-    three_pass=False, full f32 otherwise); L2 norms from the f32 rows."""
+    then the f32 scan's arithmetic (ivf_pallas.py _sq_kernel, see _dots); L2
+    norms from the f32 rows."""
     out_s, out_p = [], []
     for c0 in range(0, blk.shape[0], _PLAIN_CHUNK):
         sl = slice(c0, c0 + _PLAIN_CHUNK)
         b = blk[sl]
         rows = _sq_rows(codes[_block_rows(b, B)], vmin, vdiff, levels)
-        q = q_task[sl].float()
-        if three_pass:
-            dots = torch.bmm(q, rows.transpose(1, 2))
-        else:
-            dots = torch.bmm(_bf16_round(q), _bf16_round(rows).transpose(1, 2))
+        dots = _dots(q_task[sl].float(), rows, three_pass)
         score = 2.0 * dots - (rows * rows).sum(-1)[:, None, :] if is_l2 else dots
         s, p = _finish(score, b, nrows[sl], keep, B, kk)
         out_s.append(s)
@@ -296,8 +300,8 @@ def sq_scan_tasks(
             B=B, kk=kk, levels=levels, is_l2=is_l2, three_pass=three_pass,
         )
     Tc, Qg, d = q_task.shape
-    if B != LIST_ALIGN or d % 4 or not 1 <= kk <= 32 or levels not in (64, 256):
-        raise ValueError(f"sq scan takes B={LIST_ALIGN}, d%4==0, kk<=32, levels 64/256 (got {B}, {d}, {kk}, {levels})")
+    if B != LIST_ALIGN or d % 128 or not 1 <= kk <= 32 or levels not in (64, 256):
+        raise ValueError(f"sq scan takes B={LIST_ALIGN}, d%128==0, kk<=32, levels 64/256 (got {B}, {d}, {kk}, {levels})")
     if codes.dtype != torch.uint8 or q_task.dtype != torch.float32:
         raise TypeError("sq scan takes f32 queries and uint8 codes")
     _check_task_args(blk, nrows, q_task, codes, keep, d)
@@ -335,9 +339,10 @@ def unpack_signs(packed: torch.Tensor, d: int) -> torch.Tensor:
 
 
 def rbq_scan_plain(blk, nrows, lids, q_task, cents_rot, signs, r_norm, t, keep=None, *, B, kk, is_l2, three_pass):
-    """Plain PyTorch version of the RaBitQ scan. qr = q - c_rot[lid] in f32;
-    the sign dot takes bf16(qr) (three_pass=False) or the f32 qr; |qr|^2 and
-    <q, c> are f32; sqrt(d) is the scanned (device) width."""
+    """Plain PyTorch version of the RaBitQ scan (ivf_pallas.py _rbq_kernel).
+    qr = q - c_rot[lid] in f32; the sign dot takes bf16(qr) (three_pass=False)
+    or the hi/lo split qr_hi.s + qr_lo.s (three_pass=True; +/-1 is exact in
+    bf16); |qr|^2 and <q, c> are f32; sqrt(d) is the scanned (device) width."""
     d = q_task.shape[2]
     sqrt_d = float(np.sqrt(d))
     out_s, out_p = [], []
@@ -349,7 +354,12 @@ def rbq_scan_plain(blk, nrows, lids, q_task, cents_rot, signs, r_norm, t, keep=N
         c = cents_rot[lids[sl].long()].float()[:, None, :]
         qr = q - c
         s_pm = unpack_signs(signs[rows], d)
-        dots = torch.bmm(qr if three_pass else _bf16_round(qr), s_pm.transpose(1, 2))
+        s_t = s_pm.transpose(1, 2)
+        if three_pass:
+            qh, ql = hi_lo(qr)
+            dots = torch.bmm(qh, s_t) + torch.bmm(ql, s_t)
+        else:
+            dots = torch.bmm(_bf16_round(qr), s_t)
         rn, tt = r_norm[rows][:, None, :], t[rows][:, None, :]
         ip_est = rn * dots / (torch.clamp(tt, min=1e-6) * sqrt_d)
         if is_l2:
@@ -384,8 +394,8 @@ def rbq_scan_tasks(
             B=B, kk=kk, is_l2=is_l2, three_pass=three_pass,
         )
     Tc, Qg, d = q_task.shape
-    if B != LIST_ALIGN or d % 32 or not 1 <= kk <= 32:
-        raise ValueError(f"rbq scan takes B={LIST_ALIGN}, d%32==0, kk<=32 (got {B}, {d}, {kk})")
+    if B != LIST_ALIGN or d % 128 or not 1 <= kk <= 32:
+        raise ValueError(f"rbq scan takes B={LIST_ALIGN}, d%128==0, kk<=32 (got {B}, {d}, {kk})")
     if signs.dtype != torch.uint8 or q_task.dtype != torch.float32 or cents_rot.dtype != torch.float32:
         raise TypeError("rbq scan takes f32 queries and centroids and uint8 packed signs")
     if signs.dim() != 2 or signs.shape[1] != d // 8 or signs.shape[0] % LIST_ALIGN:

@@ -92,3 +92,35 @@ def test_flat_load_state_matches_deserialize():
     node = ktt.IndexFactory.Instance().Create("FLAT").value()
     node.node.load_state({"xb": xb}, {"dim": 64, "metric": "IP", "data_type": "fp32"})
     np.testing.assert_array_equal(_search(node, ktt, xq, "IP")[0], _search(built, kt, xq, "IP")[0])
+
+
+def test_flat_spills_host_copy(monkeypatch):
+    """After the first Search uploads the rows, the host copy is a
+    disk-backed memmap, as the JAX package's FLAT demotes it; GetVectorByIds,
+    Serialize and a later Add still see the same bytes."""
+    monkeypatch.setenv("KNOWHERE_HOST_SPILL_THRESHOLD", "1024")
+    xb, xq = _data(20000, 8, seed=5)
+    idx = _build(ktt, xb, "L2")
+    bs_before = ktt.BinarySet()
+    assert idx.Serialize(bs_before) == ktt.Status.success
+    ids, _ = _search(idx, ktt, xq, "L2")
+    assert isinstance(idx.node._xb, np.memmap)
+    ref = _build(kt, xb, "L2")
+    _search(ref, kt, xq, "L2")
+    assert isinstance(ref.node._xb, np.memmap)  # the reference spills the same way
+    np.testing.assert_array_equal(ids, _search(ref, kt, xq, "L2")[0])
+
+    pick = np.array([0, 7, 19999, 123])
+    res = idx.GetVectorByIds(ktt.GenIdsDataSet(pick))
+    assert res.has_value(), res.what()
+    np.testing.assert_array_equal(np.asarray(res.value().tensor).reshape(len(pick), -1), xb[pick])
+    bs = ktt.BinarySet()
+    assert idx.Serialize(bs) == ktt.Status.success
+    assert bs.GetByName("FLAT").tobytes() == bs_before.GetByName("FLAT").tobytes()
+
+    more = _data(100, 1, seed=6)[0]
+    assert idx.Add(ktt.GenDataSetFromArray(more), {"metric_type": "L2"}) == ktt.Status.success
+    assert idx.Count() == len(xb) + len(more)
+    np.testing.assert_array_equal(np.asarray(idx.node._xb), np.concatenate([xb, more]))
+    assert _search(idx, ktt, more[:4], "L2")[0][:, 0].tolist() == [20000, 20001, 20002, 20003]
+    assert isinstance(idx.node._xb, np.memmap)

@@ -1,13 +1,17 @@
 """The tensor-core scans' arithmetic and operand layouts against the JAX package.
 
 flat_group_scan and ivf_f32_scan compute the reference's three-pass hi/lo
-bf16 product (knowhere_tpu/ops/pallas_flat.py:85, ivf_pallas.py:140-152). On
-the CPU their wrappers run the plain PyTorch versions, which are held here
-against the JAX package: the hi/lo split bit for bit, the IVF_FLAT FAST
-search without the int8 sidecar (the f32 scan, the JAX side in interpret
-mode) id for id, and the operands the FLAT kernel reads: the queries' bf16
-image element by element and the store's padded f32 corpus. The kernels themselves are held against the plain versions on the
-GPU by chip_smoke.py.
+bf16 product (knowhere_tpu/ops/pallas_flat.py:85, ivf_pallas.py:140-152),
+ivf_sq_scan the same over decoded SQ codes (ivf_pallas.py:263-272) and
+ivf_rbq_scan the two passes qr_hi.s + qr_lo.s over +/-1 sign planes
+(ivf_pallas.py:990-1003). On the CPU their wrappers run the plain PyTorch
+versions, which are held here against the JAX package: the hi/lo split bit
+for bit, the IVF_FLAT FAST search without the int8 sidecar (the f32 scan,
+the JAX side in interpret mode) id for id, and the operands the kernels
+read: FLAT's queries' bf16 image element by element, the store's padded f32
+corpus, the SQ rows decoded and split as the SQ kernel stages them, and the
++/-1 image of the RaBitQ store's packed sign bits. The kernels themselves
+are held against the plain versions on the GPU by chip_smoke.py.
 """
 
 import numpy as np
@@ -20,7 +24,7 @@ import jax.numpy as jnp
 import knowhere_tpu as kt
 import knowhere_tpu_torch as ktt
 from knowhere_tpu.ops.pallas_flat import _hi_lo as jax_hi_lo
-from knowhere_tpu_torch.ops import cuda_flat
+from knowhere_tpu_torch.ops import cuda_flat, ivf_cuda
 from knowhere_tpu_torch.ops import ivf_scan as tscan
 
 from .torch_parity import build, cross_load, interpret_env, ivf_corpus, recall, search, set_precision
@@ -161,6 +165,60 @@ def test_flat_store_operand_image(nb, d):
     assert (store.nrm[nb:] == 1e38).all()
     assert store.base_g.data_ptr() == store.base.data_ptr()
     assert not any(t.dtype == torch.bfloat16 for t in vars(store).values() if isinstance(t, torch.Tensor))
+
+
+def _sq_kernel_split(codes, vmin, vdiff, levels):
+    """The decode and split as ivf_pallas._sq_kernel writes them (lines
+    263-271)."""
+    c = codes.astype(jnp.int32).astype(jnp.float32)
+    rows = vmin[None] + (c + 0.5) * (1.0 / levels) * vdiff[None]
+    return _scan_kernel_split(rows)
+
+
+@pytest.mark.parametrize("levels", [256, 64])
+def test_sq_decode_split_image_bit_equal(levels, record_property):
+    """ivf_sq_scan decodes each staged code as vmin + ((c + 0.5) / levels)
+    vdiff (two roundings, no contraction) and splits it to hi/lo bf16; the
+    plain version's decode (ivf_cuda._sq_rows) and split (hi_lo) give the
+    JAX kernel's r_hi and r_lo bit for bit on a random, non-grid grid. XLA's
+    CPU jit may fuse the decode's multiply and add into one rounding; the
+    share of values that then differ is recorded, not asserted."""
+    rng = np.random.default_rng(12)
+    codes = rng.integers(0, levels, (512, 128)).astype(np.uint8)
+    vmin = (rng.standard_normal(128) * 3).astype(np.float32)
+    vdiff = (rng.random(128) * 5 + 0.1).astype(np.float32)
+    hi_t, lo_t = cuda_flat.hi_lo(ivf_cuda._sq_rows(T(codes), T(vmin), T(vdiff), levels))
+    args = (jnp.asarray(codes), jnp.asarray(vmin), jnp.asarray(vdiff), levels)
+    hi_j, lo_j = _sq_kernel_split(*args)
+    np.testing.assert_array_equal(_bits(hi_t), _bits(hi_j))
+    np.testing.assert_array_equal(_bits(lo_t), _bits(lo_j))
+    assert (lo_t != 0).float().mean() > 0.9  # the lo pass carries information here
+    hi_jit, lo_jit = jax.jit(_sq_kernel_split, static_argnums=3)(*args)
+    record_property("jit_lo_differing_share", float(np.mean(_bits(lo_t) != _bits(lo_jit))))
+    record_property("jit_hi_differing_share", float(np.mean(_bits(hi_t) != _bits(hi_jit))))
+
+
+@pytest.mark.parametrize("dim", [128, 100])
+def test_rbq_sign_image_equals_jax_planes(dim):
+    """ivf_rbq_scan expands the store's packed sign bits (little-endian, a
+    set bit is +1) into a +/-1 bf16 operand; unpack_signs, which the plain
+    version uses, gives the JAX package's int8 sign planes of the same
+    (cross-loaded) index element by element over the true columns. At
+    dim=100 the JAX planes hold 0 in the padded columns and the port -1;
+    both meet zero query residuals there (zero-extended rotation and
+    rotated centroids)."""
+    xb = ivf_corpus(4096, 8, dim, K)[0]
+    jidx = build(kt, "IVF_RABITQ", xb, {"metric_type": "L2", "nlist": 8})
+    tidx = cross_load(jidx, ktt)
+    jst, tst, node = jidx.node._store, tidx.node._store, tidx.node
+    n = node._sorted_payload["signs_packed"].shape[0]
+    planes = np.asarray(jst["signs"])[:n]
+    image = ivf_cuda.unpack_signs(tst["signs"][:n], node._d_dev).numpy()
+    assert image.shape == planes.shape == (n, 128)
+    np.testing.assert_array_equal(image[:, :dim], planes[:, :dim].astype(np.float32))
+    assert set(np.unique(image).tolist()) == {-1.0, 1.0}  # exact in bf16
+    assert not planes[:, dim:].any() and not tst["rot_t"][:, dim:].any()
+    assert not tst["centroids_rot"][:, dim:].any()
 
 
 # ---------------------------------------------------------------------------

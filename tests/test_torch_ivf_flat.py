@@ -218,3 +218,51 @@ def test_port_build_recall_at_equal_knob(corpus):
     idx = ktt.IndexFactory.Instance().Create("IVF_FLAT").value()
     assert idx.Build(ktt.GenDataSetFromArray(xb), {"metric_type": "L2", "nlist": NLIST}) == ktt.Status.success
     assert _recall(_search(idx, ktt, xq)[0], gt) >= 0.9
+
+
+@pytest.mark.parametrize(
+    "name,cfg",
+    [
+        ("IVF_FLAT", {"metric_type": "L2", "nlist": 8}),
+        ("IVF_SQ8", {"metric_type": "L2", "nlist": 8, "refine": True, "refine_type": "FP16"}),
+        ("IVF_RABITQ", {"metric_type": "L2", "nlist": 8}),
+    ],
+)
+def test_chunked_upload_bit_equal(name, cfg, monkeypatch):
+    """Deserialize fills the device store in row chunks (UPLOAD_CHUNK_BYTES,
+    here small enough for many chunks) at d=100, padded to 128 columns: the
+    rows, their norms (an f64 einsum per chunk) and the refine rows are bit
+    for bit what one whole-array f64 einsum and np.pad give."""
+    from knowhere_tpu_torch.models import ivf as tivf
+
+    xb = np.random.default_rng(3).standard_normal((3000, 100)).astype(np.float32)
+    built = ktt.IndexFactory.Instance().Create(name).value()
+    assert built.Build(ktt.GenDataSetFromArray(xb), cfg) == ktt.Status.success
+    bs = ktt.BinarySet()
+    assert built.Serialize(bs) == ktt.Status.success
+    monkeypatch.setattr(tivf, "UPLOAD_CHUNK_BYTES", 4096)  # 10 rows of 400 bytes a chunk
+    idx = ktt.IndexFactory.Instance().Create(name).value()
+    assert idx.Deserialize(bs) == ktt.Status.success
+    node = idx.node
+    assert node._d_dev == 128
+    payload = node._sorted_payload
+    if "data" in payload:
+        data = np.asarray(payload["data"])
+        n = data.shape[0]
+        want = np.zeros(n + tivf.B_SLACK, np.float32)
+        want[:n] = np.einsum("ij,ij->i", data, data, dtype=np.float64)
+        np.testing.assert_array_equal(node._store["norms"].numpy().view(np.uint32), want.view(np.uint32))
+        np.testing.assert_array_equal(node._store["data"].numpy()[:n], np.pad(data, ((0, 0), (0, 28))))
+        assert not node._store["data"].numpy()[n:].any()
+    if name == "IVF_SQ8":
+        codes = np.asarray(payload["codes"])
+        got = node._store["codes"].numpy()
+        np.testing.assert_array_equal(got[: len(codes)], np.pad(codes, ((0, 0), (0, 28))))
+        assert got.shape[0] == len(codes) + tivf.B_SLACK and not got[len(codes):].any()
+    if "refine" in payload:
+        ref = np.asarray(payload["refine"])
+        got = node._refine_store.data.numpy()
+        assert got.dtype == ref.dtype
+        np.testing.assert_array_equal(got.view(np.uint8), np.pad(ref, ((0, 0), (0, 28))).view(np.uint8))
+    else:
+        assert name == "IVF_FLAT"

@@ -144,28 +144,97 @@ def _rbq_inputs(rng, nlist=3, Qg=16, nq=40):
     ],
 )
 def test_rbq_scan_plain_matches_pallas_rbq(is_l2, masked, three_pass, kk):
-    """Scores within 1e-5 relative + 1e-3 (the same bf16(qr) products, sums
-    in another order), positions equal except near-ties; three_pass compares
-    the port's full f32 qr with the TPU's hi/lo split (~2^-16 relative)."""
+    """Scores within 1e-5 relative + 1e-3 (the same bf16 products, sums in
+    another order), positions equal except near-ties; three_pass runs the
+    reference's two passes qr_hi.s + qr_lo.s on both sides."""
     rng = np.random.default_rng(22)
     packed, signs_i8, rn, t, cents, blk, lids, nrows, q_task = _rbq_inputs(rng)
-    nb = packed.shape[0]
-    keep = rng.random(nb) < 0.5 if masked else None
+    keep = rng.random(packed.shape[0]) < 0.5 if masked else None
+    args = (blk, nrows, lids, q_task, cents, rn, t, keep, kk, is_l2, three_pass)
+    s_j, p_j = _pallas_rbq(signs_i8, *args)
+    s_t, p_t = _port_rbq(packed, *args)
+    assert_same_topk(s_j, p_j, s_t, p_t, 1e-5, 1e-3)
+    if keep is not None:
+        assert not (~keep[p_t[p_t >= 0]]).any()
+
+
+def _pallas_rbq(signs_i8, blk, nrows, lids, q_task, cents, rn, t, keep, kk, is_l2, three_pass):
     blk3 = lambda a: jnp.asarray(a.reshape(-1, 1, LIST_ALIGN))  # noqa: E731
-    s_j, p_j = pallas_rbq_tasks(
+    s, p = pallas_rbq_tasks(
         jnp.asarray(blk), jnp.asarray(nrows), jnp.asarray(lids), jnp.asarray(q_task), jnp.asarray(cents),
         jnp.asarray(signs_i8), blk3(rn), blk3(t), None if keep is None else blk3(keep.astype(np.int32)),
         B=LIST_ALIGN, Qg=q_task.shape[1], kk=kk, is_l2=is_l2, three_pass=three_pass, interpret=True,
     )
-    s_t, p_t = ivf_cuda.rbq_scan_tasks(
+    return np.asarray(s), np.asarray(p)
+
+
+def _port_rbq(packed, blk, nrows, lids, q_task, cents, rn, t, keep, kk, is_l2, three_pass, plain=False):
+    fn = ivf_cuda.rbq_scan_plain if plain else ivf_cuda.rbq_scan_tasks
+    s, p = fn(
         T(blk), T(nrows), T(lids), T(q_task), T(cents), T(packed), T(rn), T(t), None if keep is None else T(keep),
         B=LIST_ALIGN, kk=kk, is_l2=is_l2, three_pass=three_pass,
     )
-    rtol = 1e-4 if three_pass else 1e-5
-    assert_same_topk(np.asarray(s_j), np.asarray(p_j), s_t.numpy(), p_t.numpy(), rtol, 1e-3)
-    if keep is not None:
-        p = p_t.numpy()
-        assert not (~keep[p[p >= 0]]).any()
+    return s.numpy(), p.numpy()
+
+
+def _split_sensitive_rbq_inputs(rng, nlist=2, Qg=8):
+    """Sign planes, corrections and queries on which full f32 qr and the
+    hi/lo split disagree far beyond 1e-5: each residual qr is 2^e times
+    v = 1 + 2^-9 + 63 2^-23 (first half of the features, sign +1) or
+    w = 1 + 2^-9 - 26 2^-23 (second half, sign -1 but for one or two +1 a
+    row).
+    Both split to hi = 1, lo = 2^-9, so the split drops +0.98 2^-17 and
+    +0.41 2^-17 a feature times its sign, nearly all of one sign, against
+    dots of 2 or 4; small t makes est amplify it. Centroids are multiples
+    of 2^-12, so q = qr + c and q - c are exact in f32."""
+    half = DIM // 2
+    v, w = np.float32(1 + 2.0**-9 + 63 * 2.0**-23), np.float32(1 + 2.0**-9 - 26 * 2.0**-23)
+    pattern = np.concatenate([np.full(half, v), np.full(half, w)]).astype(np.float32)
+    nb = nlist * LIST_ALIGN
+    bits = np.zeros((nb, DIM), bool)
+    bits[:, :half] = True
+    for r in range(nb):  # one or two of the second half's signs set to +1
+        bits[r, half + rng.choice(half, rng.integers(1, 3), replace=False)] = True
+    packed = np.packbits(bits, axis=1, bitorder="little")
+    signs_i8 = np.where(bits, 1, -1).astype(np.int8)
+    rn = (50 + 100 * rng.random(nb)).astype(np.float32)
+    t = (0.005 + 0.015 * rng.random(nb)).astype(np.float32)
+    cents = (rng.integers(-64, 65, (nlist, DIM)) * 2.0**-12).astype(np.float32)
+    Tc = 2 * nlist
+    blk = np.tile(np.arange(nlist, dtype=np.int32), 2)
+    lids = blk.copy()
+    nrows = np.full(Tc, LIST_ALIGN, np.int32)
+    nrows[1] = 300
+    qr = pattern[None, None, :] * 2.0 ** rng.integers(0, 4, (Tc, Qg, 1))
+    q_task = (qr + cents[lids][:, None, :]).astype(np.float32)
+    assert (q_task - cents[lids][:, None, :] == qr).all()
+    return packed, signs_i8, rn, t, cents, blk, lids, nrows, q_task
+
+
+@pytest.mark.parametrize("is_l2,masked,kk", [(False, False, 8), (True, True, 32)])
+def test_rbq_three_pass_is_the_split_not_f32(is_l2, masked, kk):
+    """On data where full f32 qr and the reference's hi/lo split disagree by
+    far more than 1e-5 relative + 1e-3, the plain version's three_pass
+    agrees with the JAX kernel's within that."""
+    rng = np.random.default_rng(24)
+    packed, signs_i8, rn, t, cents, blk, lids, nrows, q_task = _split_sensitive_rbq_inputs(rng)
+    keep = rng.random(packed.shape[0]) < 0.5 if masked else None
+    args = (blk, nrows, lids, q_task, cents, rn, t, keep, kk, is_l2, True)
+    s_j, p_j = _pallas_rbq(signs_i8, *args)
+    s_t, p_t = _port_rbq(packed, *args)
+    assert_same_topk(s_j, p_j, s_t, p_t, 1e-5, 1e-3)
+    # full f32 qr misses the JAX kernel here
+    d = DIM
+    qr = T(q_task) - T(cents)[T(lids).long()][:, None, :]
+    rows = ivf_cuda._block_rows(T(blk), LIST_ALIGN)
+    dots = torch.bmm(qr, ivf_cuda.unpack_signs(T(packed)[rows], d).transpose(1, 2))
+    est = T(rn)[rows][:, None, :] * dots / (T(t)[rows][:, None, :].clamp(min=1e-6) * float(np.sqrt(d)))
+    if is_l2:
+        full = -((qr * qr).sum(-1, keepdim=True) + T(rn)[rows][:, None, :] ** 2 - 2.0 * est)
+    else:
+        full = (T(q_task) * T(cents)[T(lids).long()][:, None, :]).sum(-1, keepdim=True) + est
+    s_f = ivf_cuda._finish(full, T(blk), T(nrows), None if keep is None else T(keep), LIST_ALIGN, kk)[0].numpy()
+    assert (np.abs(s_f - s_j) / (1e-3 + 1e-5 * np.abs(s_j))).max() > 10
 
 
 def test_rbq_available_gate():

@@ -120,26 +120,72 @@ def _sq_inputs(rng, levels, nlist=3, Qg=16, nq=40):
 )
 def test_sq_scan_plain_matches_pallas_sq(is_l2, masked, three_pass, levels, kk):
     """Scores within 1e-5 relative + 1e-3 (the products agree; sums run in
-    another order), positions equal except near-ties; three_pass compares the
-    port's full f32 with the TPU's hi/lo split, which drops lo*lo (~2^-16)."""
+    another order), positions equal except near-ties; three_pass runs the
+    reference's hi/lo split on both sides."""
     rng = np.random.default_rng(21)
     codes, vmin, vdiff, blk, nrows, q_task = _sq_inputs(rng, levels)
-    nb = codes.shape[0]
-    keep = rng.random(nb) < 0.5 if masked else None
-    s_j, p_j = pallas_sq_tasks(
-        jnp.asarray(blk), jnp.asarray(nrows), jnp.asarray(q_task), jnp.asarray(vmin[None]), jnp.asarray(vdiff[None]),
-        jnp.asarray(codes), None if keep is None else jnp.asarray(keep.astype(np.int32).reshape(-1, 1, LIST_ALIGN)),
-        B=LIST_ALIGN, Qg=q_task.shape[1], kk=kk, levels=levels, is_l2=is_l2, three_pass=three_pass, interpret=True,
-    )
+    keep = rng.random(codes.shape[0]) < 0.5 if masked else None
+    s_j, p_j = _pallas_sq(blk, nrows, q_task, codes, vmin, vdiff, keep, kk, levels, is_l2, three_pass)
     s_t, p_t = ivf_cuda.sq_scan_tasks(
         T(blk), T(nrows), T(q_task), T(codes), T(vmin), T(vdiff), None if keep is None else T(keep),
         B=LIST_ALIGN, kk=kk, levels=levels, is_l2=is_l2, three_pass=three_pass,
     )
-    rtol = 1e-4 if three_pass else 1e-5
-    assert_same_topk(np.asarray(s_j), np.asarray(p_j), s_t.numpy(), p_t.numpy(), rtol, 1e-3)
+    assert_same_topk(s_j, p_j, s_t.numpy(), p_t.numpy(), 1e-5, 1e-3)
     if keep is not None:
         p = p_t.numpy()
         assert not (~keep[p[p >= 0]]).any()
+
+
+def _pallas_sq(blk, nrows, q_task, codes, vmin, vdiff, keep, kk, levels, is_l2, three_pass):
+    s, p = pallas_sq_tasks(
+        jnp.asarray(blk), jnp.asarray(nrows), jnp.asarray(q_task), jnp.asarray(vmin[None]), jnp.asarray(vdiff[None]),
+        jnp.asarray(codes), None if keep is None else jnp.asarray(keep.astype(np.int32).reshape(-1, 1, LIST_ALIGN)),
+        B=LIST_ALIGN, Qg=q_task.shape[1], kk=kk, levels=levels, is_l2=is_l2, three_pass=three_pass, interpret=True,
+    )
+    return np.asarray(s), np.asarray(p)
+
+
+def _split_sensitive_sq_inputs(rng, s=16.0, nlist=2, Qg=8):
+    """Codes, a grid and queries on which full f32 and the hi/lo split
+    disagree far beyond 1e-5 at IP: every query value is s (1 + 0.9 2^-8)
+    plus noise, so its lo residual is +0.9 2^-8 s; half the decoded values
+    lie just above s (lo > 0), half just above -s (1 + 2^-7) (hi rounds away
+    from zero, lo > 0 again). Each dropped lo.lo product is then ~+1.2e-5
+    s^2, all of one sign, while the dot itself nearly cancels."""
+    half = DIM // 2
+    vmin = np.concatenate([np.full(half, s * (1 + 0.9 / 256)), np.full(half, -s * (1 + 2 / 256))]).astype(np.float32)
+    vmin[half:] += np.float32(0.9 / 256 * s)
+    vdiff = np.full(DIM, s * 2.0**-14, np.float32)
+    nb = nlist * LIST_ALIGN
+    codes = rng.integers(0, 256, (nb, DIM)).astype(np.uint8)
+    q = (s * (1 + 0.9 / 256) + rng.random((Qg * 2, DIM)) * s * 2.0**-14).astype(np.float32)
+    Tc = 2 * nlist
+    blk = np.tile(np.arange(nlist, dtype=np.int32), 2)
+    nrows = np.full(Tc, LIST_ALIGN, np.int32)
+    nrows[1] = 300
+    q_task = q[rng.integers(0, len(q), (Tc, Qg))]
+    return codes, vmin, vdiff, blk, nrows, q_task
+
+
+@pytest.mark.parametrize("masked,kk", [(False, 8), (True, 32)])
+def test_sq_three_pass_is_the_split_not_f32(masked, kk):
+    """On data where full f32 and the reference's hi/lo split disagree by
+    far more than 1e-5 relative + 1e-3, the plain version's three_pass
+    agrees with the JAX kernel's within that."""
+    rng = np.random.default_rng(23)
+    codes, vmin, vdiff, blk, nrows, q_task = _split_sensitive_sq_inputs(rng)
+    keep = rng.random(codes.shape[0]) < 0.5 if masked else None
+    s_j, p_j = _pallas_sq(blk, nrows, q_task, codes, vmin, vdiff, keep, kk, 256, False, True)
+    s_t, p_t = ivf_cuda.sq_scan_tasks(
+        T(blk), T(nrows), T(q_task), T(codes), T(vmin), T(vdiff), None if keep is None else T(keep),
+        B=LIST_ALIGN, kk=kk, levels=256, is_l2=False, three_pass=True,
+    )
+    assert_same_topk(s_j, p_j, s_t.numpy(), p_t.numpy(), 1e-5, 1e-3)
+    # full f32 misses the JAX kernel here
+    rows = ivf_cuda._sq_rows(T(codes), T(vmin), T(vdiff), 256)
+    full = torch.einsum("tqd,trd->tqr", T(q_task), rows[ivf_cuda._block_rows(T(blk), LIST_ALIGN)])
+    s_f = ivf_cuda._finish(full, T(blk), T(nrows), None if keep is None else T(keep), LIST_ALIGN, kk)[0].numpy()
+    assert (np.abs(s_f - s_j) / (1e-3 + 1e-5 * np.abs(s_j))).max() > 100
 
 
 def test_sq_available_gate():
