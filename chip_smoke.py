@@ -8,9 +8,11 @@ Run from the root of a checkout on a machine with one CUDA GPU. In order:
 1. require a CUDA device and print the card's name and power limit;
 2. build the CUDA kernels from knowhere_tpu_torch/csrc (nvcc, sm_90a);
 3. hold each kernel against its plain PyTorch version on the card, at the
-   shapes the main path gives it, and time both (the f32 scan also at the
-   HNSW build's per-launch shape, 8,192 tasks at kk=32; FLAT phase 1 also as
-   its group-max and select launches apart, beside an f32 yardstick);
+   shapes the main path gives it, and time both (the int8 scan also with a
+   quarter of its tasks empty, at 32-query groups, at d=256 and on a
+   heavy-tie corpus, every position equal; the f32 scan also at the HNSW
+   build's per-launch shape, 8,192 tasks at kk=32; FLAT phase 1 also as its
+   group-max and select launches apart, beside an f32 yardstick);
 4. run the main path through the public API on the SIFT1M-like corpus
    (1M x 128 f32, 10,000 queries, seed 0): FLAT exact ground truth, its
    first 1,000 queries' ids held against an independent full-f32 answer
@@ -28,8 +30,8 @@ Run from the root of a checkout on a machine with one CUDA GPU. In order:
 6. IVF_SQ8 on the SIFT1M-like corpus (nlist=1024, sq_type SQ8, FAST,
    nprobe=16, k=10; the bench's SQ8 leg): served by the int8 scan over the
    u8 codes with an SQ8-decode rerank; recall@10 against the FLAT truth,
-   warm QPS, a 50% bitset search, a Serialize/Deserialize round trip, EXACT
-   on the first 1,000 queries; then the same BinarySet loaded with
+   warm QPS, a 50% bitset search, a Serialize/Deserialize round trip,
+   EXACT on the first 1,000 queries; then the same BinarySet loaded with
    KNOWHERE_DISABLE_INT8_SCAN=1, served by the SQ scan kernel, its recall,
    warm QPS and one torch-profiler pass over one search;
 7. IVF_RABITQ on the same corpus (nlist=1024, raw refine, FAST, nprobe=16,
@@ -52,7 +54,11 @@ Run from the root of a checkout on a machine with one CUDA GPU. In order:
    100,000 x 960 with 1,000 queries instead of 1M, nlist=256 instead of
    1024 and nprobe=32 instead of 384 (refine_k=32), all cut for chip time;
    FLAT ground truth on that corpus, FAST recall within 0.01 of EXACT;
-11. print the kernel summary (each kernel's time, plain-version time and
+11. one torch-profiler pass over one search each of IVF_FLAT (the int8
+   scan), IVF_PQ (the ADC scan at its real shape) and IVF_SQ8 FAST (the
+   int8 scan over u8 codes), after every timed search: device ms per
+   kernel, device busy and idle share;
+12. print the kernel summary (each kernel's time, plain-version time and
    bound), the card line, and the contract line {"ok": true, "device":
    {...}} last.
 
@@ -267,6 +273,29 @@ def _task_geometry(g, n_blocks, n_tasks, dev):
     return blk, nrows
 
 
+def _int8_case(blk, nrows, q8, sz, codes, nrm, mask, kk, is_l2, **desc):
+    """One int8-scan case against its plain version: scores to INT8_RTOL and
+    every position equal (exact s32 dots, the same f32 roundings)."""
+    import torch
+
+    from knowhere_tpu_torch.ops import ivf_cuda
+
+    n_tasks, Qg, d = q8.shape
+    n_blk, n_rows, side = _task_work(blk, nrows, mask, Qg, kk)
+    # the kernel stops at nrows: each block's rows up to its tasks' largest
+    # nrows (every 512-row block in full: bound_full_blocks_ms)
+    rows_read = _rows_read(blk, nrows)
+    nbytes = rows_read * (d + 4 * is_l2) + n_tasks * Qg * (d + 4) + side
+    full = n_blk * 512 * (d + 4 * is_l2) + n_tasks * Qg * (d + 4) + side
+    ops = {"int8": 2 * n_rows * Qg * d}
+    return _run_case(
+        "ivf_int8_scan", ivf_cuda.int8_scan_tasks, ivf_cuda.int8_scan_plain, (blk, nrows, q8, sz, codes, nrm, mask),
+        dict(B=512, kk=kk, is_l2=is_l2), INT8_RTOL, 0.0, 1.0, (nbytes, ops), reps=10,
+        u8=codes.dtype == torch.uint8, tasks=n_tasks, Qg=Qg, d=d, bound_full_blocks_ms=bound(full, ops)["bound_ms"],
+        **desc,
+    )
+
+
 def check_ivf_kernels(dev, n_tasks=4096, n_blocks=2048, Qg=128, d=128):
     import torch
 
@@ -291,13 +320,38 @@ def check_ivf_kernels(dev, n_tasks=4096, n_blocks=2048, Qg=128, d=128):
                   (32, keep, True, False), (16, keep, False, False), (16, None, True, True)]
     for kk, mask, is_l2, u8 in int8_cases:
         c = codes.view(torch.uint8) if u8 else codes
-        n_blk, n_rows, side = _task_work(blk, nrows, mask, Qg, kk)
-        nbytes = n_blk * B * (d + 4 * is_l2) + n_tasks * Qg * (d + 4) + side
-        results["ivf_int8_scan"].append(_run_case(
-            "ivf_int8_scan", ivf_cuda.int8_scan_tasks, ivf_cuda.int8_scan_plain, (blk, nrows, q8, sz, c, nrm, mask),
-            dict(B=B, kk=kk, is_l2=is_l2), INT8_RTOL, 0.0, 1.0, (nbytes, {"int8": 2 * n_rows * Qg * d}),
-            reps=10, u8=u8,
-        ))
+        results["ivf_int8_scan"].append(_int8_case(blk, nrows, q8, sz, c, nrm, mask, kk, is_l2))
+    # a quarter of the tasks empty; a 32-query group (the N=32 instance)
+    nrows_e = nrows.clone()
+    nrows_e[::4] = 0
+    results["ivf_int8_scan"].append(_int8_case(blk, nrows_e, q8, sz, codes, nrm, keep, 16, True, empty=True))
+    q32, sz32 = q8[:, :32].contiguous(), sz[:, :32].contiguous()
+    results["ivf_int8_scan"].append(_int8_case(blk, nrows, q32, sz32, codes, nrm, keep, 32, True))
+    del q32, sz32, nrows_e
+    # heavy ties: i8 codes and queries in {-1, 0, 1} (u8 codes 127..129),
+    # norms and scales from a few values, so most scores of a row tie (own
+    # generators: the later kernels' inputs stay as they were)
+    g2 = torch.Generator(device=dev).manual_seed(4)
+    ties_c = torch.randint(-1, 2, (nb_pad, d), generator=g2, device=dev, dtype=torch.int8)
+    ties_q = torch.randint(-1, 2, (n_tasks, Qg, d), generator=g2, device=dev, dtype=torch.int8)
+    ties_n = (ties_c != 0).sum(1).float()
+    ties_s = torch.randint(1, 4, (n_tasks, Qg, 1), generator=g2, device=dev).float() * 0.25
+    for kk, mask, is_l2, u8 in [(32, None, True, False), (16, keep, True, True), (32, keep, False, False),
+                                (16, None, False, True)]:
+        c = (ties_c.view(torch.uint8) ^ 0x80) if u8 else ties_c  # u8 c ^ 0x80 recentres to the same i8
+        results["ivf_int8_scan"].append(
+            _int8_case(blk, nrows, ties_q, ties_s, c, ties_n, mask, kk, is_l2, ties=True))
+    del ties_c, ties_q, ties_n, ties_s
+    # d=256: two feature chunks, 1,024 tasks of 64 queries
+    g2 = torch.Generator(device=dev).manual_seed(3)
+    blk2, nrows2 = _task_geometry(g2, n_blocks // 4, 1024, dev)
+    codes2 = torch.randint(-127, 128, (nb_pad // 4, 256), generator=g2, device=dev, dtype=torch.int8)
+    q2 = torch.randint(-127, 128, (1024, 64, 256), generator=g2, device=dev, dtype=torch.int8)
+    sz2 = torch.rand((1024, 64, 1), generator=g2, device=dev) * 0.01
+    for kk, mask, is_l2, u8 in [(16, None, True, False), (32, keep, True, True)]:
+        c = codes2.view(torch.uint8) if u8 else codes2
+        results["ivf_int8_scan"].append(_int8_case(blk2, nrows2, q2, sz2, c, nrm, mask, kk, is_l2))
+    del codes2, q2, sz2
 
     # (three_pass, kk, mask, is_l2, tasks): the path's shape first, then the
     # HNSW build's per-launch shape (8,192 tasks, kk=32)
@@ -642,6 +696,7 @@ def main_path(kt, xb, xq, k=10, nlist=1024, nprobe=12, search_reps=5):
         raise AssertionError("IVF_FLAT results not finite / wrong shape")
     if out["recall_at_10"] < RECALL_FLOOR:
         raise AssertionError(f"IVF_FLAT recall@10 {out['recall_at_10']} < {RECALL_FLOOR}")
+    _profile_later("ivf_profile", lambda idx=ivf: _search(idx, kt, xq, cfg_ivf))  # the int8 scan's search
 
     drop = np.random.default_rng(1).random(len(xb)) < 0.5
     fids, _ = _search(ivf, kt, xq, cfg_ivf, kt.BitsetView.from_bool_array(drop))
@@ -678,7 +733,8 @@ def main_path(kt, xb, xq, k=10, nlist=1024, nprobe=12, search_reps=5):
         (ids3, _), dt = _timed(lambda: _search(f32_idx, kt, xq, cfg_ivf))
         times.append(dt)
     out["f32_scan_search_s_all"] = times
-    out["f32_scan_qps"] = nq / float(np.median(times))
+    out["f32_scan_search_s_median"] = float(np.median(times))
+    out["f32_scan_qps"] = nq / out["f32_scan_search_s_median"]
     out["f32_scan_recall_at_10"] = recall_at(ids3, gt)
     if out["f32_scan_recall_at_10"] < F32_PATH_RECALL_FLOOR:
         raise AssertionError(f"f32-scan recall {out['f32_scan_recall_at_10']} < {F32_PATH_RECALL_FLOOR}")
@@ -760,6 +816,7 @@ def pq_path(kt, xb, xq, gt, flat):
     """IVF_PQ at the north-star configuration through the public API."""
     pq, ids, out = _serve(kt, "IVF_PQ", "pq", xb, xq, gt, IVF_PQ_BUILD, IVF_PQ_SEARCH, PQ_RECALL_FLOOR)
     out["pq_tpu_anchor_recall_at_10"] = PQ_TPU_ANCHOR  # the reference's, not the port's
+    _profile_later("pq_profile", lambda idx=pq: _search(idx, kt, xq, IVF_PQ_SEARCH))  # ivf_adc_scan at its real shape
     out.update(_filtered_and_round_trip(kt, "IVF_PQ", "pq", pq, ids, xb, xq, flat, IVF_PQ_SEARCH)[0])
     out["pq_exact_recall_1k"], out["pq_fast_recall_1k"] = _exact_vs_fast(
         kt, pq, xq[:1000], gt[:1000], IVF_PQ_SEARCH
@@ -777,6 +834,7 @@ def sq8_path(kt, xb, xq, gt, flat):
     out["sq8_tpu_anchor_recall_at_10"] = SQ8_TPU_ANCHOR  # the reference's, not the port's
     if ivf_cuda.int8_scan_tasks.launches == 0:
         raise AssertionError("IVF_SQ8 FAST did not run the int8 scan")
+    _profile_later("sq8_profile", lambda idx=sq: _search(idx, kt, xq, SQ8_SEARCH))
     more, bs = _filtered_and_round_trip(kt, "IVF_SQ8", "sq8", sq, ids, xb, xq, flat, SQ8_SEARCH)
     out.update(more)
     exact, out["sq8_fast_recall_1k"] = _exact_vs_fast(kt, sq, xq[:1000], gt[:1000], SQ8_SEARCH, "IVF_SQ8")
@@ -842,6 +900,23 @@ def gist_pq_path(kt, nb=100_000, nq=1_000):
         raise AssertionError(f"the ADC kernel did not serve m * ksub = {m * ksub} (want 24576)")
     out["gist_pq_recall_at_10"] = recall_at(ids, gt)
     out["gist_exact_recall"], out["gist_fast_recall"] = _exact_vs_fast(kt, pq, xq, gt, GIST_PQ_SEARCH)
+    return out
+
+
+# (name, search): torch-profiler passes run after every timed search of the
+# script (late_profiles), so that the searches timed on the paths before
+# them do not follow a profiler pass, which can slow the searches timed
+# after it in the same process; the closures keep their indexes alive
+_LATE_PROFILES = []
+
+
+def _profile_later(name, fn) -> None:
+    _LATE_PROFILES.append((name, fn))
+
+
+def late_profiles() -> dict:
+    out = {name: _profile_search(fn) for name, fn in _LATE_PROFILES}
+    _LATE_PROFILES.clear()
     return out
 
 
@@ -1107,6 +1182,7 @@ def main() -> int:
     launches["fused_knn_scan"] = counts["fused_knn_scan"]
     gist_out, _ = _run_path("gist ivf_pq path", wrappers, ("ivf_adc_scan", "flat_group_scan"), lambda: gist_pq_path(kt))
     print("gist ivf_pq path:", json.dumps(gist_out))
+    print("late profiles:", json.dumps(late_profiles()))
     torch.cuda.synchronize()
 
     first = {name: lines[0] for name, lines in (

@@ -45,6 +45,7 @@ struct RbqRows {
   const float* cents;    // (nlist, d) rotated centroids
   const int* lids;       // (T,) list of each task
   float sqrt_d;
+  using Query = float;
   static constexpr bool kRowNorm = false, kQuerySide = true;
   __device__ bool a_lo(bool) const { return false; }  // +/-1 is exact in bf16
   __device__ void stage(unsigned char* st, int b, int c, int kc, int d, int tid) const {

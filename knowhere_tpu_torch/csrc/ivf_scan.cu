@@ -1,101 +1,74 @@
-// IVF task-scan kernels for Hopper (sm_90a).
+// IVF task-scan kernels for Hopper (sm_90a): the int8 and f32 row sources
+// of the tensor-core task scan of ivf_task_scan.cuh, one thread block per
+// task and 32 or 64 queries.
 //
 // ivf_int8_scan replaces knowhere_tpu/ops/ivf_pallas.py _int8_kernel
-// (pallas_int8_tasks); ivf_f32_scan replaces _scan_kernel (pallas_scan_tasks).
+// (pallas_int8_tasks): the FAST serving scan of IVF_FLAT (its int8 sidecar)
+// and IVF_SQ8 (its u8 codes), i8 queries . i8 codes -> s32. cp.async stages a
+// chunk of 64 rows x 128 code bytes (8 KB), which moves (recentred for u8)
+// to the s8 A operand; the i8 query group goes to the B operand by cp.async
+// with no conversion, and the products are s8 wgmma into s32 accumulators,
+// exact, so its scores and positions equal the plain version's bit for bit.
+// What bounds it on the H100: per task it reads the block's codes up to
+// nrows (64 KB in full) and the query group (16 KB at Qg=128, d=128) once,
+// and does 2 Qg * nrows * d int8 operations, far below the tensor cores'
+// rate; so device memory bounds it, and the staging latency of each 64-row
+// chunk, the barriers and the top-kk epilogue set its time above that
+// bound. Its tiles hold one byte a feature, so a block needs about 38 KB of
+// shared memory (kk <= 16) and several blocks share an SM to hide that
+// latency.
 //
-// A task is one aligned 512-row list block (blk[t]) scanned by one group of
-// Qg pre-gathered queries; a block reads its own blk[t] and nrows[t] (the TPU
-// scalar-prefetched them).
-//
-// ivf_int8_scan: one thread block per task. Each warp takes one query row at
-// a time, lane l owning the 16 columns l + 32 j, and finishes the row with
-// the warp top-kk of topk_common.cuh, so the (Qg, 512) score block never
-// leaves registers. Per task it reads 64 KB of codes once and does
-// Qg * 512 * d / 4 dp4a on the CUDA cores: it is bound by dp4a issue and
-// shared-memory loads, not by device memory.
-//
-// ivf_f32_scan (below): the f32 row source of the tensor-core task scan of
-// ivf_task_scan.cuh (wgmma, the reference's three bf16 passes or its single
-// pass), one thread block per task and 64 queries. Per task it does 3 x 2 Qg
-// * nrows * d bf16 operations and reads the f32 block once, so it is bound
-// by device memory (the blocks and the gathered queries) and by its top-kk
-// epilogue, which replaces the kk warp rounds.
+// ivf_f32_scan replaces _scan_kernel (pallas_scan_tasks): f32 rows against
+// f32 queries as the reference's three bf16 passes or its single pass. Per
+// task it does 3 x 2 Qg * nrows * d bf16 operations and reads the f32 block
+// once, so it is bound by device memory (the blocks and the gathered
+// queries) and by its top-kk epilogue.
 #include <cuda_bf16.h>
 
 #include "ivf_task_scan.cuh"
-#include "topk_common.cuh"
 
 namespace kw {
 
 // ---------------------------------------------------------------------------
-// int8: zi (Qg, d) i8 . codes (B, d) i8 -> i32, score 2*sz*dot - nrm (L2) or
-// sz*dot (IP). u8 codes (SQ8) are recentred by c ^ 0x80 as in the TPU kernel.
-// Shared memory: the task's whole code block (B rows of d bytes, row stride
-// padded by one word so lanes reading 32 different rows hit 32 banks) plus
-// one query row per warp.
+// int8 on the tensor cores (ivf_task_scan.cuh): zi (Qg, d) i8 . codes (B, d)
+// i8 as s8 wgmma into s32 accumulators (exact), score 2*sz*dot - nrm (L2) or
+// sz*dot (IP). u8 codes (SQ8) are recentred by c ^ 0x80 as in the TPU
+// kernel, while the staged chunk moves to the operand tile.
 // ---------------------------------------------------------------------------
-template <bool kU8, bool kL2, bool kMask>
-__global__ void __launch_bounds__(kThreads)
-    ivf_int8_scan_kernel(const int* __restrict__ blk, const int* __restrict__ nrows,
-                         const int8_t* __restrict__ q, const float* __restrict__ sz,
-                         const int8_t* __restrict__ codes, const float* __restrict__ nrm,
-                         const uint8_t* __restrict__ keep, float* __restrict__ out_s,
-                         int* __restrict__ out_p, int Qg, int d, int kk) {
-  extern __shared__ int smem_i[];
-  const int dw = d >> 2;
-  const int stride = dw + 1;
-  int* cs = smem_i;                // kB * stride words
-  int* qs = smem_i + kB * stride;  // kWarps * dw words
-  const int t = blockIdx.x;
-  const int b = blk[t];
-  const int n = nrows[t];
-  const int* gcodes = reinterpret_cast<const int*>(codes + (size_t)b * kB * d);
-  for (int i = threadIdx.x; i < kB * dw; i += kThreads) {
-    const int r = i / dw;
-    int v = gcodes[i];
-    if (kU8) v ^= 0x80808080;  // c - 128 as an i8 bit pattern, per byte
-    cs[r * stride + (i - r * dw)] = v;
+struct Int8Rows {
+  const uint8_t* codes;  // (n * 512, d) i8 sidecar or u8 SQ8 codes
+  const float* nrm;      // centred norms, one a stored row (zeros for IP)
+  const float* sz;       // (T * Qg) per-query scales
+  uint32_t flip;         // 0x80808080 for u8 codes (c - 128 as an i8 bit pattern), else 0
+  using Query = int8_t;
+  static constexpr bool kRowNorm = false, kQuerySide = true;
+  __device__ bool a_lo(bool) const { return false; }
+  __device__ void stage(unsigned char* st, int b, int c, int kc, int d, int tid) const {
+    stage_code_rows(st, codes + ((size_t)b * kB + c * kXRows) * d + kc * kChunk, d, tid);
   }
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  float nr[kNJ];
-  bool ok[kNJ];
-#pragma unroll
-  for (int j = 0; j < kNJ; ++j) {
-    const int c = lane + 32 * j;
-    const size_t g = (size_t)b * kB + c;
-    ok[j] = c < n && (!kMask || keep[g] != 0);
-    nr[j] = kL2 ? nrm[g] : 0.f;
-  }
-  __syncthreads();
-  int* qw = qs + warp * dw;
-  const int* gq = reinterpret_cast<const int*>(q + (size_t)t * Qg * d);
-  for (int r = warp; r < Qg; r += kWarps) {
-    for (int w = lane; w < dw; w += 32) qw[w] = gq[r * dw + w];
-    __syncwarp();
-    int acc[kNJ];
-#pragma unroll
-    for (int j = 0; j < kNJ; ++j) acc[j] = 0;
-    for (int w = 0; w < dw; ++w) {
-      const int qv = qw[w];
-#pragma unroll
-      for (int j = 0; j < kNJ; ++j) acc[j] = __dp4a(cs[(lane + 32 * j) * stride + w], qv, acc[j]);
+  // slice sl (16 codes) of row r: thread tid takes row tid % 64 and every
+  // other slice of it
+  __device__ float rows_op(const unsigned char* st, unsigned char* xop, const float*, bool, int tid) const {
+    for (int u = tid; u < kXRows * (kChunk / 16); u += 128) {
+      const int r = u % kXRows, sl = u / kXRows;
+      uint4 v = *reinterpret_cast<const uint4*>(st + r * kCodeStride + 16 * sl);
+      v.x ^= flip;
+      v.y ^= flip;
+      v.z ^= flip;
+      v.w ^= flip;
+      *reinterpret_cast<uint4*>(xop + sl * (kXRows * 16) + r * 16) = v;
     }
-    __syncwarp();  // the next row overwrites qw
-    const float s = sz[(size_t)t * Qg + r];
-    const float s2 = __fmul_rn(2.f, s);
-    float sc[kNJ];
-#pragma unroll
-    for (int j = 0; j < kNJ; ++j) {
-      const float dot = (float)acc[j];
-      // no FMA contraction: the reference rounds the product, then subtracts
-      const float v = kL2 ? __fsub_rn(__fmul_rn(s2, dot), nr[j]) : __fmul_rn(s, dot);
-      sc[j] = ok[j] ? v : KW_NEG_INF;
-    }
-    const size_t o = ((size_t)t * Qg + r) * kk;
-    warp_topk_row<kNJ>(sc, kk, b * kB, out_s + o, out_p + o);
+    return 0.f;
   }
-}
+  __device__ float query_side(size_t i) const { return sz[i]; }
+  __device__ void row_side(float* rs0, float*, size_t g, int r) const { rs0[r] = nrm[g]; }
+  // the dot rounded once to f32, then the reference's order, no FMA
+  // contraction: (2 sz) dot - nrm, or sz dot
+  __device__ float score(int acc, float nrm_r, float, float s, bool l2) const {
+    const float dot = __int2float_rn(acc);
+    return l2 ? __fsub_rn(__fmul_rn(__fmul_rn(2.f, s), dot), nrm_r) : __fmul_rn(s, dot);
+  }
+};
 
 // ---------------------------------------------------------------------------
 // f32 on the tensor cores (ivf_task_scan.cuh): q (Qg, d) . rows (B, d) as the
@@ -105,6 +78,7 @@ __global__ void __launch_bounds__(kThreads)
 // ---------------------------------------------------------------------------
 struct F32Rows {
   const float* data;  // (n * 512, d) f32 rows
+  using Query = float;
   static constexpr bool kRowNorm = true, kQuerySide = false;
   __device__ bool a_lo(bool three) const { return three; }
   __device__ void stage(unsigned char* st, int b, int c, int kc, int d, int tid) const {
@@ -127,32 +101,14 @@ struct F32Rows {
 
 using namespace kw;
 
-#define KW_INT8_CASE(U8, L2, M)                                                              \
-  if ((u8 != 0) == (U8) && (is_l2 != 0) == (L2) && has_mask == (M)) {                                            \
-    auto k = ivf_int8_scan_kernel<U8, L2, M>;                                                \
-    e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);     \
-    if (e != cudaSuccess) return (int)e;                                                     \
-    k<<<T, kThreads, smem, s>>>((const int*)blk, (const int*)nrows, (const int8_t*)q,        \
-                                (const float*)sz, (const int8_t*)codes, (const float*)nrm,   \
-                                (const uint8_t*)keep, (float*)out_s, (int*)out_p, Qg, d, kk); \
-    return (int)cudaGetLastError();                                                          \
-  }
-
+// q (T, Qg, d) i8 with d a multiple of 128, sz (T, Qg) f32, codes (n * 512,
+// d) i8 or u8 (u8 != 0), nrm (n * 512,) f32, kk <= 32.
 extern "C" int kw_ivf_int8_scan(const void* blk, const void* nrows, const void* q,
                                 const void* sz, const void* codes, const void* nrm,
                                 const void* keep, void* out_s, void* out_p, int T, int Qg,
                                 int d, int kk, int is_l2, int u8, void* stream) {
-  if (T <= 0) return 0;
-  if (d % 4 != 0 || kk < 1 || kk > kB) return (int)cudaErrorInvalidValue;
-  const size_t smem = ((size_t)kB * (d / 4 + 1) + (size_t)kWarps * (d / 4)) * sizeof(int);
-  const bool has_mask = keep != nullptr;
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t e;
-  KW_INT8_CASE(false, false, false) KW_INT8_CASE(false, false, true)
-  KW_INT8_CASE(false, true, false) KW_INT8_CASE(false, true, true)
-  KW_INT8_CASE(true, false, false) KW_INT8_CASE(true, false, true)
-  KW_INT8_CASE(true, true, false) KW_INT8_CASE(true, true, true)
-  return (int)cudaErrorInvalidValue;
+  const Int8Rows src{(const uint8_t*)codes, (const float*)nrm, (const float*)sz, u8 ? 0x80808080u : 0u};
+  return launch_task_scan(src, blk, nrows, q, keep, out_s, out_p, T, Qg, d, kk, is_l2, 0, stream);
 }
 
 // q (T, Qg, d) f32, data (n * 512, d) f32 with d a multiple of 128, kk <= 32.

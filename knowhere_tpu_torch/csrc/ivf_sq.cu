@@ -28,22 +28,16 @@
 
 namespace kw {
 
-constexpr int kSqStride = kChunk + 16;  // staging row stride (bytes): conflict-free 16-byte reads
-
 struct SqRows {
   const uint8_t* codes;  // (n * 512, d) u8
   const float* vmin;     // (d,)
   const float* vdiff;    // (d,)
   float inv;             // 1 / levels, a power of two: exact
+  using Query = float;
   static constexpr bool kRowNorm = true, kQuerySide = false;
   __device__ bool a_lo(bool three) const { return three; }
   __device__ void stage(unsigned char* st, int b, int c, int kc, int d, int tid) const {
-    const uint8_t* src = codes + ((size_t)b * kB + c * kXRows) * d + kc * kChunk;
-    for (int i = tid; i < kXRows * (kChunk / 16); i += 128) {
-      const int r = i / (kChunk / 16), c16 = i % (kChunk / 16);
-      cp_async16(st + r * kSqStride + 16 * c16, src + (size_t)r * d + 16 * c16);
-    }
-    cp_async_commit();
+    stage_code_rows(st, codes + ((size_t)b * kB + c * kXRows) * d + kc * kChunk, d, tid);
   }
   // the grid of feature chunk kc: aux[0:128] vmin, aux[128:256] vdiff
   __device__ void load_aux(float* aux, int, int kc, int, int tid) const {
@@ -57,7 +51,7 @@ struct SqRows {
     float part = 0.f;
     for (int u = tid; u < kXRows * (kChunk / 16); u += 128) {
       const int r = u % kXRows, f0 = 16 * (u / kXRows);
-      const uint4 raw = *reinterpret_cast<const uint4*>(st + r * kSqStride + f0);
+      const uint4 raw = *reinterpret_cast<const uint4*>(st + r * kCodeStride + f0);
       const uint32_t words[4] = {raw.x, raw.y, raw.z, raw.w};
       float x[16];
 #pragma unroll

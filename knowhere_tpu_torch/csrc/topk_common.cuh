@@ -1,4 +1,6 @@
-// Shared pieces of the IVF task-scan kernels (ivf_scan.cu).
+// Shared pieces of the IVF task-scan kernels: the result contract and block
+// geometry of every task scan (ivf_task_scan.cuh, ivf_adc.cu), and the warp
+// top-k of the CUDA-core ADC scan (ivf_adc.cu).
 //
 // Result contract, kept from the TPU kernels (knowhere_tpu/ops/ivf_pallas.py):
 // scores are larger-is-better, empty slots hold -1e38 with position -1, and

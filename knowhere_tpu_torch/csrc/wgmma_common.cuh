@@ -1,7 +1,8 @@
 // Hopper building blocks shared by the tensor-core scans (flat_scan.cu and
 // the IVF task scans of ivf_task_scan.cuh): wgmma on bf16 operands with f32
-// accumulators, the shared memory descriptors they read, mbarriers with bulk
-// (TMA) copies, cp.async, and the three-pass hi/lo product of the reference.
+// accumulators and on s8 operands with s32 accumulators, the shared memory
+// descriptors they read, mbarriers with bulk (TMA) copies, cp.async, and the
+// three-pass hi/lo product of the reference.
 //
 // Operand layout (K-major, no swizzle). A tile of R rows x 256 bf16 holds
 // one 128-feature chunk as [hi: 16 slices of 8 | lo: 16 slices of 8]; slice
@@ -9,7 +10,9 @@
 // is 128 contiguous bytes, the next 8 rows follow at +128 (SBO) and the next
 // 8 features at +R * 16 (LBO). ops/cuda_flat.py's split_operand writes the
 // same image of FLAT's queries from PyTorch; the kernels write their f32
-// rows' image while staging them (stage_rows, then split_rows).
+// rows' image while staging them (stage_rows, then split_rows). An s8 tile
+// has the same byte geometry with 16 i8 features a slice: a chunk is 8
+// slices, R x 128 bytes.
 //
 // The product is the reference's (knowhere_tpu/ops/pallas_flat.py:85,
 // ivf_pallas.py:143-152): hi = bf16(x), lo = bf16(x - hi), and
@@ -100,6 +103,35 @@ __device__ __forceinline__ void wgmma_tile(float (&d)[N / 2], uint64_t a, uint64
   else wgmma_m64n128(d, a, b);
 }
 
+// D (64 x N, s32, registers) += A (64 x 32) . B (N x 32)^T on s8 operands,
+// both K-major in shared memory: every product and sum is exact. The integer
+// forms take only scale-d (no scale or transpose immediates). D's fragment
+// layout is the f32 form's.
+__device__ __forceinline__ void wgmma_m64n32_s8(int (&d)[16], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15},"
+      " %16, %17, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_m64n64_s8(int (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
 // One 128-feature chunk of the product into acc: a_addr / b_addr are the
 // shared addresses of this warpgroup's A rows (64 of a_rows) and of B (N
 // rows), each laid out as described above. The hi.hi pass always runs (the
@@ -117,6 +149,22 @@ __device__ __forceinline__ void chunk_product(float (&acc)[N / 2], uint32_t a_ad
     wgmma_tile<N>(acc, make_desc(a_addr + ao, a_lbo, 128), make_desc(b_addr + bo, b_lbo, 128));
     if (b_lo) wgmma_tile<N>(acc, make_desc(a_addr + ao, a_lbo, 128), make_desc(b_lo_addr + bo, b_lbo, 128));
     if (a_lo) wgmma_tile<N>(acc, make_desc(a_lo_addr + ao, a_lbo, 128), make_desc(b_addr + bo, b_lbo, 128));
+  }
+}
+
+// One 128-feature chunk of an s8 product into acc: the same byte geometry
+// as above (a slice is 16 bytes, here 16 i8 features, so a chunk is 8
+// slices and 4 k32 steps), no lo slices. The caller fences before and
+// commits / waits after.
+template <int N>
+__device__ __forceinline__ void chunk_product_s8(int (&acc)[N / 2], uint32_t a_addr, int a_rows, uint32_t b_addr) {
+  static_assert(N == 32 || N == 64, "s8 tiles of 32 or 64 columns");
+  const uint32_t a_lbo = a_rows * 16, b_lbo = N * 16;
+#pragma unroll
+  for (int j = 0; j < kChunk / 32; ++j) {  // k32 steps: two slices each
+    const uint64_t a = make_desc(a_addr + 2 * j * a_lbo, a_lbo, 128), b = make_desc(b_addr + 2 * j * b_lbo, b_lbo, 128);
+    if constexpr (N == 32) wgmma_m64n32_s8(acc, a, b);
+    else wgmma_m64n64_s8(acc, a, b);
   }
 }
 

@@ -3,10 +3,10 @@
 A task is one aligned LIST_ALIGN-row list block scanned by one group of Qg
 queries (ops/ivf_scan.py builds them). Four scans:
 
-- ``int8_scan_tasks``: int8 queries . int8 codes -> int32, score
-  ``2*sz*dot - nrm`` (L2) or ``sz*dot`` (IP); the FAST serving scan of
-  IVF_FLAT (int8 sidecar) and IVF_SQ8 (its u8 codes), whose candidate pool
-  is re-ranked exactly afterwards. Replaces ``_int8_kernel``.
+- ``int8_scan_tasks``: int8 queries . int8 codes -> int32 (tensor cores,
+  exact), score ``2*sz*dot - nrm`` (L2) or ``sz*dot`` (IP); the FAST
+  serving scan of IVF_FLAT (int8 sidecar) and IVF_SQ8 (its u8 codes), whose
+  candidate pool is re-ranked exactly afterwards. Replaces ``_int8_kernel``.
 - ``f32_scan_tasks``: f32 queries . f32 rows as the reference's single bf16
   pass or its three-pass hi/lo bf16 product (tensor cores), in-scan f32
   norms, score ``2*dot - |x|^2`` or ``dot``. Replaces ``_scan_kernel``.
@@ -23,7 +23,7 @@ Each returns the per-task top-kk as (scores (Tc,Qg,kk), positions (Tc,Qg,kk)
 into the padded storage), with the reference's result contract: larger is
 better, empty slots hold -1e38 with position -1, ties go to the leftmost
 column. Each wrapper launches its CUDA kernel (csrc/ivf_scan.cu, ivf_sq.cu,
-ivf_rbq.cu; the f32, SQ and RaBitQ scans share the tensor-core body of
+ivf_rbq.cu; the four scans share the tensor-core body of
 csrc/ivf_task_scan.cuh) for CUDA tensors and counts the launch in
 ``<wrapper>.launches``; for CPU tensors it runs the plain PyTorch version
 beside it. The plain versions are what the CPU
@@ -141,8 +141,8 @@ def int8_scan_tasks(
     if not q_task.is_cuda:
         return int8_scan_plain(blk, nrows, q_task, q_scale, codes, nrm, keep, B=B, kk=kk, is_l2=is_l2)
     Tc, Qg, d = q_task.shape
-    if B != LIST_ALIGN or d % 4 or not 1 <= kk <= 32:
-        raise ValueError(f"int8 scan takes B={LIST_ALIGN}, d%4==0, kk<=32 (got {B}, {d}, {kk})")
+    if B != LIST_ALIGN or d % 128 or not 1 <= kk <= 32:
+        raise ValueError(f"int8 scan takes B={LIST_ALIGN}, d%128==0, kk<=32 (got {B}, {d}, {kk})")
     if codes.dtype not in (torch.int8, torch.uint8) or q_task.dtype != torch.int8:
         raise TypeError("int8 scan takes int8 queries and int8/uint8 codes")
     _check_task_args(blk, nrows, q_task, codes, keep, d)
@@ -150,6 +150,8 @@ def int8_scan_tasks(
         raise ValueError("int8 scan: q_scale must be (Tc, Qg, 1) and nrm f32 on the same device")
     blk, nrows = blk.int().contiguous(), nrows.int().contiguous()
     q_task, codes = q_task.contiguous(), codes.contiguous()
+    if q_task.data_ptr() % 16 or codes.data_ptr() % 16:
+        raise ValueError("int8 scan: the queries and codes must start on 16-byte boundaries (cp.async)")
     q_scale = q_scale.float().contiguous()
     nrm = nrm.float().contiguous()
     keep_u8 = keep.contiguous().view(torch.uint8) if keep is not None else None
