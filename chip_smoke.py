@@ -237,10 +237,12 @@ def _dot_ops(three_pass: bool, dots: int, f32_ops: int) -> dict:
     return ops
 
 
-def _run_case(name, kernel, plain, args, kw, rtol, atol, pos_agree, work, reps=5, **desc):
+def _run_case(name, kernel, plain, args, kw, rtol, atol, pos_agree, work, reps=5, sentinels=False, **desc):
     """Run one kernel case and its plain version on the same inputs, time
     both, compare (scores within rtol/atol, positions on >= pos_agree of
-    slots) and raise on disagreement. work = (bytes, ops) for the bound."""
+    slots; with sentinels, also the empty slots: the same slots, each
+    exactly (-1e38, -1)) and raise on disagreement. work = (bytes, ops) for
+    the bound."""
     import torch
 
     s_k, p_k = kernel(*args, **kw)
@@ -249,6 +251,10 @@ def _run_case(name, kernel, plain, args, kw, rtol, atol, pos_agree, work, reps=5
     err = (s_k - s_p).abs().max().item()
     ok = torch.allclose(s_k, s_p, rtol=rtol, atol=atol)
     pos_eq = (p_k == p_p).float().mean().item()
+    if sentinels:
+        empty = p_p == -1
+        desc["empty_slots"] = int(empty.sum())
+        ok = ok and bool(torch.equal(p_k == -1, empty) and (s_k[empty] == -1e38).all() and (s_p[empty] == -1e38).all())
     ms = time_ms(lambda: kernel(*args, **kw), reps=reps)
     plain_ms = time_ms(lambda: plain(*args, **kw), reps=3)
     line = dict(desc, kk=kw["kk"], mask=args[-1] is not None, is_l2=kw["is_l2"], max_abs_err=err,
@@ -453,13 +459,60 @@ def _adc_case(g, dev, n_tasks, n_blocks, Qg, d, m, sub, ksub, nlist=1024):
     return blk, nrows, lids, q, books, clut, cents, n_blocks * B
 
 
-def check_adc_kernel(dev):
-    """ivf_adc_scan against adc_scan_plain: the main path's shape (4096 tasks,
-    Qg=128, d=128, m=16, ksub=256), the 4-bit nibble layout (m=64, ksub=16)
-    and the GIST shape (d=1024, m=96, ksub=256, 512 tasks)."""
+def _adc_run(args, kk, is_l2, nib, tol=(ADC_RTOL, ADC_ATOL, ADC_POS_AGREE), **desc):
+    """One ADC case against its plain version, with every empty slot equal
+    (-1e38, -1). The bound counts what the kernel does: an empty task loads
+    nothing and builds no LUT, and a block's code rows are read up to its
+    tasks' largest nrows."""
     import torch
 
     from knowhere_tpu_torch.ops import adc_cuda
+
+    blk, nrows, lids, q, books, clut, cents, codes, mask = args
+    n_tasks, Qg, d = q.shape
+    m, ksub, sub = books.shape
+    mb = m // 2 if nib else m
+    live = nrows > 0
+    n_live = int(live.sum())
+    n_lids = int(torch.unique(lids[live]).numel())
+    _, n_rows, side = _task_work(blk, nrows, mask, Qg, kk)
+    nbytes = (_rows_read(blk, nrows) * mb + n_live * (Qg * d * 4 + 4) + m * ksub * sub * 2
+              + n_lids * (m * ksub * 2 + d * 4) + side)
+    # the LUT of every non-empty task (hi and lo bf16 passes), then m lookups a scored row
+    ops = {"bf16": 2 * 2 * n_live * Qg * m * ksub * sub, "f32": n_rows * Qg * m}
+    return _run_case(
+        "ivf_adc_scan", adc_cuda.adc_scan_tasks, adc_cuda.adc_scan_plain, args,
+        dict(B=512, kk=kk, is_l2=is_l2, nib=nib), *tol, (nbytes, ops), sentinels=True,
+        tasks=n_tasks, d=d, m=m, ksub=ksub, nib=nib, empty_tasks=n_tasks - n_live, **desc,
+    )
+
+
+def _adc_grid(g, dev, m, ksub, sub, d, nlist, n_tasks, Qg, n_codes):
+    """ADC inputs on a power-of-two grid (queries in {-1/2, 0, 1/2},
+    centroids in halves, codebooks in {-1/4, 0, 1/4}, 4 in 5 of them 0,
+    codes from 2 codewords a subspace): every LUT entry, sum and base is
+    exact, so kernel and plain version agree bit for bit and many scores
+    of a row tie (tests/test_torch_ivf_pq.py uses the same grid)."""
+    import torch
+
+    books = torch.randint(-1, 2, (m, ksub, sub), generator=g, device=dev).float() * 0.25
+    books = (books * (torch.rand((m, ksub, sub), generator=g, device=dev) < 0.2)).to(torch.bfloat16)
+    cents = torch.randint(-2, 3, (nlist, d), generator=g, device=dev).float() * 0.5
+    q = torch.randint(-1, 2, (n_tasks, Qg, d), generator=g, device=dev).float() * 0.5
+    codes = torch.randint(0, 2, (n_codes, m), generator=g, device=dev, dtype=torch.int32).to(torch.uint8)
+    b64 = books.double()
+    c3 = cents[:, : m * sub].double().reshape(nlist, m, sub)
+    clut = 2.0 * torch.einsum("lms,mvs->lmv", c3, b64) + (b64 * b64).sum(-1)[None]
+    return q, books, clut.float().reshape(nlist, m * ksub).to(torch.bfloat16), cents, codes
+
+
+def check_adc_kernel(dev):
+    """ivf_adc_scan against adc_scan_plain: the main path's shape (4096 tasks,
+    Qg=128, d=128, m=16, ksub=256; also with a quarter of the tasks empty,
+    and on the exact tie grid with every score and position equal), the
+    4-bit nibble layout (m=64, ksub=16) and the GIST shape (d=1024, m=96,
+    ksub=256, 512 tasks)."""
+    import torch
 
     g = torch.Generator(device=dev).manual_seed(1)
     out = []
@@ -476,19 +529,24 @@ def check_adc_kernel(dev):
         codes = torch.randint(0, 256 if nib else ksub, (nb_pad + 2048, mb), generator=g, device=dev,
                               dtype=torch.int32).to(torch.uint8)
         keep = torch.rand(nb_pad + 2048, generator=g, device=dev) < 0.5
-        n_lids = int(torch.unique(lids).numel())
         for kk, masked, is_l2 in cases:
-            mask = keep if masked else None
-            n_blk, n_rows, side = _task_work(blk, nrows, mask, 128, kk)
-            nbytes = (n_blk * 512 * mb + n_tasks * (128 * d * 4 + 4) + m * ksub * sub * 2
-                      + n_lids * (m * ksub * 2 + d * 4) + side)
-            # the LUT of every task (hi and lo bf16 passes), then m lookups a row
-            ops = {"bf16": 2 * 2 * n_tasks * 128 * m * ksub * sub, "f32": n_rows * 128 * m}
-            out.append(_run_case(
-                "ivf_adc_scan", adc_cuda.adc_scan_tasks, adc_cuda.adc_scan_plain,
-                (blk, nrows, lids, q, books, clut, cents, codes, mask), dict(B=512, kk=kk, is_l2=is_l2, nib=nib),
-                ADC_RTOL, ADC_ATOL, ADC_POS_AGREE, (nbytes, ops), tasks=n_tasks, d=d, m=m, ksub=ksub, nib=nib,
-            ))
+            args = (blk, nrows, lids, q, books, clut, cents, codes, keep if masked else None)
+            out.append(_adc_run(args, kk, is_l2, nib))
+        if nib or d != 128:
+            continue
+        # the table shape with a quarter of the tasks empty (own generators
+        # from here: the later shapes keep their inputs)
+        nrows_e = nrows.clone()
+        nrows_e[::4] = 0
+        out.append(_adc_run((blk, nrows_e, lids, q, books, clut, cents, codes, keep), 32, True, nib, empty=True))
+        del nrows_e
+        g2 = torch.Generator(device=dev).manual_seed(5)
+        grid = _adc_grid(g2, dev, m, ksub, sub, d, 1024, n_tasks, 128, nb_pad + 2048)
+        qg, books_g, clut_g, cents_g, codes_g = grid
+        for kk, masked, is_l2 in [(32, True, True), (16, False, False)]:
+            args = (blk, nrows, lids, qg, books_g, clut_g, cents_g, codes_g, keep if masked else None)
+            out.append(_adc_run(args, kk, is_l2, nib, tol=(0.0, 0.0, 1.0), ties=True))
+        del grid, qg, books_g, clut_g, cents_g, codes_g
     return out
 
 
@@ -816,7 +874,8 @@ def pq_path(kt, xb, xq, gt, flat):
     """IVF_PQ at the north-star configuration through the public API."""
     pq, ids, out = _serve(kt, "IVF_PQ", "pq", xb, xq, gt, IVF_PQ_BUILD, IVF_PQ_SEARCH, PQ_RECALL_FLOOR)
     out["pq_tpu_anchor_recall_at_10"] = PQ_TPU_ANCHOR  # the reference's, not the port's
-    _profile_later("pq_profile", lambda idx=pq: _search(idx, kt, xq, IVF_PQ_SEARCH))  # ivf_adc_scan at its real shape
+    # ivf_adc_scan at its real shape, and the share of its tasks that are empty
+    _profile_later("pq_profile", lambda idx=pq: _search(idx, kt, xq, IVF_PQ_SEARCH), _adc_task_share)
     out.update(_filtered_and_round_trip(kt, "IVF_PQ", "pq", pq, ids, xb, xq, flat, IVF_PQ_SEARCH)[0])
     out["pq_exact_recall_1k"], out["pq_fast_recall_1k"] = _exact_vs_fast(
         kt, pq, xq[:1000], gt[:1000], IVF_PQ_SEARCH
@@ -910,14 +969,43 @@ def gist_pq_path(kt, nb=100_000, nq=1_000):
 _LATE_PROFILES = []
 
 
-def _profile_later(name, fn) -> None:
-    _LATE_PROFILES.append((name, fn))
+def _profile_later(name, fn, extra=None) -> None:
+    """extra(fn), if given, runs after the profiler pass and adds to its numbers."""
+    _LATE_PROFILES.append((name, fn, extra))
 
 
 def late_profiles() -> dict:
-    out = {name: _profile_search(fn) for name, fn in _LATE_PROFILES}
+    out = {}
+    for name, fn, extra in _LATE_PROFILES:
+        out[name] = _profile_search(fn)
+        if extra is not None:
+            out[name].update(extra(fn))
     _LATE_PROFILES.clear()
     return out
+
+
+def _adc_task_share(fn) -> dict:
+    """One more fn() with the search's ADC scan wrapped to count the tasks
+    it launches and those with nrows == 0 (padding of the device task
+    builder's static bound, which the kernel skips). Outside the profiler
+    pass: the counts sync the host."""
+    from knowhere_tpu_torch.ops import ivf_scan
+
+    real = ivf_scan.adc_scan_tasks
+    seen = {"adc_tasks": 0, "adc_empty_tasks": 0}
+
+    def counting(blk, nrows, *args, **kw):
+        seen["adc_tasks"] += int(nrows.numel())
+        seen["adc_empty_tasks"] += int((nrows <= 0).sum())
+        return real(blk, nrows, *args, **kw)
+
+    ivf_scan.adc_scan_tasks = counting
+    try:
+        fn()
+    finally:
+        ivf_scan.adc_scan_tasks = real
+    seen["adc_empty_share"] = seen["adc_empty_tasks"] / max(seen["adc_tasks"], 1)
+    return seen
 
 
 def _profile_search(fn) -> dict:

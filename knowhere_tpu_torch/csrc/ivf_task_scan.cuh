@@ -54,7 +54,10 @@
 // increasing order, so the strict test keeps the leftmost column among equal
 // scores. At the end one thread per row merges its P lists (larger score,
 // then lower position first) into the row's kk outputs. The result contract
-// is topk_common.cuh's.
+// is topk_common.cuh's. The four instances share this epilogue; the ADC scan
+// (ivf_adc.cu) does not: it holds a query's whole block in one warp, so P
+// would be 32, and with this merge of 32 lists it ran 2-3x as long as with
+// topk_common.cuh's warp_topk_select (PERF.md).
 #pragma once
 
 #include <cuda_bf16.h>

@@ -1,8 +1,9 @@
 // Hopper building blocks shared by the tensor-core scans (flat_scan.cu and
 // the IVF task scans of ivf_task_scan.cuh): wgmma on bf16 operands with f32
 // accumulators and on s8 operands with s32 accumulators, the shared memory
-// descriptors they read, mbarriers with bulk (TMA) copies, cp.async, and the
-// three-pass hi/lo product of the reference.
+// descriptors they read, mbarriers with bulk (TMA) copies, cp.async (which
+// the ADC scan, ivf_adc.cu, also takes), and the three-pass hi/lo product of
+// the reference.
 //
 // Operand layout (K-major, no swizzle). A tile of R rows x 256 bf16 holds
 // one 128-feature chunk as [hi: 16 slices of 8 | lo: 16 slices of 8]; slice
@@ -182,9 +183,12 @@ __device__ __forceinline__ void split8(const float4 v0, const float4 v1, uint4& 
   lo = *reinterpret_cast<const uint4*>(l);
 }
 
-// ---- cp.async (16 bytes a thread) ----------------------------------------
+// ---- cp.async (16 bytes a thread; 4 where the rows are not 16-aligned) --
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src) : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }

@@ -42,13 +42,16 @@ SMEM_LIMIT = 232448
 
 def adc_smem_bytes(d: int, m: int, ksub: int, nib: bool) -> int:
     """Dynamic shared memory of one kernel block (mirrors ``adc_smem_bytes``
-    in csrc/ivf_adc.cu): the group's hi/lo queries, one LUT chunk and the
-    task's code block at a padded row stride."""
+    in csrc/ivf_adc.cu): the group's hi/lo queries and one LUT chunk, which
+    the selection's scratch (an f32 score and a u16 column for each row of
+    each warp's query) reuses, then the task's code block at a padded row
+    stride."""
     G, lut_bytes = 8, 32 * 1024
     mc = min(lut_bytes // (G * ksub * 2), m)
+    front = max(2 * G * d * 4 + G * mc * ksub * 2, G * LIST_ALIGN * 6)
     words = (((m // 2) if nib else m) + 3) // 4
     words += 1 - words % 2
-    return 2 * G * d * 4 + G * mc * ksub * 2 + LIST_ALIGN * 4 * words
+    return front + LIST_ALIGN * 4 * words
 
 
 def compute_qlut(q: torch.Tensor, books: torch.Tensor, *, is_l2: bool) -> torch.Tensor:

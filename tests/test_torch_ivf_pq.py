@@ -46,6 +46,7 @@ SEARCH = {"metric_type": "L2", "k": K, "nprobe": NPROBE, "refine_k": 8}
 # cases below: max |score diff| 3.1e-05 (LUT entries agree exactly here),
 # positions 100% equal.
 ADC_RTOL, ADC_ATOL, ADC_POS_AGREE = 1e-3, 1e-2, 0.99
+NEG_INF = np.float32(-1e38)  # the empty slot's score
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -176,6 +177,27 @@ def _assert_adc_agree(s_j, p_j, s_t, p_t):
     assert (p_t == p_j).mean() >= ADC_POS_AGREE
 
 
+def _jax_adc(books, cents, codes, clut, blk, nrows, q_task, keep, *, kk, is_l2, nib):
+    """pallas_adc_tasks in interpret mode, fed the transposed code layout it
+    takes (nibble-packed for nib)."""
+    m, ksub, _ = books.shape
+    nb = codes.shape[0]
+    codes_t = np.zeros((32, nb), np.uint8)  # Mosaic's 32-row u8 tile
+    if nib:
+        half = m // 2
+        codes_t[:half] = (codes[:, :half] | (codes[:, half:] << 4)).T
+    else:
+        codes_t[:m] = codes.T
+    s_j, p_j = pallas_adc_tasks(
+        jnp.asarray(blk), jnp.asarray(nrows), jnp.asarray(blk), jnp.asarray(q_task), _books_bd(books),
+        jnp.asarray(clut).astype(jnp.bfloat16), jnp.asarray(cents), jnp.asarray(codes_t),
+        None if keep is None else jnp.asarray(keep.astype(np.int32).reshape(-1, 1, LIST_ALIGN)),
+        B=LIST_ALIGN, Qg=q_task.shape[1], kk=kk, m=m, ksub=ksub, s_stack=adc_s_stack(m, ksub),
+        is_l2=is_l2, nib=nib, interpret=True,
+    )
+    return np.asarray(s_j), np.asarray(p_j)
+
+
 @pytest.mark.parametrize(
     "is_l2,masked,m,ksub,nib,kk",
     [
@@ -191,26 +213,70 @@ def _assert_adc_agree(s_j, p_j, s_t, p_t):
 def test_adc_plain_matches_pallas_adc(is_l2, masked, m, ksub, nib, kk):
     rng = np.random.default_rng(11)
     books, cents, codes, clut, blk, nrows, q_task = _adc_inputs(rng, m, ksub, is_l2)
-    nb = codes.shape[0]
-    keep = rng.random(nb) < 0.5 if masked else None
-    if nib:
-        half = m // 2
-        codes_t = np.zeros((32, nb), np.uint8)  # Mosaic's 32-row u8 tile
-        codes_t[:half] = (codes[:, :half] | (codes[:, half:] << 4)).T
-    else:
-        codes_t = np.zeros((32, nb), np.uint8)
-        codes_t[:m] = codes.T
-    s_j, p_j = pallas_adc_tasks(
-        jnp.asarray(blk), jnp.asarray(nrows), jnp.asarray(blk), jnp.asarray(q_task), _books_bd(books),
-        jnp.asarray(clut).astype(jnp.bfloat16), jnp.asarray(cents), jnp.asarray(codes_t),
-        None if keep is None else jnp.asarray(keep.astype(np.int32).reshape(-1, 1, LIST_ALIGN)),
-        B=LIST_ALIGN, Qg=q_task.shape[1], kk=kk, m=m, ksub=ksub, s_stack=adc_s_stack(m, ksub),
-        is_l2=is_l2, nib=nib, interpret=True,
-    )
+    keep = rng.random(codes.shape[0]) < 0.5 if masked else None
+    s_j, p_j = _jax_adc(books, cents, codes, clut, blk, nrows, q_task, keep, kk=kk, is_l2=is_l2, nib=nib)
     s_t, p_t = _port_adc(books, cents, codes, clut, blk, nrows, q_task, keep, kk=kk, is_l2=is_l2, nib=nib)
-    _assert_adc_agree(np.asarray(s_j), np.asarray(p_j), s_t, p_t)
+    _assert_adc_agree(s_j, p_j, s_t, p_t)
     if keep is not None:
         assert not (~keep[p_t[p_t >= 0]]).any()
+
+
+def _grid_adc_inputs(rng, m, ksub, is_l2):
+    """ADC inputs on a power-of-two grid: queries in {-1/2, 0, 1/2},
+    centroids in halves, codebooks in {-1/4, 0, 1/4} (4 in 5 of them 0),
+    codes from 2 codewords a subspace. Every LUT entry is a multiple of 1/16
+    below 9 in magnitude (exact in bf16), and every sum of them and every
+    base is exact in f32, so the hi/lo split, the bf16 rounding and the sum
+    order change nothing, and 40-60% of neighbouring top-kk slots tie: the
+    result is fixed, ties included."""
+    books, cents, codes, clut, blk, nrows, q_task = _adc_inputs(rng, m, ksub, is_l2)
+    nlist, d = cents.shape
+    sub = d // m
+    books = (rng.integers(-1, 2, books.shape) * (rng.random(books.shape) < 0.2) * 0.25).astype(np.float32)
+    cents = (rng.integers(-2, 3, cents.shape) * 0.5).astype(np.float32)
+    codes = rng.integers(0, 2, codes.shape).astype(np.uint8)
+    q_task = (rng.integers(-1, 2, q_task.shape) * 0.5).astype(np.float32)
+    if is_l2:
+        c3 = cents.reshape(nlist, m, sub).astype(np.float64)
+        b64 = books.astype(np.float64)
+        clut = (2.0 * np.einsum("lms,mvs->lmv", c3, b64) + np.sum(b64**2, -1)[None]).astype(np.float32)
+        clut = clut.reshape(nlist, m * ksub)
+    return books, cents, codes, clut, blk, nrows, q_task
+
+
+@pytest.mark.parametrize("kk", [16, 32])
+@pytest.mark.parametrize("is_l2", [True, False])
+@pytest.mark.parametrize("m,ksub,nib", [(16, 256, False), (16, 16, True)])
+@pytest.mark.parametrize("data", ["empty", "ties"])
+def test_adc_plain_matches_pallas_adc_contract(data, m, ksub, nib, is_l2, kk):
+    """The result contract on the inputs where a selection goes wrong first.
+    empty: a quarter of the tasks have nrows = 0 and one task keeps fewer
+    unmasked rows than kk; scores -1e38 and positions -1 exactly where the
+    Pallas kernel has them. ties: the exact grid, where scores and positions
+    equal the Pallas kernel's slot for slot (the leftmost of equal scores
+    first)."""
+    rng = np.random.default_rng(13)
+    if data == "empty":
+        books, cents, codes, clut, blk, nrows, q_task = _adc_inputs(rng, m, ksub, is_l2)
+        nrows[::4] = 0
+        nrows[1] = 2 * kk // 3  # about kk / 3 rows pass the mask
+        keep = rng.random(codes.shape[0]) < 0.5
+    else:
+        books, cents, codes, clut, blk, nrows, q_task = _grid_adc_inputs(rng, m, ksub, is_l2)
+        keep = rng.random(codes.shape[0]) < 0.5 if kk == 32 else None
+    s_j, p_j = _jax_adc(books, cents, codes, clut, blk, nrows, q_task, keep, kk=kk, is_l2=is_l2, nib=nib)
+    s_t, p_t = _port_adc(books, cents, codes, clut, blk, nrows, q_task, keep, kk=kk, is_l2=is_l2, nib=nib)
+    empty = p_j == -1
+    np.testing.assert_array_equal(p_t == -1, empty)
+    assert (s_j[empty] == NEG_INF).all() and (s_t[empty] == NEG_INF).all()
+    if data == "empty":
+        assert empty[::4].all() and empty[1].any() and not empty[1, :, 0].any()
+        _assert_adc_agree(s_j, p_j, s_t, p_t)
+    else:
+        # many neighbouring slots hold equal scores: the tie rule orders them
+        assert (s_j[..., 1:] == s_j[..., :-1]).mean() > 0.35
+        np.testing.assert_array_equal(s_t, s_j)
+        np.testing.assert_array_equal(p_t, p_j)
 
 
 @pytest.mark.parametrize("is_l2,masked", [(True, False), (False, True)])
@@ -235,12 +301,23 @@ def test_adc_plain_matches_pallas_adc_mc(is_l2, masked):
 
 def test_adc_available_drops_the_lut_cap():
     """The port's ADC kernel takes m * ksub past the TPU's 8192 cap (GIST
-    m=96), and declines unaligned stores and d % 128 != 0."""
+    m=96), and declines unaligned stores, d % 128 != 0 and shapes whose
+    block does not fit the shared memory. adc_smem_bytes is the kernel's
+    figure: the hi/lo queries and the LUT chunk, or the selection's scratch
+    over them (8 warps x 512 f32 scores and u16 columns, 24 KB) where that
+    is larger, then the code rows at an odd-word stride."""
     aligned = np.arange(0, 5 * LIST_ALIGN, LIST_ALIGN)
     store = {"books": torch.zeros((96, 256, 10), dtype=torch.bfloat16), "codes": torch.zeros((8, 96), dtype=torch.uint8)}
     assert tscan.adc_available(store, 1024, 10, aligned)
     assert not tscan.adc_available(store, 960, 10, aligned)
     assert not tscan.adc_available(store, 1024, 10, aligned + 1)
+    assert tscan.adc_available(store, 2048, 10, aligned)  # 215,040 bytes
+    assert not tscan.adc_available(store, 3072, 10, aligned)  # 280,576 bytes
+    assert adc_cuda.adc_smem_bytes(128, 16, 256, False) == 8192 + 32768 + 512 * 20  # SIFT
+    assert adc_cuda.adc_smem_bytes(1024, 96, 256, False) == 65536 + 32768 + 512 * 100  # GIST
+    assert adc_cuda.adc_smem_bytes(128, 64, 16, True) == 8192 + 16384 + 512 * 36  # 4-bit nibbles
+    # a small LUT chunk (m=8, ksub=16: 2 KB) gives way to the scratch
+    assert adc_cuda.adc_smem_bytes(128, 8, 16, False) == 24576 + 512 * 12
 
 
 # ---------------------------------------------------------------------------
