@@ -12,7 +12,10 @@ Run from the root of a checkout on a machine with one CUDA GPU. In order:
    quarter of its tasks empty, at 32-query groups, at d=256 and on a
    heavy-tie corpus, every position equal; the f32 scan also at the HNSW
    build's per-launch shape, 8,192 tasks at kk=32; FLAT phase 1 also as its
-   group-max and select launches apart, beside an f32 yardstick);
+   group-max and select launches apart, beside an f32 yardstick; the ADC
+   scan at every width it compiles); then run the device build's Lloyd
+   steps (a k-means step at the IVF build's shape, PQ's batched step at
+   SIFT's codebook shape) twice each on the same inputs: the same bits;
 4. run the main path through the public API on the SIFT1M-like corpus
    (1M x 128 f32, 10,000 queries, seed 0): FLAT exact ground truth, its
    first 1,000 queries' ids held against an independent full-f32 answer
@@ -55,12 +58,15 @@ Run from the root of a checkout on a machine with one CUDA GPU. In order:
    1024 and nprobe=32 instead of 384 (refine_k=32), all cut for chip time;
    FLAT ground truth on that corpus, FAST recall within 0.01 of EXACT;
 11. one torch-profiler pass over one search each of IVF_FLAT (the int8
-   scan), IVF_PQ (the ADC scan at its real shape) and IVF_SQ8 FAST (the
-   int8 scan over u8 codes), after every timed search: device ms per
-   kernel, device busy and idle share;
-12. print the kernel summary (each kernel's time, plain-version time and
-   bound), the card line, and the contract line {"ok": true, "device":
-   {...}} last.
+   scan), IVF_PQ (the ADC scan at its real shape, with its task count, the
+   share of empty tasks and the share of padded query rows in the others)
+   and IVF_SQ8 FAST (the int8 scan over u8 codes), after every timed
+   search: device ms per kernel, device busy and idle share;
+12. print the reproducibility line (IVF_FLAT, IVF_PQ and GIST IVF_PQ
+   recall, the ADC task count of one IVF_PQ search: two processes on the
+   same seeds print the same), the kernel summary (each kernel's time,
+   plain-version time and bound), the card line, and the contract line
+   {"ok": true, "device": {...}} last.
 
 Kernel launch counters are zeroed right before each of phases 4-10 and read
 right after it; every kernel must have launched on its path.
@@ -483,7 +489,7 @@ def _adc_run(args, kk, is_l2, nib, tol=(ADC_RTOL, ADC_ATOL, ADC_POS_AGREE), **de
     return _run_case(
         "ivf_adc_scan", adc_cuda.adc_scan_tasks, adc_cuda.adc_scan_plain, args,
         dict(B=512, kk=kk, is_l2=is_l2, nib=nib), *tol, (nbytes, ops), sentinels=True,
-        tasks=n_tasks, d=d, m=m, ksub=ksub, nib=nib, empty_tasks=n_tasks - n_live, **desc,
+        tasks=n_tasks, d=d, m=m, ksub=ksub, sub=sub, nib=nib, empty_tasks=n_tasks - n_live, **desc,
     )
 
 
@@ -506,47 +512,99 @@ def _adc_grid(g, dev, m, ksub, sub, d, nlist, n_tasks, Qg, n_codes):
     return q, books, clut.float().reshape(nlist, m * ksub).to(torch.bfloat16), cents, codes
 
 
-def check_adc_kernel(dev):
-    """ivf_adc_scan against adc_scan_plain: the main path's shape (4096 tasks,
-    Qg=128, d=128, m=16, ksub=256; also with a quarter of the tasks empty,
-    and on the exact tie grid with every score and position equal), the
-    4-bit nibble layout (m=64, ksub=16) and the GIST shape (d=1024, m=96,
-    ksub=256, 512 tasks)."""
+# check_adc_kernel's shapes: (n_tasks, n_blocks, d, m, sub, ksub, nib,
+# [(kk, mask, is_l2), ...], extras); extras adds the table shape with a
+# quarter of its tasks empty and the exact tie grid. GIST's m=96 codebooks
+# cover 960 of the 1024 padded columns; the last three shapes hold the other
+# widths the kernel compiles (sub 4 and 16) and its run-time width (sub 6).
+ADC_SHAPES = [
+    (4096, 2048, 128, 16, 8, 256, False, [(16, False, True), (32, True, True), (16, False, False)], True),
+    (4096, 2048, 128, 64, 2, 16, True, [(16, False, True)], False),
+    (512, 256, 1024, 96, 10, 256, False, [(16, False, True), (16, True, True)], False),
+    (512, 256, 128, 32, 4, 256, False, [(16, True, True)], False),
+    (512, 256, 128, 8, 16, 256, False, [(16, True, True)], False),
+    (512, 256, 128, 20, 6, 256, False, [(16, True, True), (32, False, False)], False),
+]
+
+
+def adc_cases(dev, shapes=ADC_SHAPES):
+    """check_adc_kernel's inputs, in order: yields (args, kk, is_l2, nib,
+    desc) for each case of each shape (seeded generators, so adc_ab.py
+    reproduces them)."""
     import torch
 
     g = torch.Generator(device=dev).manual_seed(1)
-    out = []
-    # (n_tasks, n_blocks, d, m, sub, ksub, nib, [(kk, mask, is_l2), ...]);
-    # GIST's m=96 codebooks cover 960 of the 1024 padded columns
-    shapes = [
-        (4096, 2048, 128, 16, 8, 256, False, [(16, False, True), (32, True, True), (16, False, False)]),
-        (4096, 2048, 128, 64, 2, 16, True, [(16, False, True)]),
-        (512, 256, 1024, 96, 10, 256, False, [(16, False, True), (16, True, True)]),
-    ]
-    for n_tasks, n_blocks, d, m, sub, ksub, nib, cases in shapes:
+    for n_tasks, n_blocks, d, m, sub, ksub, nib, cases, extras in shapes:
         blk, nrows, lids, q, books, clut, cents, nb_pad = _adc_case(g, dev, n_tasks, n_blocks, 128, d, m, sub, ksub)
         mb = m // 2 if nib else m
         codes = torch.randint(0, 256 if nib else ksub, (nb_pad + 2048, mb), generator=g, device=dev,
                               dtype=torch.int32).to(torch.uint8)
         keep = torch.rand(nb_pad + 2048, generator=g, device=dev) < 0.5
         for kk, masked, is_l2 in cases:
-            args = (blk, nrows, lids, q, books, clut, cents, codes, keep if masked else None)
-            out.append(_adc_run(args, kk, is_l2, nib))
-        if nib or d != 128:
+            yield (blk, nrows, lids, q, books, clut, cents, codes, keep if masked else None), kk, is_l2, nib, {}
+        if not extras:
             continue
         # the table shape with a quarter of the tasks empty (own generators
         # from here: the later shapes keep their inputs)
         nrows_e = nrows.clone()
         nrows_e[::4] = 0
-        out.append(_adc_run((blk, nrows_e, lids, q, books, clut, cents, codes, keep), 32, True, nib, empty=True))
+        yield (blk, nrows_e, lids, q, books, clut, cents, codes, keep), 32, True, nib, {"empty": True}
         del nrows_e
         g2 = torch.Generator(device=dev).manual_seed(5)
-        grid = _adc_grid(g2, dev, m, ksub, sub, d, 1024, n_tasks, 128, nb_pad + 2048)
-        qg, books_g, clut_g, cents_g, codes_g = grid
+        qg, books_g, clut_g, cents_g, codes_g = _adc_grid(g2, dev, m, ksub, sub, d, 1024, n_tasks, 128, nb_pad + 2048)
         for kk, masked, is_l2 in [(32, True, True), (16, False, False)]:
             args = (blk, nrows, lids, qg, books_g, clut_g, cents_g, codes_g, keep if masked else None)
-            out.append(_adc_run(args, kk, is_l2, nib, tol=(0.0, 0.0, 1.0), ties=True))
-        del grid, qg, books_g, clut_g, cents_g, codes_g
+            yield args, kk, is_l2, nib, {"ties": True}
+        del qg, books_g, clut_g, cents_g, codes_g
+
+
+def check_adc_kernel(dev):
+    """ivf_adc_scan against adc_scan_plain on ADC_SHAPES: the main path's
+    shape (4096 tasks, Qg=128, d=128, m=16, ksub=256; also with a quarter of
+    the tasks empty, and on the exact tie grid with every score and position
+    equal), the 4-bit nibble layout (m=64, ksub=16), the GIST shape (d=1024,
+    m=96, ksub=256, 512 tasks) and the other compiled widths."""
+    out = []
+    for args, kk, is_l2, nib, desc in adc_cases(dev):
+        tol = (0.0, 0.0, 1.0) if desc.get("ties") else (ADC_RTOL, ADC_ATOL, ADC_POS_AGREE)
+        out.append(_adc_run(args, kk, is_l2, nib, tol=tol, **desc))
+    return out
+
+
+def check_lloyd_repro(dev, xb: np.ndarray, k=1024, m=16, ksub=256, reps=2) -> dict:
+    """The device build's Lloyd sums add in a fixed order: one k-means step
+    (ops/kmeans._lloyd_step) at the IVF build's shape (262,144 x 128 rows,
+    k=1024) and PQ's batched step (ops/quant._pq_lloyd_batched) at SIFT's
+    codebook shape (m=16, ksub=256, 65,536 rows of 8 features, two
+    iterations) run twice each on the same inputs and must give the same
+    bits. Also their wall ms (host clock around a synchronised call)."""
+    import torch
+
+    from knowhere_tpu_torch.ops import kmeans, quant
+
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(np.ascontiguousarray(xb[: k * 256])).to(dev)
+    c0 = x[torch.from_numpy(rng.choice(x.shape[0], k, replace=False)).to(dev)]
+    xs = x[: ksub * 256].reshape(-1, m, x.shape[1] // m).transpose(0, 1).contiguous()
+    b0 = xs[:, torch.from_numpy(rng.choice(xs.shape[1], ksub, replace=False)).to(dev)]
+    out = {}
+    for name, fn in (
+        ("kmeans_step", lambda: kmeans._lloyd_step(x, c0, k=k)),
+        ("pq_lloyd", lambda: (quant._pq_lloyd_batched(xs, b0, ksub=ksub, n_iters=2, nc=2048),)),
+    ):
+        runs, times = [], []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs.append([r.clone() for r in fn()])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        same = all(torch.equal(a.view(torch.int32), b.view(torch.int32)) if a.dtype == torch.float32 else torch.equal(a, b)
+                   for run in runs[1:] for a, b in zip(runs[0], run))
+        out[name] = {"bit_equal": same, "ms": times}
+        if not same:
+            raise AssertionError(f"{name} gave other bits on the same inputs: {out}")
+    print("lloyd:", json.dumps(out))
     return out
 
 
@@ -987,24 +1045,36 @@ def late_profiles() -> dict:
 def _adc_task_share(fn) -> dict:
     """One more fn() with the search's ADC scan wrapped to count the tasks
     it launches and those with nrows == 0 (padding of the device task
-    builder's static bound, which the kernel skips). Outside the profiler
-    pass: the counts sync the host."""
+    builder's static bound, which the kernel skips), and its task builder
+    wrapped to count the query rows of the non-empty tasks and those that
+    are padding (qids < 0, scanned as query 0 and dropped by the merge).
+    Outside the profiler pass: the counts sync the host."""
     from knowhere_tpu_torch.ops import ivf_scan
 
-    real = ivf_scan.adc_scan_tasks
-    seen = {"adc_tasks": 0, "adc_empty_tasks": 0}
+    real, real_tasks = ivf_scan.adc_scan_tasks, ivf_scan._tasks
+    seen = {"adc_tasks": 0, "adc_empty_tasks": 0, "adc_live_query_rows": 0, "adc_padded_query_rows": 0}
 
     def counting(blk, nrows, *args, **kw):
         seen["adc_tasks"] += int(nrows.numel())
         seen["adc_empty_tasks"] += int((nrows <= 0).sum())
         return real(blk, nrows, *args, **kw)
 
-    ivf_scan.adc_scan_tasks = counting
+    def counting_tasks(*args, **kw):
+        out = real_tasks(*args, **kw)
+        if out is not None:
+            nr, qids = out[1], out[3]
+            live = nr > 0
+            seen["adc_live_query_rows"] += int(live.sum()) * qids.shape[1]
+            seen["adc_padded_query_rows"] += int(((qids < 0) & live[:, None]).sum())
+        return out
+
+    ivf_scan.adc_scan_tasks, ivf_scan._tasks = counting, counting_tasks
     try:
         fn()
     finally:
-        ivf_scan.adc_scan_tasks = real
+        ivf_scan.adc_scan_tasks, ivf_scan._tasks = real, real_tasks
     seen["adc_empty_share"] = seen["adc_empty_tasks"] / max(seen["adc_tasks"], 1)
+    seen["adc_padded_row_share"] = seen["adc_padded_query_rows"] / max(seen["adc_live_query_rows"], 1)
     return seen
 
 
@@ -1225,6 +1295,7 @@ def main() -> int:
     t0 = time.perf_counter()
     xb, xq = gen_corpus(1_000_000, 10_000, 128, seed=0)
     print(f"corpus 1000000 x 128, 10000 queries, made in {time.perf_counter() - t0:.2f} s")
+    lloyd = check_lloyd_repro(dev, xb)
     flat_checks = check_flat_kernel(dev, xb, xq)
     fused_checks = check_fused_kernel(dev, xb, xq)
 
@@ -1270,7 +1341,15 @@ def main() -> int:
     launches["fused_knn_scan"] = counts["fused_knn_scan"]
     gist_out, _ = _run_path("gist ivf_pq path", wrappers, ("ivf_adc_scan", "flat_group_scan"), lambda: gist_pq_path(kt))
     print("gist ivf_pq path:", json.dumps(gist_out))
-    print("late profiles:", json.dumps(late_profiles()))
+    profiles = late_profiles()
+    print("late profiles:", json.dumps(profiles))
+    # what a second process on the same seeds must reproduce: the device
+    # build is deterministic, so these equal from run to run
+    print("reproducibility:", json.dumps({
+        "ivf_flat_recall_at_10": e2e["recall_at_10"], "ivf_pq_recall_at_10": pq_out["pq_recall_at_10"],
+        "adc_tasks": profiles["pq_profile"]["adc_tasks"], "gist_pq_recall_at_10": gist_out["gist_pq_recall_at_10"],
+        "lloyd_bit_equal": all(v["bit_equal"] for v in lloyd.values()),
+    }))
     torch.cuda.synchronize()
 
     first = {name: lines[0] for name, lines in (

@@ -14,10 +14,12 @@ list's scan-frame centroid, masks rows past ``nrows`` and rows the keep-mask
 drops, and keeps the per-task top-kk with the reference's result contract
 (larger is better, -1e38 / -1 for empty slots, leftmost column on ties).
 
-``adc_scan_tasks`` launches the CUDA kernel (csrc/ivf_adc.cu) for CUDA
-tensors and counts the launch; for CPU tensors it runs ``adc_scan_plain``,
-the same math in torch ops, which the CPU tests hold against the Pallas
-kernels and the chip check holds the kernel against.
+``adc_scan_tasks`` launches the CUDA kernel (csrc/ivf_adc.cu: the LUT on the
+tensor cores) for CUDA tensors and counts the launch; for CPU tensors it
+runs ``adc_scan_plain``, the same math in torch ops, which the CPU tests hold
+against the Pallas kernels and the chip check holds the kernel against (the
+kernel's sums run in another order: an entry below 2 may round to the
+neighbouring bf16 value).
 
 Codes are row-major ``(nb_pad + slack, mb)`` uint8: mb = m, or m/2 with
 ``nib`` (ksub=16, byte j holds subspace j in its low nibble and j + m/2 in
@@ -40,18 +42,37 @@ _PLAIN_BYTES = 256 << 20
 SMEM_LIMIT = 232448
 
 
-def adc_smem_bytes(d: int, m: int, ksub: int, nib: bool) -> int:
+# queries a warp of the kernel scores (KW_ADC_QPW in csrc/ivf_adc.cu): a
+# group of 8 * ADC_QPW queries is the N of the LUT's products
+ADC_QPW = 2
+
+
+def adc_smem_bytes(m: int, ksub: int, sub: int, nib: bool) -> int:
     """Dynamic shared memory of one kernel block (mirrors ``adc_smem_bytes``
-    in csrc/ivf_adc.cu): the group's hi/lo queries and one LUT chunk, which
-    the selection's scratch (an f32 score and a u16 column for each row of
-    each warp's query) reuses, then the task's code block at a padded row
-    stride."""
-    G, lut_bytes = 8, 32 * 1024
-    mc = min(lut_bytes // (G * ksub * 2), m)
-    front = max(2 * G * d * 4 + G * mc * ksub * 2, G * LIST_ALIGN * 6)
+    in csrc/ivf_adc.cu). The front holds one chunk's query operand image
+    (64-row slabs of codewords, 64 / ksub subspaces a slab below ksub = 64;
+    K = the slab's subspaces' features padded to 16; 2G rows, f * hi and
+    f * lo of G = 8 * ADC_QPW queries), the group's LUT chunk in query pairs
+    (32 KB of bf16 entries, each pair's row padded to 8 words past a
+    multiple of 32) and the chunk's f32 rounding windows, one a subspace, or
+    the selection's scratch (8 warps x 512 f32 scores and u16 columns, 24
+    KB) where that is larger. Then come the code rows at an odd-word stride
+    and the task's bf16 clut row."""
+    G = 8 * ADC_QPW
+    kr = 1
+    while kr < ksub and kr < 64:
+        kr *= 2
+    P = 64 // kr
+    KS = -(-P * sub // 16) * 16
+    mc = min(max(32 * 1024 // (G * ksub * 2) // P * P, P), -(-m // P) * P)
+    ps = -(-mc * ksub // 32) * 32 + 8
+    windows = -(-mc * 4 // 16) * 16
+    front = max((mc // P) * KS * 2 * G * 2 + (G // 2) * ps * 4 + windows, 8 * LIST_ALIGN * 6)
+    front = -(-front // 16) * 16
     words = (((m // 2) if nib else m) + 3) // 4
     words += 1 - words % 2
-    return front + LIST_ALIGN * 4 * words
+    clut = -(-m * ksub * 2 // 16) * 16
+    return front + LIST_ALIGN * 4 * words + clut
 
 
 def compute_qlut(q: torch.Tensor, books: torch.Tensor, *, is_l2: bool) -> torch.Tensor:
@@ -148,10 +169,12 @@ def adc_scan_tasks(
         raise ValueError("ADC scan: lids (Tc,), cents (nlist, d), clut (nlist, m*ksub)")
     if any(t.device != q_task.device for t in (lids, books, clut, cents)):
         raise ValueError("ADC scan inputs must share one CUDA device")
-    if adc_smem_bytes(d, m, ksub, nib) > SMEM_LIMIT:
-        raise ValueError(f"ADC scan: d={d}, m={m} needs more shared memory than a block has")
+    if adc_smem_bytes(m, ksub, sub, nib) > SMEM_LIMIT:
+        raise ValueError(f"ADC scan: m={m}, ksub={ksub}, sub={sub} needs more shared memory than a block has")
     blk, nrows, lids = blk.int().contiguous(), nrows.int().contiguous(), lids.int().contiguous()
     q_task, books, clut = q_task.contiguous(), books.contiguous(), clut.contiguous()
+    if books.data_ptr() % 16:  # the kernel reads codewords 16 bytes at a time
+        books = books.clone()
     cents, codes = cents.contiguous(), codes.contiguous()
     keep_u8 = keep.contiguous().view(torch.uint8) if keep is not None else None
     out_s = torch.empty((Tc, Qg, kk), dtype=torch.float32, device=q_task.device)

@@ -552,8 +552,8 @@ def adc_available(store: dict, d: int, k: int, offsets: np.ndarray) -> bool:
     whose shared memory fits."""
     if "books" not in store or d % 128 != 0 or k < 1 or not _aligned(offsets):
         return False
-    m, ksub, _ = store["books"].shape
-    return adc_smem_bytes(d, m, ksub, _nib(store)) <= SMEM_LIMIT
+    m, ksub, sub = store["books"].shape
+    return adc_smem_bytes(m, ksub, sub, _nib(store)) <= SMEM_LIMIT
 
 
 def sq_available(d: int, code_dim: int, k: int, offsets: np.ndarray, sq_levels: int, sq_packed4: bool,

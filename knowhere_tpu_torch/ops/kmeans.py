@@ -5,7 +5,8 @@ Random-sample init, Lloyd iterations with empty-cluster reseeding and
 training-set subsampling (max_points_per_centroid, faiss default 256). The
 host RNG is numpy seeded with ``seed=1234`` as in the reference, so the
 subsample and the initial centroids match it; assignments are exact argmin
-over full-f32 products.
+over full-f32 products. The Lloyd sums are one-hot products, which add in
+a fixed order on every device (see :func:`cluster_sums`).
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ import torch
 from ..device import to_device
 
 ASSIGN_CHUNK = 131072
+# bytes of the f32 one-hot block of one cluster_sums product
+ONEHOT_BYTES = 1 << 27
 
 
 def _assign_block(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
@@ -35,12 +38,27 @@ def _assign_block(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
     return torch.where(score == m, idx, big).min(dim=1).values.int()
 
 
+def cluster_sums(x: torch.Tensor, assign: torch.Tensor, k: int) -> torch.Tensor:
+    """(k, d) f32 sums of the rows of x (n, d) by cluster (assign (n,) in
+    [0, k)): onehot(assign)^T @ x in f32, over fixed row chunks. A matrix
+    product adds in a fixed order (TF32 is off, device.py), so the same
+    inputs give the same bits from run to run on the card too, where
+    index_add_ adds by atomics in no fixed order. The reference sums with
+    jax.ops.segment_sum (knowhere_tpu/ops/kmeans.py)."""
+    n, d = x.shape
+    nc = max(1, ONEHOT_BYTES // (4 * k))
+    cols = torch.arange(k, device=x.device)
+    sums = torch.zeros((k, d), dtype=torch.float32, device=x.device)
+    for i0 in range(0, n, nc):
+        onehot = (assign[i0 : i0 + nc, None] == cols[None, :]).float()
+        sums.addmm_(onehot.T, x[i0 : i0 + nc].float())
+    return sums
+
+
 def _lloyd_step(x: torch.Tensor, centroids: torch.Tensor, *, k: int):
     """One Lloyd iteration: returns (new_centroids, counts)."""
     assign = _assign_block(x, centroids).long()
-    x32 = x.float()
-    sums = torch.zeros((k, x.shape[1]), dtype=torch.float32, device=x.device)
-    sums.index_add_(0, assign, x32)
+    sums = cluster_sums(x, assign, k)
     counts = torch.bincount(assign, minlength=k).float()
     new_c = sums / torch.clamp(counts, min=1.0)[:, None]
     new_c = torch.where((counts == 0)[:, None], centroids.float(), new_c)

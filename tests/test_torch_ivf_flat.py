@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 import knowhere_tpu as kt
@@ -209,6 +210,34 @@ def test_kmeans_lloyd_step_matches_jax(corpus):
     np.testing.assert_array_equal(assign_t, assign_j)
     np.testing.assert_array_equal(counts_t.numpy(), np.asarray(counts_j))
     np.testing.assert_allclose(new_t.numpy(), np.asarray(new_j), atol=1e-5)
+
+
+@pytest.mark.parametrize("onehot_bytes", [tkmeans.ONEHOT_BYTES, 64 << 10])
+def test_cluster_sums_fixed_order(corpus, monkeypatch, onehot_bytes):
+    """The Lloyd sums are one-hot products over fixed row chunks (one chunk,
+    and many with a 64 KB one-hot block): the centroids they give (sum /
+    count) within 1e-5 of index_add_'s and of the reference's
+    jax.ops.segment_sum's, and the same bits on a second call (on the card
+    index_add_ adds by atomics in no fixed order; a product does not)."""
+    monkeypatch.setattr(tkmeans, "ONEHOT_BYTES", onehot_bytes)
+    xb = np.ascontiguousarray(corpus[0][:4096], dtype=np.float32)
+    assign = np.random.default_rng(5).integers(0, NLIST, len(xb))
+    x, a = torch.from_numpy(xb), torch.from_numpy(assign)
+    counts = np.bincount(assign, minlength=NLIST).astype(np.float32)[:, None]
+    sums = tkmeans.cluster_sums(x, a, NLIST)
+    want = torch.zeros((NLIST, xb.shape[1])).index_add_(0, a, x)
+    np.testing.assert_allclose(sums.numpy() / counts, want.numpy() / counts, atol=1e-5)
+    seg = np.asarray(jax.ops.segment_sum(jnp.asarray(xb), jnp.asarray(assign), num_segments=NLIST))
+    np.testing.assert_allclose(sums.numpy() / counts, seg / counts, atol=1e-5)
+    assert torch.equal(tkmeans.cluster_sums(x, a, NLIST).view(torch.int32), sums.view(torch.int32))
+
+
+def test_kmeans_lloyd_step_repeats_bit_for_bit(corpus):
+    xb = torch.from_numpy(np.ascontiguousarray(corpus[0][:4096], dtype=np.float32))
+    cents = xb[np.random.default_rng(2).choice(len(xb), NLIST, replace=False)]
+    runs = [tkmeans._lloyd_step(xb, cents, k=NLIST) for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 def test_port_build_recall_at_equal_knob(corpus):

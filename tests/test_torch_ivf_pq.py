@@ -91,6 +91,26 @@ def test_pq_lloyd_step_matches_jax(corpus):
     np.testing.assert_allclose(c_t, c_j, atol=1e-5)
 
 
+def test_pq_lloyd_fixed_order(corpus):
+    """PQ's Lloyd sums are a batched one-hot product (the reference's own
+    formulation): one step within 1e-5 of the same step summed with
+    index_add_, and two iterations give the same bits on a second call."""
+    x = _residuals(corpus[0])
+    m, ksub, s = 16, 256, DIM // 16
+    xs = T(np.ascontiguousarray(x.reshape(-1, m, s).transpose(1, 0, 2)))
+    c0 = xs[:, np.random.default_rng(3).choice(xs.shape[1], ksub, replace=False), :]
+    got = tquant._pq_lloyd_batched(xs, c0, ksub=ksub, n_iters=1, nc=2048)
+    # the same step with index_add_ sums
+    a = torch.argmin((c0 * c0).sum(2)[:, None, :] - 2.0 * torch.bmm(xs, c0.transpose(1, 2)), 2)
+    flat = (a + (torch.arange(m) * ksub)[:, None]).reshape(-1)
+    sums = torch.zeros((m * ksub, s)).index_add_(0, flat, xs.reshape(-1, s)).view(m, ksub, s)
+    counts = torch.bincount(flat, minlength=m * ksub).float().view(m, ksub)
+    want = torch.where((counts == 0)[..., None], c0, sums / counts.clamp(min=1.0)[..., None])
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5)
+    runs = [tquant._pq_lloyd_batched(xs, c0, ksub=ksub, n_iters=2, nc=2048) for _ in range(2)]
+    assert torch.equal(runs[0].view(torch.int32), runs[1].view(torch.int32))
+
+
 def test_opq_train_matches_jax(corpus):
     """Same seed, same numpy subsample and SVD, codebooks equal to ~1e-6 per
     PQ step; but the corpus has intrinsic dimension 32, so x^T dec is rank
@@ -132,13 +152,13 @@ def test_compute_qlut_matches_jax():
 
 
 def _adc_inputs(rng, m, ksub, is_l2, nlist=4, d=DIM, Qg=16, nq=40):
-    sub = d // m
+    sub = d // m  # m * sub may fall short of d (the run-time width): columns past it are unused
     nb = nlist * LIST_ALIGN
     books = rng.standard_normal((m, ksub, sub)).astype(np.float32) * 0.3
     cents = rng.standard_normal((nlist, d)).astype(np.float32)
     codes = rng.integers(0, ksub, size=(nb, m)).astype(np.uint8)
     if is_l2:
-        c3 = cents.reshape(nlist, m, sub).astype(np.float64)
+        c3 = cents[:, : m * sub].reshape(nlist, m, sub).astype(np.float64)
         b64 = books.astype(np.float64)
         clut = (2.0 * np.einsum("lms,mvs->lmv", c3, b64) + np.sum(b64**2, -1)[None]).astype(np.float32)
     else:
@@ -153,9 +173,10 @@ def _adc_inputs(rng, m, ksub, is_l2, nlist=4, d=DIM, Qg=16, nq=40):
     return books, cents, codes, clut.reshape(nlist, m * ksub), blk, nrows, q[qids]
 
 
-def _books_bd(books):
+def _books_bd(books, d=DIM):
+    """The reference's (d, m * ksub) block-diagonal codebooks, zero rows past m * sub."""
     m, ksub, sub = books.shape
-    bd = np.zeros((m * sub, m * ksub), np.float32)
+    bd = np.zeros((d, m * ksub), np.float32)
     for i in range(m):
         bd[i * sub : (i + 1) * sub, i * ksub : (i + 1) * ksub] = books[i].T
     return jnp.asarray(bd).astype(jnp.bfloat16)
@@ -208,6 +229,12 @@ def _jax_adc(books, cents, codes, clut, blk, nrows, q_task, keep, *, kk, is_l2, 
         # 4-bit nibble layout: byte j = subspace j (low) | j + m/2 (high)
         (True, True, 16, 16, True, 10),
         (False, False, 16, 16, True, 32),
+        # the kernel's other compiled widths (sub 4 and 16) and its run-time
+        # width (sub 6: m * sub = 120 of the 128 columns)
+        (True, True, 32, 256, False, 16),
+        (True, True, 8, 256, False, 16),
+        (True, True, 20, 256, False, 16),
+        (False, False, 20, 256, False, 32),
     ],
 )
 def test_adc_plain_matches_pallas_adc(is_l2, masked, m, ksub, nib, kk):
@@ -303,21 +330,32 @@ def test_adc_available_drops_the_lut_cap():
     """The port's ADC kernel takes m * ksub past the TPU's 8192 cap (GIST
     m=96), and declines unaligned stores, d % 128 != 0 and shapes whose
     block does not fit the shared memory. adc_smem_bytes is the kernel's
-    figure: the hi/lo queries and the LUT chunk, or the selection's scratch
-    over them (8 warps x 512 f32 scores and u16 columns, 24 KB) where that
-    is larger, then the code rows at an odd-word stride."""
+    figure: the front (one chunk's query operand image, 2 x 16 rows of K =
+    16 a slab column; the group's LUT chunk, 8 query pairs of (chunk * ksub
+    + 8) words; the chunk's f32 windows, one a subspace), or the
+    selection's scratch (8 warps x 512 f32 scores and u16 columns, 24 KB)
+    where that is larger; then the code rows at an odd-word stride and the
+    task's bf16 clut row. The queries no longer sit in shared memory, so d
+    does not bound it."""
     aligned = np.arange(0, 5 * LIST_ALIGN, LIST_ALIGN)
     store = {"books": torch.zeros((96, 256, 10), dtype=torch.bfloat16), "codes": torch.zeros((8, 96), dtype=torch.uint8)}
     assert tscan.adc_available(store, 1024, 10, aligned)
     assert not tscan.adc_available(store, 960, 10, aligned)
     assert not tscan.adc_available(store, 1024, 10, aligned + 1)
-    assert tscan.adc_available(store, 2048, 10, aligned)  # 215,040 bytes
-    assert not tscan.adc_available(store, 3072, 10, aligned)  # 280,576 bytes
-    assert adc_cuda.adc_smem_bytes(128, 16, 256, False) == 8192 + 32768 + 512 * 20  # SIFT
-    assert adc_cuda.adc_smem_bytes(1024, 96, 256, False) == 65536 + 32768 + 512 * 100  # GIST
-    assert adc_cuda.adc_smem_bytes(128, 64, 16, True) == 8192 + 16384 + 512 * 36  # 4-bit nibbles
-    # a small LUT chunk (m=8, ksub=16: 2 KB) gives way to the scratch
-    assert adc_cuda.adc_smem_bytes(128, 8, 16, False) == 24576 + 512 * 12
+    assert tscan.adc_available(store, 2048, 10, aligned)
+    assert tscan.adc_available(store, 3072, 10, aligned)  # 137,488 bytes at any d
+    wide = {"books": torch.zeros((448, 256, 2), dtype=torch.bfloat16), "codes": torch.zeros((8, 448), dtype=torch.uint8)}
+    assert not tscan.adc_available(wide, 1024, 10, aligned)  # 512 x 452 code bytes + a 224 KB clut row
+    # SIFT: 4-subspace chunks of 4 slabs each
+    assert adc_cuda.adc_smem_bytes(16, 256, 8, False) == 4 * 16 * 32 * 2 + 8 * (4 * 256 + 8) * 4 + 16 + 512 * 20 + 16 * 256 * 2
+    # GIST: sub 10 pads K to 16
+    assert adc_cuda.adc_smem_bytes(96, 256, 10, False) == (
+        4 * 16 * 32 * 2 + 8 * (4 * 256 + 8) * 4 + 16 + 512 * 100 + 96 * 256 * 2
+    )
+    # 4-bit nibbles: four subspaces a slab, 64-subspace chunks
+    assert adc_cuda.adc_smem_bytes(64, 16, 2, True) == 16 * 16 * 32 * 2 + 8 * (64 * 16 + 8) * 4 + 256 + 512 * 36 + 64 * 16 * 2
+    # a small LUT chunk (m=8, ksub=16) gives way to the scratch
+    assert adc_cuda.adc_smem_bytes(8, 16, 2, False) == 24576 + 512 * 12 + 8 * 16 * 2
 
 
 # ---------------------------------------------------------------------------
