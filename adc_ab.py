@@ -8,30 +8,26 @@ printed, and ``cuobjdump -sass``'s count of tensor-core instructions in each
   as ``git archive`` of an earlier commit unpacked into a gitignored
   directory);
 - ``this``: this tree's ``ivf_adc.cu`` as the port builds it;
-- ``qpw1``, ``qpw2``, ``qpw4``: this tree's file built with
-  ``-DKW_ADC_QPW=N`` (N queries a warp, groups of 8 N queries), except the
-  default's N (``--variants``, a comma list; all three by default).
-
-With ``--profile`` this tree's libraries are built with
-``-DKW_ADC_PROFILE`` and each case line also carries, per library, the share
-of thread 0's clock64 cycles in each phase of a block (``csrc/ivf_adc.cu``),
-and the cycles a non-empty block takes, the non-empty blocks, and the LUT
-entries taken in the reference's order (``reference_entry``).
+- ``nofix``: a copy of this tree's file with the midpoint rewrite taken out
+  (no window pass in ``chunk_image``, no ``fix_marked``): every LUT entry is
+  the tensor cores' sum, rounded. It measures what the rewrite costs and
+  what it buys.
 
 It runs them on the inputs of ``chip_smoke.check_adc_kernel`` (same seeds),
 SIFT kk=32 unmasked, and with ``--real`` on the launches of one IVF_PQ
 search at chip_smoke's north-star configuration. Each case prints one JSON
 line: for each library, how many scores and positions differ from the other
-tree's kernel, the largest score difference, and whether it agrees within
-chip_smoke's ADC tolerance (scores within ADC_RTOL / ADC_ATOL, positions on
->= ADC_POS_AGREE of the slots, empty slots the same, each exactly (-1e38,
--1)) or, on the exact tie grid, bit for bit; then each library's median ms
-(CUDA events, in turns: forwards, then backwards). Exits 1 if a library of
-this tree misses that agreement anywhere.
+tree's kernel and from ``adc_scan_plain`` on the card, the largest score
+difference from each, and whether it agrees with each within chip_smoke's
+ADC tolerance (scores within ADC_RTOL / ADC_ATOL, positions on >=
+ADC_POS_AGREE of the slots, empty slots the same, each exactly (-1e38, -1))
+or, on the exact tie grid, bit for bit; then each library's median ms (CUDA
+events, in turns: forwards, then backwards). Exits 1 if this tree's kernel
+misses either agreement anywhere.
 
 Run from the repository root on the card:
 
-    python3 adc_ab.py --other .scratch/parent [--real] [--profile] [--variants qpw1,qpw4]
+    python3 adc_ab.py --other .scratch/parent [--real]
 """
 
 from __future__ import annotations
@@ -50,39 +46,26 @@ CSRC = ROOT / "knowhere_tpu_torch" / "csrc"
 OUT = ROOT / "build" / "adc_ab"
 CUDA_BIN = Path("/usr/local/cuda/bin")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-         "-Xptxas", "-v"]
-DEFAULT_QPW = re.compile(r"#define KW_ADC_QPW (\d+)")
-PHASES = ("start", "image", "lut", "lookups", "select")
-LUT_STEPS = ("lut_loads", "lut_issue", "lut_wait", "lut_epilogue")
+         "-Xptxas", "-v", "-I", str(CSRC)]
+# the edits that take the midpoint rewrite out of a copy of ivf_adc.cu
+NOFIX = (
+    ("  for (int jj = warp; jj < g.MC; jj += kAdcWarps) {", "  for (int jj = g.MC; jj < g.MC; jj += kAdcWarps) {"),
+    ("    win[e] = __uint_as_float(lds_u32(x.qn + 4 * (ok ? J - j0 : 0)));", "    win[e] = 0.f;"),
+    ("    if (mk) fix_marked<SUB>(mk, sl, x, g, books, clut_l, j0, ksub, sub, l2, lane);", "    (void)mk;"),
+)
 
 
-VARIANTS = {"qpw1": ["-DKW_ADC_QPW=1"], "qpw2": ["-DKW_ADC_QPW=2"], "qpw4": ["-DKW_ADC_QPW=4"]}
-
-
-def sources(other: Path, variants: list, profile: bool) -> dict:
-    """name -> (source file, extra nvcc flags)."""
+def sources(other: Path) -> dict:
+    """name -> source file; the nofix copy is written into OUT."""
     src = CSRC / "ivf_adc.cu"
-    found = DEFAULT_QPW.search(src.read_text())
-    prof = ["-DKW_ADC_PROFILE"] if profile else []
-    srcs = {"other": (other / "knowhere_tpu_torch" / "csrc" / "ivf_adc.cu", []), "this": (src, prof)}
-    for name in variants:
-        if found is None or name != f"qpw{found.group(1)}":
-            srcs[name] = (src, VARIANTS[name] + prof)
-    return srcs
-
-
-def take_profile(lib):
-    """The phase sums of a KW_ADC_PROFILE build since the last call (None
-    for another build): each phase's share and the cycles a block."""
-    if not hasattr(lib, "kw_adc_prof_take"):
-        return None
-    out = (ctypes.c_ulonglong * 11)()
-    if lib.kw_adc_prof_take(out) != 0:
-        raise RuntimeError("kw_adc_prof_take failed")
-    total = sum(out[:5]) or 1
-    return {**{p: round(out[i] / total, 4) for i, p in enumerate(PHASES)},
-            **{p: round(out[6 + i] / total, 4) for i, p in enumerate(LUT_STEPS)},
-            "cycles_per_block": total / max(out[5], 1), "blocks": out[5], "reference_entries": out[10]}
+    text = src.read_text()
+    for old, new in NOFIX:
+        if text.count(old) != 1:
+            raise SystemExit(f"adc_ab: the nofix edit no longer applies: {old!r}")
+        text = text.replace(old, new)
+    OUT.mkdir(parents=True, exist_ok=True)
+    (OUT / "nofix.cu").write_text(text)
+    return {"other": other / "knowhere_tpu_torch" / "csrc" / "ivf_adc.cu", "this": src, "nofix": OUT / "nofix.cu"}
 
 
 def tensor_core_counts(so: Path) -> dict:
@@ -103,10 +86,9 @@ def tensor_core_counts(so: Path) -> dict:
 
 
 def build(srcs: dict) -> dict:
-    OUT.mkdir(parents=True, exist_ok=True)
-    procs = {name: subprocess.Popen([str(CUDA_BIN / "nvcc"), *FLAGS, *extra, "-o", str(OUT / f"{name}.so"), str(src)],
+    procs = {name: subprocess.Popen([str(CUDA_BIN / "nvcc"), *FLAGS, "-o", str(OUT / f"{name}.so"), str(src)],
                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-             for name, (src, extra) in srcs.items()}
+             for name, src in srcs.items()}
     libs = {}
     for name, p in procs.items():
         _, err = p.communicate()
@@ -142,8 +124,8 @@ def launch(lib, args, kk, is_l2, nib):
 
 
 def agreement(s, p, ref_s, ref_p, exact: bool) -> dict:
-    """How (s, p) differ from the other tree's (ref_s, ref_p), and whether
-    they agree as chip_smoke holds the kernel to its plain version."""
+    """How (s, p) differ from (ref_s, ref_p), and whether they agree as
+    chip_smoke holds the kernel to its plain version."""
     import torch
 
     import chip_smoke
@@ -164,31 +146,24 @@ def compare(libs, name, args, kk, is_l2, nib, reps=10, ties=False, **desc):
     import torch
 
     import chip_smoke
+    from knowhere_tpu_torch.ops import adc_cuda
 
     args = tuple(None if a is None else a.contiguous() for a in args)
-    for lib in libs.values():
-        take_profile(lib)
-    res = {}
-    for n, lib in libs.items():
-        res[n] = launch(lib, args, kk, is_l2, nib)
-        torch.cuda.synchronize()
-        prof = take_profile(lib)
-        if prof is not None:
-            desc[f"{n}_profile"] = prof
-    ref_s, ref_p = res["other"]
+    res = {n: launch(lib, args, kk, is_l2, nib) for n, lib in libs.items()}
+    plain = adc_cuda.adc_scan_plain(*args, B=512, kk=kk, is_l2=is_l2, nib=nib)
+    torch.cuda.synchronize()
     m, ksub, sub = args[4].shape
     line = dict(case=name, m=m, ksub=ksub, sub=sub, kk=kk, is_l2=is_l2, nib=nib, mask=args[-1] is not None,
-                ties=ties, slots=ref_p.numel(), empty_tasks=int((args[1] <= 0).sum()), **desc)
+                ties=ties, slots=plain[1].numel(), empty_tasks=int((args[1] <= 0).sum()), **desc)
     for n, (s, p) in res.items():
         if n != "other":
-            line.update({f"{n}_{k}": v for k, v in agreement(s, p, ref_s, ref_p, ties).items()})
+            line.update({f"{n}_{k}": v for k, v in agreement(s, p, *res["other"], ties).items()})
+        line.update({f"{n}_plain_{k}": v for k, v in agreement(s, p, *plain, ties).items()})
     times = {n: [] for n in libs}
     for n in list(libs) + list(libs)[::-1]:
         times[n].append(chip_smoke.time_ms(lambda n=n: launch(libs[n], args, kk, is_l2, nib), reps=reps))
     line.update({f"{n}_ms": t for n, t in times.items()})
     print("adc_ab", json.dumps(line), flush=True)
-    for lib in libs.values():
-        take_profile(lib)
     return line
 
 
@@ -250,8 +225,6 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", type=Path, required=True, help="root of the other tree (a checkout)")
     ap.add_argument("--real", action="store_true", help="also the launches of one real IVF_PQ search")
-    ap.add_argument("--profile", action="store_true", help="build with KW_ADC_PROFILE and print phase shares")
-    ap.add_argument("--variants", default="qpw1,qpw2,qpw4", help="comma list of " + ", ".join(VARIANTS))
     a = ap.parse_args()
     if not torch.cuda.is_available():
         print("adc_ab: no CUDA device", file=sys.stderr)
@@ -259,14 +232,13 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
-    libs = build(sources(a.other.resolve(), [v for v in a.variants.split(",") if v], a.profile))
+    libs = build(sources(a.other.resolve()))
     lines = table_cases(libs) + (real_launches(libs) if a.real else [])
-    ok = True
     for n in libs:
-        if n != "other":
-            agree = all(ln[f"{n}_ok"] for ln in lines)
-            ok = ok and agree
-            print(f"adc_ab: {n} agrees with other on every case:", agree)
+        for ref in (("other", "plain") if n != "other" else ("plain",)):
+            key = f"{n}_ok" if ref == "other" else f"{n}_plain_ok"
+            print(f"adc_ab: {n} agrees with {ref} on every case:", all(ln[key] for ln in lines))
+    ok = all(ln["this_ok"] and ln["this_plain_ok"] for ln in lines)
     return 0 if ok else 1
 
 

@@ -13,9 +13,8 @@ Run from the root of a checkout on a machine with one CUDA GPU. In order:
    heavy-tie corpus, every position equal; the f32 scan also at the HNSW
    build's per-launch shape, 8,192 tasks at kk=32; FLAT phase 1 also as its
    group-max and select launches apart, beside an f32 yardstick; the ADC
-   scan at every width it compiles); then run the device build's Lloyd
-   steps (a k-means step at the IVF build's shape, PQ's batched step at
-   SIFT's codebook shape) twice each on the same inputs: the same bits;
+   scan at every width it compiles, and its shared-memory figure against
+   the wrapper's);
 4. run the main path through the public API on the SIFT1M-like corpus
    (1M x 128 f32, 10,000 queries, seed 0): FLAT exact ground truth, its
    first 1,000 queries' ids held against an independent full-f32 answer
@@ -58,11 +57,16 @@ Run from the root of a checkout on a machine with one CUDA GPU. In order:
    1024 and nprobe=32 instead of 384 (refine_k=32), all cut for chip time;
    FLAT ground truth on that corpus, FAST recall within 0.01 of EXACT;
 11. one torch-profiler pass over one search each of IVF_FLAT (the int8
-   scan), IVF_PQ (the ADC scan at its real shape, with its task count, the
-   share of empty tasks and the share of padded query rows in the others)
-   and IVF_SQ8 FAST (the int8 scan over u8 codes), after every timed
-   search: device ms per kernel, device busy and idle share;
-12. print the reproducibility line (IVF_FLAT, IVF_PQ and GIST IVF_PQ
+   scan), IVF_PQ (the ADC scan at its real shape) and IVF_SQ8 FAST (the
+   int8 scan over u8 codes), after every timed search: device ms per
+   kernel, device busy and idle share; then one more IVF_PQ search whose
+   ADC launch is held against its plain version on the same inputs, with
+   its task count, the share of empty tasks and the share of padded query
+   rows in the others;
+12. run the device build's Lloyd steps (a k-means step at the IVF build's
+   shape, PQ's batched step at SIFT's codebook shape) twice each on the
+   same inputs: the same bits;
+13. print the reproducibility line (IVF_FLAT, IVF_PQ and GIST IVF_PQ
    recall, the ADC task count of one IVF_PQ search: two processes on the
    same seeds print the same), the kernel summary (each kernel's time,
    plain-version time and bound), the card line, and the contract line
@@ -243,30 +247,40 @@ def _dot_ops(three_pass: bool, dots: int, f32_ops: int) -> dict:
     return ops
 
 
+def _agreement(s_k, p_k, s_p, p_p, rtol, atol, pos_agree, sentinels) -> dict:
+    """A kernel's (scores, positions) against its plain version's: scores
+    within rtol/atol, positions on >= pos_agree of the slots; with
+    sentinels, also the empty slots: the same slots, each exactly (-1e38,
+    -1)."""
+    import torch
+
+    out = {"max_abs_err": (s_k - s_p).abs().max().item(), "pos_agree": (p_k == p_p).float().mean().item()}
+    ok = torch.allclose(s_k, s_p, rtol=rtol, atol=atol) and out["pos_agree"] >= pos_agree
+    if sentinels:
+        empty = p_p == -1
+        out["empty_slots"] = int(empty.sum())
+        ok = ok and bool(torch.equal(p_k == -1, empty) and (s_k[empty] == -1e38).all() and (s_p[empty] == -1e38).all())
+    out["ok"] = bool(ok)
+    return out
+
+
 def _run_case(name, kernel, plain, args, kw, rtol, atol, pos_agree, work, reps=5, sentinels=False, **desc):
     """Run one kernel case and its plain version on the same inputs, time
-    both, compare (scores within rtol/atol, positions on >= pos_agree of
-    slots; with sentinels, also the empty slots: the same slots, each
-    exactly (-1e38, -1)) and raise on disagreement. work = (bytes, ops) for
-    the bound."""
+    both, compare (_agreement) and raise on disagreement. work = (bytes,
+    ops) for the bound."""
     import torch
 
     s_k, p_k = kernel(*args, **kw)
     s_p, p_p = plain(*args, **kw)
     torch.cuda.synchronize()
-    err = (s_k - s_p).abs().max().item()
-    ok = torch.allclose(s_k, s_p, rtol=rtol, atol=atol)
-    pos_eq = (p_k == p_p).float().mean().item()
-    if sentinels:
-        empty = p_p == -1
-        desc["empty_slots"] = int(empty.sum())
-        ok = ok and bool(torch.equal(p_k == -1, empty) and (s_k[empty] == -1e38).all() and (s_p[empty] == -1e38).all())
+    agree = _agreement(s_k, p_k, s_p, p_p, rtol, atol, pos_agree, sentinels)
+    ok = agree.pop("ok")
     ms = time_ms(lambda: kernel(*args, **kw), reps=reps)
     plain_ms = time_ms(lambda: plain(*args, **kw), reps=3)
-    line = dict(desc, kk=kw["kk"], mask=args[-1] is not None, is_l2=kw["is_l2"], max_abs_err=err,
-                pos_agree=pos_eq, ms=ms, plain_ms=plain_ms, **bound(*work))
+    line = dict(desc, kk=kw["kk"], mask=args[-1] is not None, is_l2=kw["is_l2"], **agree, ms=ms,
+                plain_ms=plain_ms, **bound(*work))
     print(name, json.dumps(line))
-    if not ok or pos_eq < pos_agree:
+    if not ok:
         raise AssertionError(f"{name} disagrees with its plain version: {line}")
     return line
 
@@ -563,7 +577,15 @@ def check_adc_kernel(dev):
     shape (4096 tasks, Qg=128, d=128, m=16, ksub=256; also with a quarter of
     the tasks empty, and on the exact tie grid with every score and position
     equal), the 4-bit nibble layout (m=64, ksub=16), the GIST shape (d=1024,
-    m=96, ksub=256, 512 tasks) and the other compiled widths."""
+    m=96, ksub=256, 512 tasks) and the other compiled widths. First the
+    wrapper's shared-memory figure (adc_cuda.adc_smem_bytes, which decides
+    the search's route) against the kernel's own at each shape."""
+    from knowhere_tpu_torch.ops import adc_cuda, cuda_build
+
+    for _, _, _, m, sub, ksub, nib, _, _ in ADC_SHAPES:
+        want = cuda_build.lib().kw_ivf_adc_smem_bytes(m, ksub, sub, int(nib))
+        if adc_cuda.adc_smem_bytes(m, ksub, sub, nib) != want:
+            raise AssertionError(f"adc_smem_bytes({m}, {ksub}, {sub}, {nib}) differs from the kernel's {want}")
     out = []
     for args, kk, is_l2, nib, desc in adc_cases(dev):
         tol = (0.0, 0.0, 1.0) if desc.get("ties") else (ADC_RTOL, ADC_ATOL, ADC_POS_AGREE)
@@ -932,8 +954,9 @@ def pq_path(kt, xb, xq, gt, flat):
     """IVF_PQ at the north-star configuration through the public API."""
     pq, ids, out = _serve(kt, "IVF_PQ", "pq", xb, xq, gt, IVF_PQ_BUILD, IVF_PQ_SEARCH, PQ_RECALL_FLOOR)
     out["pq_tpu_anchor_recall_at_10"] = PQ_TPU_ANCHOR  # the reference's, not the port's
-    # ivf_adc_scan at its real shape, and the share of its tasks that are empty
-    _profile_later("pq_profile", lambda idx=pq: _search(idx, kt, xq, IVF_PQ_SEARCH), _adc_task_share)
+    # ivf_adc_scan at its real shape, held against its plain version there,
+    # and the share of its tasks that are empty
+    _profile_later("pq_profile", lambda idx=pq: _search(idx, kt, xq, IVF_PQ_SEARCH), _adc_real_launch)
     out.update(_filtered_and_round_trip(kt, "IVF_PQ", "pq", pq, ids, xb, xq, flat, IVF_PQ_SEARCH)[0])
     out["pq_exact_recall_1k"], out["pq_fast_recall_1k"] = _exact_vs_fast(
         kt, pq, xq[:1000], gt[:1000], IVF_PQ_SEARCH
@@ -1042,22 +1065,27 @@ def late_profiles() -> dict:
     return out
 
 
-def _adc_task_share(fn) -> dict:
-    """One more fn() with the search's ADC scan wrapped to count the tasks
-    it launches and those with nrows == 0 (padding of the device task
-    builder's static bound, which the kernel skips), and its task builder
-    wrapped to count the query rows of the non-empty tasks and those that
-    are padding (qids < 0, scanned as query 0 and dropped by the merge).
+def _adc_real_launch(fn) -> dict:
+    """One more fn() with the search's ADC scan wrapped: each launch's
+    output is held against adc_scan_plain on the same inputs at the ADC
+    tolerance, with every empty slot exactly (-1e38, -1); its tasks and
+    those with nrows == 0 (padding of the device task builder's static
+    bound, which the kernel skips) are counted. Its task builder is wrapped
+    to count the query rows of the non-empty tasks and those that are
+    padding (qids < 0, scanned as query 0 and dropped by the merge).
     Outside the profiler pass: the counts sync the host."""
-    from knowhere_tpu_torch.ops import ivf_scan
+    import torch
+
+    from knowhere_tpu_torch.ops import adc_cuda, ivf_scan
 
     real, real_tasks = ivf_scan.adc_scan_tasks, ivf_scan._tasks
     seen = {"adc_tasks": 0, "adc_empty_tasks": 0, "adc_live_query_rows": 0, "adc_padded_query_rows": 0}
+    calls = []
 
-    def counting(blk, nrows, *args, **kw):
-        seen["adc_tasks"] += int(nrows.numel())
-        seen["adc_empty_tasks"] += int((nrows <= 0).sum())
-        return real(blk, nrows, *args, **kw)
+    def capturing(*args, **kw):
+        out = real(*args, **kw)
+        calls.append((args, kw, tuple(o.clone() for o in out)))
+        return out
 
     def counting_tasks(*args, **kw):
         out = real_tasks(*args, **kw)
@@ -1068,11 +1096,25 @@ def _adc_task_share(fn) -> dict:
             seen["adc_padded_query_rows"] += int(((qids < 0) & live[:, None]).sum())
         return out
 
-    ivf_scan.adc_scan_tasks, ivf_scan._tasks = counting, counting_tasks
+    ivf_scan.adc_scan_tasks, ivf_scan._tasks = capturing, counting_tasks
     try:
         fn()
     finally:
         ivf_scan.adc_scan_tasks, ivf_scan._tasks = real, real_tasks
+    checks = []
+    for args, kw, (s_k, p_k) in calls:
+        seen["adc_tasks"] += int(args[1].numel())
+        seen["adc_empty_tasks"] += int((args[1] <= 0).sum())
+        s_p, p_p = adc_cuda.adc_scan_plain(*args, **kw)
+        torch.cuda.synchronize()
+        agree = _agreement(s_k, p_k, s_p, p_p, ADC_RTOL, ADC_ATOL, ADC_POS_AGREE, True)
+        agree["scores_differing"] = int((s_k.view(torch.int32) != s_p.view(torch.int32)).sum())
+        checks.append(agree)
+        if not agree["ok"]:
+            raise AssertionError(f"ivf_adc_scan disagrees with its plain version on the real IVF_PQ launch: {agree}")
+    if not calls:
+        raise AssertionError("the IVF_PQ search launched no ADC scan")
+    seen["adc_vs_plain"] = checks
     seen["adc_empty_share"] = seen["adc_empty_tasks"] / max(seen["adc_tasks"], 1)
     seen["adc_padded_row_share"] = seen["adc_padded_query_rows"] / max(seen["adc_live_query_rows"], 1)
     return seen
@@ -1295,7 +1337,6 @@ def main() -> int:
     t0 = time.perf_counter()
     xb, xq = gen_corpus(1_000_000, 10_000, 128, seed=0)
     print(f"corpus 1000000 x 128, 10000 queries, made in {time.perf_counter() - t0:.2f} s")
-    lloyd = check_lloyd_repro(dev, xb)
     flat_checks = check_flat_kernel(dev, xb, xq)
     fused_checks = check_fused_kernel(dev, xb, xq)
 
@@ -1343,6 +1384,9 @@ def main() -> int:
     print("gist ivf_pq path:", json.dumps(gist_out))
     profiles = late_profiles()
     print("late profiles:", json.dumps(profiles))
+    # after every timed search: its steps' large blocks do not share a
+    # process with them
+    lloyd = check_lloyd_repro(dev, xb)
     # what a second process on the same seeds must reproduce: the device
     # build is deterministic, so these equal from run to run
     print("reproducibility:", json.dumps({

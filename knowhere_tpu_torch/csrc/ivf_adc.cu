@@ -30,7 +30,7 @@
 // past nrows are skipped by a warp-uniform bound; the list's clut row goes
 // beside them.
 //
-// Queries go in groups of G = 8 * kAdcQPW, kAdcQPW a warp. A group's LUT is
+// Queries go in groups of G = 16, two a warp. A group's LUT is
 // built a chunk of subspaces at a time on the tensor cores, as the TPU
 // kernel builds it on its matrix unit (q_hi @ books_bd and q_lo @ books_bd,
 // ivf_pallas.py:587-593): one bf16 wgmma with f32 accumulators a 64-row
@@ -83,59 +83,17 @@
 #include "topk_common.cuh"
 #include "wgmma_common.cuh"
 
-// queries a warp scores: the build's default; adc_ab.py builds the other
-// group sizes beside it
-#ifndef KW_ADC_QPW
-#define KW_ADC_QPW 2
-#endif
-
 namespace kw {
-
-// KW_ADC_PROFILE (adc_ab.py --profile): thread 0 of every non-empty block
-// adds the clock64 cycles between the block's barriers to the phase that
-// ends at each (0 staging and the first group's start, 1 the first chunk's
-// image and <q, c>, 2 the LUT products and epilogue, 3 the lookups and the
-// next chunk's image, 4 the selection), and slot 5 counts the blocks;
-// inside the LUT phase, slots 6-9 split thread 0's cycles into a slab's
-// fragment loads, its product issue, the wait for the products, and the
-// epilogue; slot 10 counts the entries taken in the reference's order
-// (reference_entry).
-// kw_adc_prof_take copies the sums out and clears them.
-#ifdef KW_ADC_PROFILE
-__device__ unsigned long long kw_adc_prof[11];
-#define KW_ADC_LAP(slot, t)                                                             \
-  do {                                                                                   \
-    if (threadIdx.x == 0) {                                                              \
-      const long long now_ = clock64();                                                  \
-      atomicAdd(&kw_adc_prof[slot], (unsigned long long)(now_ - t));                     \
-      t = now_;                                                                          \
-    }                                                                                    \
-  } while (0)
-#define KW_ADC_PROF_START long long prof_t = clock64()
-#define KW_ADC_PROF(slot)                                                                \
-  do {                                                                                   \
-    if (threadIdx.x == 0) {                                                              \
-      const long long now_ = clock64();                                                  \
-      atomicAdd(&kw_adc_prof[slot], (unsigned long long)(now_ - prof_t));                \
-      prof_t = now_;                                                                     \
-    }                                                                                    \
-  } while (0)
-#else
-#define KW_ADC_PROF_START
-#define KW_ADC_PROF(slot)
-#define KW_ADC_LAP(slot, t)
-#endif
 
 constexpr int kAdcWarps = 8;                 // warps per task block
 constexpr int kAdcThreads = kAdcWarps * 32;
-constexpr int kAdcQPW = KW_ADC_QPW;          // queries a warp scores
+constexpr int kAdcQPW = 2;                   // queries a warp scores: one LUT word holds both
 constexpr int kAdcG = kAdcWarps * kAdcQPW;   // queries per group: the wgmma's N is 2G (hi, lo)
 constexpr int kAdcNJ = kB / 32;              // rows a lane scores: lane + 32 j
 constexpr int kAdcLutBytes = 32 * 1024;      // LUT chunk of one group, bf16 (before padding)
 constexpr int kAdcSelBytes = kAdcWarps * kB * 6;  // warp_topk_select's scratch, every warp
 constexpr int kAdcMinBlocks = 2;             // blocks an SM (__launch_bounds__): 128 registers a thread
 constexpr int kAdcImgRows = 2 * kAdcG;       // operand image rows: f hi and f lo of each query
-static_assert(kAdcQPW == 1 || kAdcQPW == 2 || kAdcQPW == 4, "a warp scores 1, 2 or 4 queries");
 
 // shared-memory row stride of the code block: bytes, an odd number of words
 __host__ __device__ __forceinline__ int adc_code_stride(int mb) {
@@ -457,9 +415,6 @@ struct AdcLutCtx {
   uint32_t lut, qn, img;  // shared addresses: the LUT chunk, the windows, the operand image
   int steps, ps4, q0;       // q0: this thread's first LUT word, (lane % 4) * PS
   int r0;                   // this thread's first fragment row, 16 (warp % 4) + lane / 4 (and r0 + 8)
-#ifdef KW_ADC_PROFILE
-  mutable long long lap;
-#endif
 };
 
 // Columns k, k + 1 of a slab row at place i (any k: the steps past the
@@ -510,7 +465,6 @@ __device__ __forceinline__ unsigned lut_slab(int sl, const AdcLutCtx& x, const A
       a[e + 2 * h] = ok && pair_used<SUB>(ri[e], k) ? books_pair<SUB>(row, ri[e], k, sub) : 0u;
     }
   }
-  KW_ADC_LAP(6, x.lap);
   float acc[G];
   wgmma_fence();
   wgmma_rs<N>(acc, a, make_desc(base, N * 16, 128), false);
@@ -527,9 +481,7 @@ __device__ __forceinline__ unsigned lut_slab(int sl, const AdcLutCtx& x, const A
     wgmma_rs<N>(acc, a, make_desc(base + t * 2 * N * 16, N * 16, 128), true);
     wgmma_commit();
   }
-  KW_ADC_LAP(7, x.lap);
   wgmma_wait0();
-  KW_ADC_LAP(8, x.lap);
   unsigned marks = 0u;
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
@@ -544,7 +496,6 @@ __device__ __forceinline__ unsigned lut_slab(int sl, const AdcLutCtx& x, const A
       sts_u32(x.lut + 4 * (x.q0 + word[e] + (i >> 2) * x.ps4), *reinterpret_cast<const uint32_t*>(&p));
     }
   }
-  KW_ADC_LAP(9, x.lap);
   return marks;
 }
 
@@ -566,9 +517,6 @@ __device__ __forceinline__ void fix_marked(unsigned mk, int sl, const AdcLutCtx&
     const float y = reference_entry<SUB>(x.img, g, books, j0, jj, v, n, ksub, sub);
     const __nv_bfloat16 xr = __float2bfloat16_rn(__fsub_rn(y, cl));
     sts_u16(x.lut + 4 * (x.q0 + jj * ksub + v + i4 * x.ps4) + 2 * h, *reinterpret_cast<const unsigned short*>(&xr));
-#ifdef KW_ADC_PROFILE
-    atomicAdd(&kw_adc_prof[10], 1ull);
-#endif
   }
 }
 
@@ -587,9 +535,6 @@ __device__ __forceinline__ void chunk_lut(uint32_t* lut, const float* qn, const 
   x.ps4 = 4 * g.PS;
   x.q0 = (lane & 3) * g.PS;
   x.r0 = 16 * (warp & 3) + (lane >> 2);
-#ifdef KW_ADC_PROFILE
-  x.lap = clock64();
-#endif
   const int nsl = ((jend - j0 + g.P - 1) / g.P) * g.S;  // slabs of the chunk
   for (int sl = warp >> 2; sl < nsl; sl += 2) {
     const unsigned mk = lut_slab<SUB>(sl, x, g, books, clut_l, j0, jend, ksub, sub, l2, lane);
@@ -598,14 +543,13 @@ __device__ __forceinline__ void chunk_lut(uint32_t* lut, const float* qn, const 
 }
 
 // The warp's lookups of one LUT chunk: acc[q][j] += lut[query q of the
-// warp, J, code of row lane + 32 j at subspace J], J ascending, for the row
-// slabs J0 <= j < J1. lw: the warp's first query pair row (QPW >= 2) or its
-// query's halfwords (QPW = 1: h = lane-uniform half). The bounds are
-// compile-time, so the reads of a subspace issue together.
-template <int QPW, int J0, int J1>
-__device__ __forceinline__ void lookup_range(float (&acc)[QPW][kAdcNJ], const uint32_t* lw, int half, int PS,
-                                             const uint8_t* cs, int cstride, int j0, int mc, int ksub, int mb,
-                                             int mask, int lane) {
+// warp's pair, J, code of row lane + 32 j at subspace J], J ascending, for
+// the row slabs J0 <= j < J1; lw: the pair's LUT words, one read serving
+// both queries. The bounds are compile-time, so the reads of a subspace
+// issue together.
+template <int J0, int J1>
+__device__ __forceinline__ void lookup_range(float (&acc)[kAdcQPW][kAdcNJ], const uint32_t* lw, const uint8_t* cs,
+                                             int cstride, int j0, int mc, int ksub, int mb, int mask, int lane) {
   for (int jj = 0; jj < mc; ++jj) {
     const int J = j0 + jj;
     const int byte = J < mb ? J : J - mb;  // nib: high nibble for J >= m/2
@@ -613,17 +557,9 @@ __device__ __forceinline__ void lookup_range(float (&acc)[QPW][kAdcNJ], const ui
     const uint32_t* lj = lw + jj * ksub;
 #pragma unroll
     for (int j = J0; j < J1; ++j) {
-      const int code = (cs[(lane + 32 * j) * cstride + byte] >> shift) & mask;
-      if constexpr (QPW == 1) {
-        acc[0][j] += bf16_half(lj[code], half);
-      } else {
-#pragma unroll
-        for (int p = 0; p < QPW / 2; ++p) {
-          const uint32_t w = lj[p * PS + code];
-          acc[2 * p][j] += bf16_half(w, 0);
-          acc[2 * p + 1][j] += bf16_half(w, 1);
-        }
-      }
+      const uint32_t w = lj[(cs[(lane + 32 * j) * cstride + byte] >> shift) & mask];
+      acc[0][j] += bf16_half(w, 0);
+      acc[1][j] += bf16_half(w, 1);
     }
   }
 }
@@ -632,18 +568,18 @@ __device__ __forceinline__ void lookup_range(float (&acc)[QPW][kAdcNJ], const ui
 // below nrows, as compile-time ranges of at most 8 slabs a pass (16 at once
 // took 128 registers and spilled); each row still sums its subspaces in
 // ascending order.
-template <int QPW, int JN>
-__device__ __forceinline__ void lookup_slabs(int jn, float (&acc)[QPW][kAdcNJ], const uint32_t* lw, int half,
-                                             int PS, const uint8_t* cs, int cstride, int j0, int mc, int ksub,
-                                             int mb, int mask, int lane) {
+template <int JN>
+__device__ __forceinline__ void lookup_slabs(int jn, float (&acc)[kAdcQPW][kAdcNJ], const uint32_t* lw,
+                                             const uint8_t* cs, int cstride, int j0, int mc, int ksub, int mb,
+                                             int mask, int lane) {
   if constexpr (JN > 1) {
     if (jn < JN) {
-      lookup_slabs<QPW, JN - 1>(jn, acc, lw, half, PS, cs, cstride, j0, mc, ksub, mb, mask, lane);
+      lookup_slabs<JN - 1>(jn, acc, lw, cs, cstride, j0, mc, ksub, mb, mask, lane);
       return;
     }
   }
-  lookup_range<QPW, 0, (JN < 8 ? JN : 8)>(acc, lw, half, PS, cs, cstride, j0, mc, ksub, mb, mask, lane);
-  if constexpr (JN > 8) lookup_range<QPW, 8, JN>(acc, lw, half, PS, cs, cstride, j0, mc, ksub, mb, mask, lane);
+  lookup_range<0, (JN < 8 ? JN : 8)>(acc, lw, cs, cstride, j0, mc, ksub, mb, mask, lane);
+  if constexpr (JN > 8) lookup_range<8, JN>(acc, lw, cs, cstride, j0, mc, ksub, mb, mask, lane);
 }
 
 // SUB = sub_dim known at compile time; 0 reads it from sub_rt (that
@@ -671,7 +607,6 @@ __global__ void __launch_bounds__(kAdcThreads, SUB > 0 ? kAdcMinBlocks : 1)
     }
     return;
   }
-  KW_ADC_PROF_START;
   const int sub = SUB > 0 ? SUB : sub_rt;
   const int mb = nib ? m / 2 : m;  // code bytes per row
   const int cstride = adc_code_stride(mb);
@@ -721,13 +656,11 @@ __global__ void __launch_bounds__(kAdcThreads, SUB > 0 ? kAdcMinBlocks : 1)
   const __nv_bfloat16* clut_l = reinterpret_cast<const __nv_bfloat16*>(clut_s);
   const float* gq = q + (size_t)t * Qg * d;
   const int mask = nib ? 15 : 255;
-  // this warp's queries g0 + warp * QPW + qi; their LUT words
-  const uint32_t* lw = lut + (QPW == 1 ? warp >> 1 : warp * QPW / 2) * geo.PS;
-  const int half = warp & 1;  // QPW = 1: the query's half of its pair's words
+  // this warp's queries g0 + 2 warp + qi; their pair's LUT words
+  const uint32_t* lw = lut + warp * geo.PS;
 
   for (int g0 = 0; g0 < Qg; g0 += G) {
     __syncthreads();  // the previous group's selection is done with the front
-    KW_ADC_PROF(g0 == 0 ? 0 : 4);
     const int nq = min(G, Qg - g0);
     chunk_image<SUB>(img, qn, geo, gq + (size_t)g0 * d, books, nq, d, 0, min(geo.MC, m), ksub, sub, f, tid);
     fence_async_smem();
@@ -742,19 +675,16 @@ __global__ void __launch_bounds__(kAdcThreads, SUB > 0 ? kAdcMinBlocks : 1)
       const int jend = min(j0 + geo.MC, m);
       cp_async_wait_all();  // the code rows and the clut (first chunk of the first group)
       __syncthreads();      // they and the chunk's image are in place; the previous chunk's lookups are done
-      KW_ADC_PROF(j0 == 0 ? 1 : 3);
       chunk_lut<SUB>(lut, qn, img, geo, books, clut_l, j0, jend, ksub, sub, l2, warp, lane);
       __syncthreads();  // the chunk's LUT is in place; the image is read
-      KW_ADC_PROF(2);
       if (jend < m) {       // the next chunk's image, under this chunk's lookups
         chunk_image<SUB>(img, qn, geo, gq + (size_t)g0 * d, books, nq, d, jend, min(jend + geo.MC, m), ksub, sub, f, tid);
         fence_async_smem();
       }
       if (row0 < Qg)
-        lookup_slabs<QPW, kAdcNJ>(jn, acc, lw, half, geo.PS, cs, cstride, j0, jend - j0, ksub, mb, mask, lane);
+        lookup_slabs<kAdcNJ>(jn, acc, lw, cs, cstride, j0, jend - j0, ksub, mb, mask, lane);
     }
     __syncthreads();  // every warp is done with the LUT: the selection takes the front
-    KW_ADC_PROF(3);
 #pragma unroll
     for (int qi = 0; qi < QPW; ++qi) {
       const int row = row0 + qi;
@@ -770,11 +700,6 @@ __global__ void __launch_bounds__(kAdcThreads, SUB > 0 ? kAdcMinBlocks : 1)
       __syncwarp();  // the next query reuses the warp's scratch
     }
   }
-#ifdef KW_ADC_PROFILE
-  __syncthreads();
-  KW_ADC_PROF(4);
-  if (threadIdx.x == 0) atomicAdd(&kw_adc_prof[5], 1ull);
-#endif
 }
 
 template <int SUB>
@@ -797,8 +722,13 @@ int launch_adc(const void* blk, const void* nrows, const void* lids, const void*
 
 using namespace kw;
 
-// ops/adc_cuda.adc_smem_bytes mirrors adc_smem_bytes: the search takes this
-// kernel only for shapes whose shared memory fits a block.
+// ops/adc_cuda.adc_smem_bytes mirrors adc_smem_bytes (chip_smoke.py holds
+// the two equal through kw_ivf_adc_smem_bytes): the search takes this kernel
+// only for shapes whose shared memory fits a block.
+extern "C" int kw_ivf_adc_smem_bytes(int m, int ksub, int sub, int nib) {
+  return (int)adc_smem_bytes(m, ksub, sub, nib ? m / 2 : m);
+}
+
 extern "C" int kw_ivf_adc_scan(const void* blk, const void* nrows, const void* lids,
                                const void* q, const void* books, const void* clut,
                                const void* cents, const void* codes, const void* keep,
@@ -825,12 +755,3 @@ extern "C" int kw_ivf_adc_scan(const void* blk, const void* nrows, const void* l
   }
 #undef KW_ADC_ARGS
 }
-
-#ifdef KW_ADC_PROFILE
-extern "C" int kw_adc_prof_take(unsigned long long* out) {
-  const unsigned long long zero[11] = {};
-  cudaError_t e = cudaMemcpyFromSymbol(out, kw_adc_prof, sizeof(zero));
-  if (e == cudaSuccess) e = cudaMemcpyToSymbol(kw_adc_prof, zero, sizeof(zero));
-  return (int)e;
-}
-#endif

@@ -42,23 +42,18 @@ _PLAIN_BYTES = 256 << 20
 SMEM_LIMIT = 232448
 
 
-# queries a warp of the kernel scores (KW_ADC_QPW in csrc/ivf_adc.cu): a
-# group of 8 * ADC_QPW queries is the N of the LUT's products
-ADC_QPW = 2
-
-
 def adc_smem_bytes(m: int, ksub: int, sub: int, nib: bool) -> int:
     """Dynamic shared memory of one kernel block (mirrors ``adc_smem_bytes``
     in csrc/ivf_adc.cu). The front holds one chunk's query operand image
     (64-row slabs of codewords, 64 / ksub subspaces a slab below ksub = 64;
     K = the slab's subspaces' features padded to 16; 2G rows, f * hi and
-    f * lo of G = 8 * ADC_QPW queries), the group's LUT chunk in query pairs
+    f * lo of the G = 16 queries of a group, kAdcG), the group's LUT chunk in query pairs
     (32 KB of bf16 entries, each pair's row padded to 8 words past a
     multiple of 32) and the chunk's f32 rounding windows, one a subspace, or
     the selection's scratch (8 warps x 512 f32 scores and u16 columns, 24
     KB) where that is larger. Then come the code rows at an odd-word stride
     and the task's bf16 clut row."""
-    G = 8 * ADC_QPW
+    G = 16
     kr = 1
     while kr < ksub and kr < 64:
         kr *= 2

@@ -5,8 +5,8 @@ Random-sample init, Lloyd iterations with empty-cluster reseeding and
 training-set subsampling (max_points_per_centroid, faiss default 256). The
 host RNG is numpy seeded with ``seed=1234`` as in the reference, so the
 subsample and the initial centroids match it; assignments are exact argmin
-over full-f32 products. The Lloyd sums are one-hot products, which add in
-a fixed order on every device (see :func:`cluster_sums`).
+over full-f32 products. The Lloyd sums add each cluster's rows in row
+order on every device (see :func:`cluster_sums`).
 """
 
 from __future__ import annotations
@@ -19,8 +19,6 @@ import torch
 from ..device import to_device
 
 ASSIGN_CHUNK = 131072
-# bytes of the f32 one-hot block of one cluster_sums product
-ONEHOT_BYTES = 1 << 27
 
 
 def _assign_block(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
@@ -40,19 +38,15 @@ def _assign_block(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
 
 def cluster_sums(x: torch.Tensor, assign: torch.Tensor, k: int) -> torch.Tensor:
     """(k, d) f32 sums of the rows of x (n, d) by cluster (assign (n,) in
-    [0, k)): onehot(assign)^T @ x in f32, over fixed row chunks. A matrix
-    product adds in a fixed order (TF32 is off, device.py), so the same
+    [0, k)): the rows in a stable sort by cluster, then each cluster's run
+    added in row order (segment_reduce). That order is fixed, so the same
     inputs give the same bits from run to run on the card too, where
-    index_add_ adds by atomics in no fixed order. The reference sums with
+    index_add_ adds by atomics in no fixed order; on the CPU it is
+    index_add_'s own order. O(n d) whatever k. The reference sums with
     jax.ops.segment_sum (knowhere_tpu/ops/kmeans.py)."""
-    n, d = x.shape
-    nc = max(1, ONEHOT_BYTES // (4 * k))
-    cols = torch.arange(k, device=x.device)
-    sums = torch.zeros((k, d), dtype=torch.float32, device=x.device)
-    for i0 in range(0, n, nc):
-        onehot = (assign[i0 : i0 + nc, None] == cols[None, :]).float()
-        sums.addmm_(onehot.T, x[i0 : i0 + nc].float())
-    return sums
+    order = torch.argsort(assign, stable=True)
+    counts = torch.bincount(assign, minlength=k)
+    return torch.segment_reduce(x[order].float(), "sum", lengths=counts, unsafe=True)
 
 
 def _lloyd_step(x: torch.Tensor, centroids: torch.Tensor, *, k: int):

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..device import to_device
+from .kmeans import cluster_sums
 
 
 @dataclass
@@ -41,26 +42,21 @@ def _pq_lloyd_batched(xs: torch.Tensor, c0: torch.Tensor, *, ksub: int, n_iters:
     """All m subspaces' Lloyd iterations at once: xs (m, n, s), c0 (m, ksub, s)
     -> codebooks (m, ksub, s). Each iteration assigns the rows in chunks of
     nc (a batched (m, nc, s) x (m, ksub, s) product), sums them per codeword
-    as the reference does, by a batched one-hot product in f32 (a fixed
-    order, so the same bits from run to run on the card too), and keeps a
+    of each subspace in row order (kmeans.cluster_sums over the m * ksub
+    codewords: the same bits from run to run on the card too), and keeps a
     codeword that got no row."""
     m, n, s = xs.shape
     c = c0.float()
     off = (torch.arange(m, device=xs.device) * ksub)[:, None]
-    cols = torch.arange(ksub, device=xs.device)
+    rows = xs.reshape(m * n, s)
     for _ in range(n_iters):
         c_sq = (c * c).sum(2)  # (m, ksub)
-        sums = torch.zeros((m, ksub, s), dtype=torch.float32, device=xs.device)
-        counts = torch.zeros(m * ksub, dtype=torch.float32, device=xs.device)
-        for i0 in range(0, n, nc):
-            xc = xs[:, i0 : i0 + nc].float()
-            dots = torch.bmm(xc, c.transpose(1, 2))  # (m, nc, ksub)
-            # torch.argmin returns the first of equal minima, as jnp.argmin
-            a = torch.argmin(c_sq[:, None, :] - 2.0 * dots, 2)  # (m, nc)
-            onehot = (a[..., None] == cols).float()  # (m, nc, ksub)
-            sums.baddbmm_(onehot.transpose(1, 2), xc)
-            counts += torch.bincount((a + off).reshape(-1), minlength=m * ksub).float()
-        counts = counts.view(m, ksub)
+        # torch.argmin returns the first of equal minima, as jnp.argmin
+        a = torch.cat([torch.argmin(c_sq[:, None, :] - 2.0 * torch.bmm(xs[:, i0 : i0 + nc].float(), c.transpose(1, 2)), 2)
+                       for i0 in range(0, n, nc)], 1)  # (m, n)
+        key = (a + off).reshape(-1)
+        sums = cluster_sums(rows, key, m * ksub).view(m, ksub, s)
+        counts = torch.bincount(key, minlength=m * ksub).float().view(m, ksub)
         new_c = sums / torch.clamp(counts, min=1.0)[..., None]
         c = torch.where((counts == 0)[..., None], c, new_c)
     return c

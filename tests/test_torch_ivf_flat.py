@@ -212,21 +212,24 @@ def test_kmeans_lloyd_step_matches_jax(corpus):
     np.testing.assert_allclose(new_t.numpy(), np.asarray(new_j), atol=1e-5)
 
 
-@pytest.mark.parametrize("onehot_bytes", [tkmeans.ONEHOT_BYTES, 64 << 10])
-def test_cluster_sums_fixed_order(corpus, monkeypatch, onehot_bytes):
-    """The Lloyd sums are one-hot products over fixed row chunks (one chunk,
-    and many with a 64 KB one-hot block): the centroids they give (sum /
-    count) within 1e-5 of index_add_'s and of the reference's
-    jax.ops.segment_sum's, and the same bits on a second call (on the card
-    index_add_ adds by atomics in no fixed order; a product does not)."""
-    monkeypatch.setattr(tkmeans, "ONEHOT_BYTES", onehot_bytes)
+@pytest.mark.parametrize("skewed", [False, True])
+def test_cluster_sums_fixed_order(corpus, skewed):
+    """The Lloyd sums add each cluster's rows in row order (a stable sort by
+    cluster, then segment_reduce): on the CPU the same bits as index_add_,
+    within 1e-5 of the reference's jax.ops.segment_sum as centroids (sum /
+    count), and the same bits on a second call (on the card index_add_ adds
+    by atomics in no fixed order; this does not). Skewed: half the rows in
+    one cluster and a quarter of the clusters empty."""
     xb = np.ascontiguousarray(corpus[0][:4096], dtype=np.float32)
-    assign = np.random.default_rng(5).integers(0, NLIST, len(xb))
+    rng = np.random.default_rng(5)
+    assign = rng.integers(0, NLIST, len(xb))
+    if skewed:
+        assign = np.where(rng.random(len(xb)) < 0.5, 3, assign % (3 * NLIST // 4))
     x, a = torch.from_numpy(xb), torch.from_numpy(assign)
-    counts = np.bincount(assign, minlength=NLIST).astype(np.float32)[:, None]
+    counts = np.maximum(np.bincount(assign, minlength=NLIST), 1).astype(np.float32)[:, None]
     sums = tkmeans.cluster_sums(x, a, NLIST)
     want = torch.zeros((NLIST, xb.shape[1])).index_add_(0, a, x)
-    np.testing.assert_allclose(sums.numpy() / counts, want.numpy() / counts, atol=1e-5)
+    assert torch.equal(sums.view(torch.int32), want.view(torch.int32))
     seg = np.asarray(jax.ops.segment_sum(jnp.asarray(xb), jnp.asarray(assign), num_segments=NLIST))
     np.testing.assert_allclose(sums.numpy() / counts, seg / counts, atol=1e-5)
     assert torch.equal(tkmeans.cluster_sums(x, a, NLIST).view(torch.int32), sums.view(torch.int32))

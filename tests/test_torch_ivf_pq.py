@@ -92,9 +92,10 @@ def test_pq_lloyd_step_matches_jax(corpus):
 
 
 def test_pq_lloyd_fixed_order(corpus):
-    """PQ's Lloyd sums are a batched one-hot product (the reference's own
-    formulation): one step within 1e-5 of the same step summed with
-    index_add_, and two iterations give the same bits on a second call."""
+    """PQ's Lloyd sums add each codeword's rows in row order
+    (kmeans.cluster_sums over the m * ksub codewords): one step within 1e-5
+    of the same step summed with index_add_, and two iterations give the
+    same bits on a second call."""
     x = _residuals(corpus[0])
     m, ksub, s = 16, 256, DIM // 16
     xs = T(np.ascontiguousarray(x.reshape(-1, m, s).transpose(1, 0, 2)))
