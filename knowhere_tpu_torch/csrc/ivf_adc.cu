@@ -48,13 +48,16 @@
 // lookups run. The epilogue of an entry is f32 hi + lo, minus clut (L2), and
 // the bf16 rounding, two entries packed into one 32-bit store.
 //
-// The tensor cores add a sum's products in another order than the
-// reference's FMA chain, and not rounded to nearest at each add, so where
-// an entry lies at a bf16 rounding midpoint the two may round it apart. The
-// epilogue tests each entry of magnitude 2 or more against a window that
-// bounds the two sums' difference (near_bf16_midpoint) and a thread writes
-// the few it finds again from the reference's order (fix_marked,
-// reference_entry: about 1 entry in 1,650 on the real IVF_PQ launch); the
+// The tensor cores add a sum's products in another order than a sequential
+// FMA chain, and not rounded to nearest at each add, so where an entry lies
+// near a bf16 rounding midpoint the two may round it apart: by a whole bf16
+// unit of the entry, which the score's cancellation (x = 2 q.b - clut)
+// makes large beside a small score. The epilogue tests each entry of
+// magnitude 2 or more against a window around the midpoint
+// (near_bf16_midpoint: a heuristic, not a bound) and a thread writes the
+// few it finds again from the sequential order (fix_marked,
+// sequential_entry: about 1 entry in 1,650 on the real IVF_PQ launch), the
+// order the plain version's f32 products gave on every case measured; the
 // smaller entries may keep the other rounding, one bf16 unit, at most 2^-7.
 //
 // The LUT chunk is laid out in query pairs (a word holds one codeword of
@@ -347,13 +350,14 @@ __device__ __forceinline__ void chunk_image(unsigned char* img, float* qn, const
 }
 
 // An entry x = y - clut of magnitude 2 or more, y = f * (hi + lo) from the
-// tensor cores, that lies within w = 2^-22 a of the midpoint between its two bf16
-// neighbours, a = max_n |f q_nj| max_v |b_jv| >= f * sum_s |hi_s b_s|
+// tensor cores, that lies within w = 2^-22 a of the midpoint between its two
+// bf16 neighbours, a = max_n |f q_nj| max_v |b_jv| >= f * sum_s |hi_s b_s|
 // (Cauchy-Schwarz; the largest norms of the group's queries and of the
-// subspace's codewords): the tensor cores' hi sum (not rounded to nearest
-// at each add, in another order) and the reference's sequential FMA chain
-// each stay within about 2^-24 sum_s |hi_s b_s| of the exact sum (a is
-// several times that sum on most entries), so elsewhere both round x alike.
+// subspace's codewords). A heuristic, not a bound: a sequential FMA chain
+// may stray up to about (sub - 1) 2^-24 sum_s |p_s| from the exact sum,
+// wider than w where a query and a codeword are nearly parallel and sub >=
+// 5; a is several times sum_s |hi_s b_s| on most entries, and the chip
+// check holds the result to the plain version on the real IVF_PQ launch.
 // Below 2 the two roundings may differ by one bf16 unit, at most 2^-7.
 __device__ __forceinline__ bool near_bf16_midpoint(float x, float w) {
   const float mid = __uint_as_float((__float_as_uint(x) & 0xFFFF0000u) | 0x8000u);
@@ -361,14 +365,14 @@ __device__ __forceinline__ bool near_bf16_midpoint(float x, float w) {
 }
 
 // f * (hi + lo) of one LUT entry (query n, subspace j0 + jj, codeword v) in
-// the reference's order: two sequential FMA chains over the subspace's
-// features, from the chunk's operand image, then one add; for the entries
+// the sequential order: two FMA chains in ascending feature, from the
+// chunk's operand image, then one add; for the entries
 // near_bf16_midpoint finds (fix_marked); where a subspace is whole 8-feature
 // slices, 16 bytes at a time.
 template <int SUB>
-__device__ __forceinline__ float reference_entry(uint32_t img, const AdcGeom& g,
-                                                 const __nv_bfloat16* books, int j0, int jj, int v, int n, int ksub,
-                                                 int sub_rt) {
+__device__ __forceinline__ float sequential_entry(uint32_t img, const AdcGeom& g,
+                                                  const __nv_bfloat16* books, int j0, int jj, int v, int n, int ksub,
+                                                  int sub_rt) {
   constexpr int N = kAdcImgRows;
   const int sub = SUB > 0 ? SUB : sub_rt;
   const int bl = jj / g.P, i = jj - bl * g.P;
@@ -500,7 +504,7 @@ __device__ __forceinline__ unsigned lut_slab(int sl, const AdcLutCtx& x, const A
 }
 
 // The entries of slab sl that lut_slab marked, each written again from the
-// reference's order (reference_entry).
+// sequential order (sequential_entry).
 template <int SUB>
 __device__ __forceinline__ void fix_marked(unsigned mk, int sl, const AdcLutCtx& x, const AdcGeom& g,
                                            const __nv_bfloat16* books, const __nv_bfloat16* clut_l, int j0, int ksub,
@@ -514,7 +518,7 @@ __device__ __forceinline__ void fix_marked(unsigned mk, int sl, const AdcLutCtx&
     const int r = x.r0 + 8 * e, jj = bl * g.P + (r >> g.lkr), v = (sl - bl * g.S) * 64 + (r & (g.kr - 1));
     const int n = 8 * i4 + 2 * (lane & 3) + h;
     const float cl = l2 ? __bfloat162float(clut_l[(j0 + jj) * ksub + v]) : 0.f;
-    const float y = reference_entry<SUB>(x.img, g, books, j0, jj, v, n, ksub, sub);
+    const float y = sequential_entry<SUB>(x.img, g, books, j0, jj, v, n, ksub, sub);
     const __nv_bfloat16 xr = __float2bfloat16_rn(__fsub_rn(y, cl));
     sts_u16(x.lut + 4 * (x.q0 + jj * ksub + v + i4 * x.ps4) + 2 * h, *reinterpret_cast<const unsigned short*>(&xr));
   }
@@ -522,7 +526,7 @@ __device__ __forceinline__ void fix_marked(unsigned mk, int sl, const AdcLutCtx&
 
 // The group's LUT chunk of subspaces j0 .. jend - 1 on the tensor cores:
 // warpgroup wg takes slabs wg, wg + 2, ...; after each slab a thread writes
-// again, in the reference's order, its entries near a bf16 rounding midpoint.
+// again, in the sequential order, its entries near a bf16 rounding midpoint.
 template <int SUB>
 __device__ __forceinline__ void chunk_lut(uint32_t* lut, const float* qn, const unsigned char* img, const AdcGeom& g,
                                           const __nv_bfloat16* books, const __nv_bfloat16* clut_l, int j0, int jend,
