@@ -1,13 +1,10 @@
 """Time the device build's Lloyd sums on one card.
 
-Three ways to add the rows of each cluster, in a fixed order:
+Two ways to add the rows of each cluster, in a fixed order:
 
 - ``segment``: ``knowhere_tpu_torch.ops.kmeans.cluster_sums`` as the port
   runs it (a stable sort by cluster, then each cluster's rows added in row
   order by segment_reduce, one thread a cluster and feature);
-- ``tiled``: the same sort, then segment_reduce over the runs of one
-  cluster inside 256-row tiles of the sorted rows, then over each
-  cluster's runs (no loop longer than a tile, or a cluster's tiles);
 - ``onehot``: onehot(assign)^T @ x in f32 over 128 MB one-hot blocks (and,
   for PQ, the batched per-subspace one-hot product).
 
@@ -72,34 +69,16 @@ def onehot_pq_lloyd(xs, c0, *, ksub, n_iters, nc):
     return c
 
 
-def tiled_sums(x, assign, k, tile=256):
-    import torch
-
-    n = x.shape[0]
-    order = torch.argsort(assign, stable=True)
-    seg = assign[order]
-    pos = torch.arange(n, device=x.device)
-    start = torch.ones(n, dtype=torch.bool, device=x.device)
-    start[1:] = (seg[1:] != seg[:-1]) | (pos[1:] % tile == 0)
-    starts = pos[start]
-    lengths = torch.diff(starts, append=starts.new_tensor([n]))
-    part = torch.segment_reduce(x[order].float(), "sum", lengths=lengths, unsafe=True)
-    counts = torch.bincount(seg[starts], minlength=k)
-    return torch.segment_reduce(part, "sum", lengths=counts, unsafe=True)
-
-
 def patch(name):
     """Point the build's Lloyd sums at one version; returns the undo."""
     from knowhere_tpu_torch.ops import kmeans, quant
 
-    saved = (kmeans.cluster_sums, quant.cluster_sums, quant._pq_lloyd_batched)
+    saved = (kmeans.cluster_sums, quant._pq_lloyd_batched)
     if name == "onehot":
         kmeans.cluster_sums, quant._pq_lloyd_batched = onehot_sums, onehot_pq_lloyd
-    elif name == "tiled":
-        kmeans.cluster_sums = quant.cluster_sums = tiled_sums
 
     def undo():
-        kmeans.cluster_sums, quant.cluster_sums, quant._pq_lloyd_batched = saved
+        kmeans.cluster_sums, quant._pq_lloyd_batched = saved
 
     return undo
 
@@ -129,7 +108,7 @@ def sums_alone(xb, versions) -> bool:
             out[name] = a / counts
             line[f"{name}_bit_equal"] = same
             line[f"{name}_ms"] = chip_smoke.time_ms(lambda fn=fn: fn(x, assign, k), reps=5)
-        line["max_centroid_diff"] = max(float((out[n] - out["segment"]).abs().max()) for n in out)
+        line["max_centroid_diff"] = float((out["onehot"] - out["segment"]).abs().max())
         print("lloyd_ab", json.dumps(line), flush=True)
         del x, cents, assign, out
         torch.cuda.empty_cache()
@@ -189,8 +168,8 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     xb, _ = chip_smoke.gen_corpus(1_000_000, 10, 128, seed=0)
-    ok = sums_alone(xb, {"segment": kmeans.cluster_sums, "tiled": tiled_sums, "onehot": onehot_sums})
-    builds(xb, ["segment", "tiled", "onehot"])
+    ok = sums_alone(xb, {"segment": kmeans.cluster_sums, "onehot": onehot_sums})
+    builds(xb, ["segment", "onehot"])
     return 0 if ok else 1
 
 
