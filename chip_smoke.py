@@ -14,7 +14,9 @@ Run from the root of a checkout on a machine with one CUDA GPU. In order:
    build's per-launch shape, 8,192 tasks at kk=32; FLAT phase 1 also as its
    group-max and select launches apart, beside an f32 yardstick; the ADC
    scan at every width it compiles, and its shared-memory figure against
-   the wrapper's);
+   the wrapper's; the fused scan as its three launches apart, its rescore
+   launch against its own plain version, at k=1024, d=256, d=96, 1,000
+   queries, on an exact tie grid and with empty slots);
 4. run the main path through the public API on the SIFT1M-like corpus
    (1M x 128 f32, 10,000 queries, seed 0): FLAT exact ground truth, its
    first 1,000 queries' ids held against an independent full-f32 answer
@@ -725,44 +727,106 @@ def flat_vs_exact(xb: np.ndarray, xq: np.ndarray, ids: np.ndarray, k: int) -> di
     return out
 
 
-def check_fused_kernel(dev, xb: np.ndarray, xq: np.ndarray):
-    """fused_knn_scan against fused_knn_scan_plain on the 1M corpus with
-    1,024 queries: k=10 and k=100 L2, k=10 IP, and a corpus whose row count
-    is not a tile multiple (padded as fused_knn pads it). Also times the
-    two-call yardstick torch.topk(2 (q_bf16 @ b_bf16^T) - norms, k)."""
+def _fused_case(q, b, k, is_l2, exact=False, **desc):
+    """One fused_knn_scan case against fused_knn_scan_plain on the same
+    inputs (the corpus b padded as fused_knn pads it, q to its width):
+    scores within FUSED_RTOL / FUSED_ATOL, id sets on >= FUSED_ID_AGREE of
+    the slots, the empty slots the same in both and each exactly (-1e38,
+    -1); with exact (the tie grid), every score and id equal. Times the scan,
+    its plain version and its three launches apart (one block of <= 1,024
+    queries); holds the rescore launch to fused_rescore_plain on the
+    kernel's own group ids. bound_ms is the function's (the corpus read
+    once, 2 nq nb d bf16 operations); design_floor_ms the bytes the three
+    launches must move (the group maxima written once and read twice by the
+    select's pre-filter, six times on its radix path for kg > 256)."""
     import torch
 
-    from knowhere_tpu_torch.ops import fused_topk
+    from knowhere_tpu_torch.ops import cuda_flat, fused_topk
+
+    nb = b.shape[0]
+    nrm = (b * b).sum(1) if is_l2 else torch.zeros(nb, device=b.device)
+    base, norms = fused_topk.pad_base(b, nrm)
+    q = torch.nn.functional.pad(q, (0, base.shape[1] - q.shape[1]))
+    args, kw = (q, base, norms), dict(k=k, is_l2=is_l2)
+    s_k, i_k = fused_topk.fused_knn_scan(*args, **kw)
+    s_p, i_p = fused_topk.fused_knn_scan_plain(*args, **kw)
+    torch.cuda.synchronize()
+    agree = _agreement(s_k, i_k, s_p, i_p, FUSED_RTOL, FUSED_ATOL, 0.0, True)
+    ok = agree.pop("ok")
+    ik, ip_ = i_k.cpu().numpy(), i_p.cpu().numpy()
+    agree["id_agree"] = float(np.mean([len(set(a) & set(b)) / len(set(b)) for a, b in zip(ik, ip_)]))  # -1 once
+    ok = ok and agree["id_agree"] >= FUSED_ID_AGREE
+    if exact:
+        ok = ok and agree["max_abs_err"] == 0.0 and agree["pos_agree"] == 1.0
+    nq, d = q.shape
+    nb_pad = base.shape[0]
+    a, kg, n_groups = (2.0 if is_l2 else 1.0), min(k, nb_pad // cuda_flat.GROUP), nb_pad // cuda_flat.GROUP
+    ms = time_ms(lambda: fused_topk.fused_knn_scan(*args, **kw), reps=5)
+    plain_ms = time_ms(lambda: fused_topk.fused_knn_scan_plain(*args, **kw), reps=3)
+    q1 = q[: cuda_flat.NQ_BLOCK]
+    q_op = cuda_flat.query_operand_hi(q1)
+    gmax = cuda_flat.fused_group_max(base, norms, q_op, a)
+    group_max_ms = time_ms(lambda: cuda_flat.fused_group_max(base, norms, q_op, a), reps=5)
+    select_ms = time_ms(lambda: cuda_flat.flat_select(gmax, len(q1), kg), reps=5)
+    _, gids = cuda_flat.flat_select(gmax, len(q1), kg)
+    del gmax
+    rescore_ms = time_ms(lambda: cuda_flat.fused_rescore(q1, base, norms, gids, k, a), reps=5)
+    r_k, j_k = cuda_flat.fused_rescore(q1, base, norms, gids, k, a)
+    r_p, j_p = cuda_flat.fused_rescore_plain(q1, base, norms, gids, k, a)
+    rescore = _agreement(r_k, j_k, r_p, j_p, FUSED_RTOL, FUSED_ATOL, FUSED_ID_AGREE, True)
+    ok = ok and rescore["ok"]
+    nbytes = nb_pad * (d + 1) * 4 + nq * d * 4 + nq * k * 8  # the base read once per launch
+    nq_pad = -(-nq // 128) * 128
+    floor = (nb_pad * (d + 1) * 4 + nq_pad * d * 2 + nq_pad * n_groups * 4 + nq * n_groups * 4 * (2 if kg <= 256 else 6)
+             + nq * kg * 8 + nq * kg * cuda_flat.GROUP * (d + 1) * 4 + nq * d * 4 + nq * k * 8)
+    line = dict(desc, nb=nb, nq=nq, d=d, k=k, is_l2=is_l2, **agree, ms=ms, plain_ms=plain_ms,
+                group_max_ms=group_max_ms, select_ms=select_ms, rescore_ms=rescore_ms, rescore_vs_plain=rescore,
+                **bound(nbytes, {"bf16": 2 * nq * nb_pad * d}), design_floor_ms=floor / HBM_BYTES_PER_S * 1e3)
+    print("fused_knn_scan", json.dumps(line))
+    if not ok:
+        raise AssertionError(f"fused_knn_scan disagrees with its plain version: {line}")
+    return line, base, norms, q
+
+
+def check_fused_kernel(dev, xb: np.ndarray, xq: np.ndarray):
+    """fused_knn_scan against fused_knn_scan_plain (_fused_case) on the 1M
+    corpus with 1,024 queries: k=10 and k=100 L2, k=10 IP, a corpus whose
+    row count is not a tile multiple (padded as fused_knn pads it), and 1,000
+    queries (not a multiple of 128); k=1024 (the select's and the rescore's
+    radix paths) on its first 262,144 rows; a 1/8-grid corpus of repeated
+    rows (every sum exact, k cutting through ties: every score and id
+    equal); random corpora at d=256 (two feature chunks) and d=96 (feature
+    padding); 100 rows at k=200 (empty slots). Also times the two-call
+    yardstick torch.topk(2 (q_bf16 @ b_bf16^T) - norms, k)."""
+    import torch
 
     out = []
     q = torch.from_numpy(xq[:1024]).to(dev)
-    for nb, k, is_l2 in ((len(xb), 10, True), (len(xb), 100, True), (len(xb), 10, False), (len(xb) - 37, 10, True)):
-        b = torch.from_numpy(xb[:nb]).to(dev)
-        nrm = (b * b).sum(1) if is_l2 else torch.zeros(nb, device=dev)
-        base, norms = fused_topk.pad_base(b, nrm)
-        args, kw = (q, base, norms), dict(k=k, is_l2=is_l2)
-        s_k, i_k = fused_topk.fused_knn_scan(*args, **kw)
-        s_p, i_p = fused_topk.fused_knn_scan_plain(*args, **kw)
-        torch.cuda.synchronize()
-        err = (s_k - s_p).abs().max().item()
-        ok = torch.allclose(s_k, s_p, rtol=FUSED_RTOL, atol=FUSED_ATOL)
-        ik, ip_ = i_k.cpu().numpy(), i_p.cpu().numpy()
-        agree = float(np.mean([len(set(ik[i]) & set(ip_[i])) / k for i in range(len(ik))]))
-        ms = time_ms(lambda: fused_topk.fused_knn_scan(*args, **kw), reps=5)
-        plain_ms = time_ms(lambda: fused_topk.fused_knn_scan_plain(*args, **kw), reps=3)
-        nq, d = q.shape
-        nbytes = nb * (d + 1) * 4 + nq * d * 4 + nq * k * 8  # the base read once per launch
-        line = dict(nb=nb, nq=nq, k=k, is_l2=is_l2, max_abs_err=err, id_agree=agree, ms=ms, plain_ms=plain_ms,
-                    **bound(nbytes, {"bf16": 2 * nq * nb * d}))
-        if nb == len(xb) and k == 10 and is_l2:
-            qb, bb = q.to(torch.bfloat16), base[:nb].to(torch.bfloat16)
+    b_all = torch.from_numpy(xb).to(dev)
+    for nb, k, is_l2, nq in ((len(xb), 10, True, 1024), (len(xb), 100, True, 1024), (len(xb), 10, False, 1024),
+                             (len(xb) - 37, 10, True, 1024), (len(xb), 10, True, 1000), (262144, 1024, True, 1024)):
+        line, base, _, qp = _fused_case(q[:nq], b_all[:nb], k, is_l2)
+        if not out:
+            qb, bb = qp.to(torch.bfloat16), base[:nb].to(torch.bfloat16)
+            nrm = (b_all * b_all).sum(1)
             line["two_call_topk_ms"] = time_ms(lambda: torch.topk(2.0 * (qb @ bb.T).float() - nrm, k), reps=3)
-            del qb, bb
-        print("fused_knn_scan", json.dumps(line))
-        if not ok or agree < FUSED_ID_AGREE:
-            raise AssertionError(f"fused_knn_scan disagrees with its plain version: {line}")
+            print("fused_knn_scan two-call yardstick ms:", line["two_call_topk_ms"])
+            del qb, bb, nrm
         out.append(line)
-        del base, norms, b
+        del base, qp
+    del b_all
+    torch.cuda.empty_cache()
+    g = torch.Generator(device=dev).manual_seed(4)
+    grid = lambda x: torch.clamp(torch.round(x * 8) / 8, -8, 8)  # noqa: E731
+    distinct = grid(torch.randn((4096, 128), generator=g, device=dev))
+    perm = torch.randperm(262144, generator=g, device=dev)
+    tie_q = grid(torch.randn((512, 128), generator=g, device=dev)).repeat(2, 1)  # repeated across query tiles
+    out.append(_fused_case(tie_q, distinct[perm % 4096], 100, True, exact=True, ties=True)[0])
+    for d in (256, 96):
+        b = torch.randn((65536, d), generator=g, device=dev)
+        out.append(_fused_case(torch.randn((300, d), generator=g, device=dev), b, 10, True)[0])
+    small = torch.randn((100, 128), generator=g, device=dev)
+    out.append(_fused_case(torch.randn((64, 128), generator=g, device=dev), small, 200, True, empty=True)[0])
     return out
 
 
@@ -1268,13 +1332,13 @@ def fused_knn_path(xb, xq, gt, flat_search_s, k=10):
     import torch
 
     from knowhere_tpu_torch.device import to_device
-    from knowhere_tpu_torch.ops import fused_topk
+    from knowhere_tpu_torch.ops import cuda_flat, fused_topk
 
     base = to_device(xb)
-    fused_topk.fused_knn(xq[:64], base, k, "L2")  # warm-up
+    fused_topk.fused_knn(xq, base, k, "L2")  # warm-up at the timed shape (the allocator's blocks)
     (dists, ids), wall = _timed(lambda: fused_topk.fused_knn(xq, base, k, "L2"))
-    # the plain version on the same padded inputs: this call's shape (all
-    # queries in one launch) splits the corpus unlike the kernel phase's
+    # the plain version on the same padded inputs (all queries: the scan ran
+    # ten blocks of 1,024)
     base_p, norms_p = fused_topk.pad_base(base, (base * base).sum(1))
     q = torch.nn.functional.pad(to_device(xq), (0, base_p.shape[1] - base.shape[1]))
     s_p, i_p = fused_topk.fused_knn_scan_plain(q, base_p, norms_p, k=k, is_l2=True)
@@ -1282,6 +1346,7 @@ def fused_knn_path(xb, xq, gt, flat_search_s, k=10):
     del base, base_p, norms_p, q, s_p, i_p
     torch.cuda.empty_cache()
     out = {"fused_knn_s": wall, "flat_exact_search_s": flat_search_s, "fused_recall_at_10": recall_at(ids, gt),
+           "kernel_launches_per_call": 3 * -(-len(xq) // cuda_flat.NQ_BLOCK),
            "plain_max_abs_err": float(np.abs(dists - dists_p).max()),
            "plain_id_agree": float(np.mean([len(set(a) & set(b)) / k for a, b in zip(ids, ids_p)]))}
     if not np.allclose(dists, dists_p, rtol=FUSED_RTOL, atol=FUSED_ATOL) or out["plain_id_agree"] < FUSED_ID_AGREE:
@@ -1415,7 +1480,7 @@ def main() -> int:
         ),
         "ivf_sq_scan": ("knowhere_tpu_torch/csrc/ivf_sq.cu", "knowhere_tpu/ops/ivf_pallas.py:236"),
         "ivf_rbq_scan": ("knowhere_tpu_torch/csrc/ivf_rbq.cu", "knowhere_tpu/ops/ivf_pallas.py:966"),
-        "fused_knn_scan": ("knowhere_tpu_torch/csrc/fused_knn.cu", "knowhere_tpu/ops/pallas_topk.py:73"),
+        "fused_knn_scan": ("knowhere_tpu_torch/csrc/flat_scan.cu", "knowhere_tpu/ops/pallas_topk.py:73"),
     }
     # library_ms is null for every kernel: no single PyTorch call computes a
     # per-task masked top-kk over gathered list blocks, FLAT's top-k of
@@ -1433,9 +1498,11 @@ def main() -> int:
     ]
     # the tensor-core kernels also carry their f32-typed bound (the f32 scan
     # its whole-block one too); FLAT its two launches apart and its f32
-    # yardstick (several calls)
+    # yardstick (several calls); the fused scan its three launches apart,
+    # its design's byte floor and its two-call yardstick
     for entry in kernels:
-        extra = ("bound_f32_ms", "bound_full_blocks_ms", "group_max_ms", "select_ms", "yardstick_ms")
+        extra = ("bound_f32_ms", "bound_full_blocks_ms", "group_max_ms", "select_ms", "yardstick_ms", "rescore_ms",
+                 "design_floor_ms", "two_call_topk_ms")
         entry.update({key: first[entry["name"]][key] for key in extra if key in first[entry["name"]]})
     print(json.dumps({"kernels": kernels}))
     print(card)

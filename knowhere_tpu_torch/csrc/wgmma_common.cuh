@@ -10,7 +10,8 @@
 // s of row r sits at byte s * (R * 16) + r * 16, so each 8 x 8 core matrix
 // is 128 contiguous bytes, the next 8 rows follow at +128 (SBO) and the next
 // 8 features at +R * 16 (LBO). ops/cuda_flat.py's split_operand writes the
-// same image of FLAT's queries from PyTorch; the kernels write their f32
+// same image of FLAT's queries from PyTorch (query_operand_hi the hi slices
+// alone, the single pass's 16-slice image); the kernels write their f32
 // rows' image while staging them (stage_rows, then split_rows). An s8 tile
 // has the same byte geometry with 16 i8 features a slice: a chunk is 8
 // slices, R x 128 bytes.
@@ -181,6 +182,16 @@ __device__ __forceinline__ void split8(const float4 v0, const float4 v1, uint4& 
   }
   hi = *reinterpret_cast<const uint4*>(h);
   lo = *reinterpret_cast<const uint4*>(l);
+}
+
+// bf16 of 8 f32 values (round to nearest even) as one 16-byte slice: the
+// single pass's operand
+__device__ __forceinline__ uint4 hi8(const float4 v0, const float4 v1) {
+  const float x[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+  __nv_bfloat16 h[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) h[i] = __float2bfloat16_rn(x[i]);
+  return *reinterpret_cast<const uint4*>(h);
 }
 
 // ---- cp.async (16 bytes a thread; 4 where the rows are not 16-aligned) --

@@ -56,9 +56,10 @@ _SIGNATURES = {
     "kw_flat_group_max": [_P] * 4 + [_I] * 3 + [ctypes.c_float, _P],
     # gmax, n, nq, k, out_v, out_g, stream
     "kw_flat_select": [_P, _I, _I, _I, _P, _P, _P],
-    # base, nrm, q, part_s, part_i, out_s, out_i, nb, nq, nq_pad, d, k,
-    # rows_per_split, n_splits, a, stream
-    "kw_fused_knn": [_P] * 7 + [_I] * 7 + [ctypes.c_float, _P],
+    # base, nrm, q_op (hi-only), gmax, nb_pad, nq_pad, d, a, stream
+    "kw_fused_group_max": [_P] * 4 + [_I] * 3 + [ctypes.c_float, _P],
+    # q, base, nrm, gids, nq, kg, d, k, a, out_s, out_i, stream
+    "kw_fused_rescore": [_P] * 4 + [_I] * 4 + [ctypes.c_float, _P, _P, _P],
 }
 
 _lock = threading.Lock()
