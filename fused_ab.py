@@ -1,4 +1,4 @@
-"""A/B of the group-max kernels of knowhere_tpu_torch/csrc/flat_scan.cu on one card.
+"""A/B of the kernels of knowhere_tpu_torch/csrc/flat_scan.cu on one card.
 
 The file holds FLAT's three-pass group max, FLAT's select, and the fused
 scan's single-pass group max (another instance of the same template) and
@@ -9,31 +9,26 @@ spills are printed) into ``build/fused_ab/``:
   as ``git archive`` of an earlier commit unpacked into a gitignored
   directory);
 - ``this``: this tree's ``flat_scan.cu`` as the port builds it;
-- ``one_block``: a copy of this tree's file whose single-pass instance runs
-  three query stages at one block an SM (``kFusedStages = 3, kFusedBlocks =
-  1``) in place of two stages at two blocks;
-- ``round4``: a copy whose two-block single-pass instance rounds its corpus
-  tile four slices a thread at a time (more loads in flight, more
-  registers) in place of two;
 - ``noepi``: a copy that runs the group-max epilogue for the last query
   tile only (its maxima are wrong, so it is timed and not compared): what
   the products, loads and barriers cost without the epilogue.
 
 Then, on chip_smoke's inputs (the 1M x 128 SIFT-like corpus, 1,024 queries):
 
-- whether FLAT's group-max instance and ``flat_select_kernel`` compile to the
-  same SASS in ``other`` and ``this`` (``cuobjdump -sass``, addresses and
-  encodings dropped; the count of differing instructions otherwise);
+- whether each kernel of the file compiles to the same SASS in ``other``
+  and ``this`` (``cuobjdump -sass``, addresses and encodings dropped; the
+  count of differing instructions otherwise; a kernel the other tree lacks
+  is reported so);
 - FLAT's group maxima and select outputs of ``this`` against ``other``, bit
   for bit (L2 k=10 and 100, IP k=10, and d=256 on a random corpus), and both
   launches' times in turns (other, this, this, other);
-- the single-pass group max of ``this`` against ``one_block`` and ``round4``, bit for bit
-  (L2 and IP, and d=256), their times in turns, and the select and rescore
-  launches' times at k=10 and 100.
+- the single-pass group max of ``this`` and ``noepi`` in turns (L2 and IP,
+  and d=256), with the other tree's where it has the fused scan (its group
+  maxima and rescore outputs then held to this tree's bit for bit), and the
+  select and rescore launches' times at k=10 and 100.
 
-Each case prints one JSON line (medians of CUDA events). Exits 1 if FLAT's
-outputs differ from the other tree's or a single-pass variant differs from
-this tree's.
+Each case prints one JSON line (medians of CUDA events). Exits 1 if an
+output of a kernel both trees hold differs.
 Run from the repository root on the card:
 
     python3 fused_ab.py --other .scratch/parent
@@ -55,18 +50,15 @@ OUT = ROOT / "build" / "fused_ab"
 CUDA_BIN = Path("/usr/local/cuda/bin")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
          "-Xptxas", "-v"]
-# copies of this tree's file, each with one edit
+# copies of this tree's file, each with one edit; timed only (their outputs are wrong)
 VARIANTS = {
-    "one_block": ("constexpr int kFusedStages = 2, kFusedBlocks = 2;",
-                  "constexpr int kFusedStages = 3, kFusedBlocks = 1;"),
-    "round4": ("constexpr int kRound = kMinBlocks == 1 ? 8 : 2;", "constexpr int kRound = kMinBlocks == 1 ? 8 : 4;"),
-    # timing only (its maxima are wrong): the epilogue of the last query tile alone
+    # the epilogue of the last query tile alone
     "noepi": ("    if (kc != kc_n - 1) continue;\n", "    if (kc != kc_n - 1 || s + 1 < steps) continue;\n"),
 }
-TIMING_ONLY = ("noepi",)
 # SASS function names: FLAT's group max (the other tree's may predate the
-# template), FLAT's select
-FLAT_KERNELS = {"group_max": ("flat_group_max_kernel", "group_max_kernelILb1E"), "select": ("flat_select_kernel",)}
+# template), FLAT's select, the single-pass group max, the rescore
+KERNELS = {"flat_group_max": ("flat_group_max_kernel", "group_max_kernelILb1E"), "flat_select": ("flat_select_kernel",),
+           "fused_group_max": ("group_max_kernelILb0E",), "fused_rescore": ("fused_rescore_kernel",)}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "kw_flat_group_max": [_P] * 4 + [_I] * 3 + [_F, _P],
@@ -109,12 +101,15 @@ def sass(so: Path) -> dict:
 
 
 def sass_compare(libs_so: dict) -> dict:
-    """FLAT's kernels in other and this: identical instructions, or how many differ."""
+    """The file's kernels in other and this: identical instructions, or how many differ."""
     a, b = sass(libs_so["other"]), sass(libs_so["this"])
     out = {}
-    for kernel, keys in FLAT_KERNELS.items():
+    for kernel, keys in KERNELS.items():
         fa = [n for n in a if any(k in n for k in keys)]
         fb = [n for n in b if any(k in n for k in keys)]
+        if not fa and len(fb) == 1:
+            out[kernel] = "not in the other tree"
+            continue
         if len(fa) != 1 or len(fb) != 1:
             out[kernel] = f"not found: {fa} / {fb}"
             continue
@@ -225,17 +220,20 @@ def fused_cases(libs, base, q, cases) -> list:
     cases: (desc, padded norms, a, ks)."""
     from knowhere_tpu_torch.ops import cuda_flat
 
-    lines, pair = [], ("this", *VARIANTS)
+    both = ("other", "this") if hasattr(libs["other"], "kw_fused_group_max") else ("this",)
+    lines, names = [], (*both, *VARIANTS)
     q_op = cuda_flat.query_operand_hi(q)
     for desc, nrm, a, ks in cases:
-        gm = {v: group_max(libs[v], "kw_fused_group_max", base, nrm, q_op, a) for v in pair}
-        line = dict(desc, nq=q.shape[0], d=base.shape[1], gmax_equal=all(same_bits(gm["this"], g) for v, g in gm.items() if v not in TIMING_ONLY))
-        line["group_max_ms"] = in_turns(pair, lambda v: group_max(libs[v], "kw_fused_group_max", base, nrm, q_op, a))
+        gm = {v: group_max(libs[v], "kw_fused_group_max", base, nrm, q_op, a) for v in both}
+        line = dict(desc, nq=q.shape[0], d=base.shape[1], equal=same_bits(gm[both[0]], gm["this"]))
+        line["group_max_ms"] = in_turns(names, lambda v: group_max(libs[v], "kw_fused_group_max", base, nrm, q_op, a))
         for k in ks:
             kg = min(k, base.shape[0] // 16)
             _, gids = select(libs["this"], gm["this"], q.shape[0], kg)
+            out = {v: rescore(libs[v], q, base, nrm, gids, k, a) for v in both}
+            line["equal"] = line["equal"] and all(same_bits(x, y) for x, y in zip(out[both[0]], out["this"]))
             line[f"k{k}_select_ms"] = in_turns(("this",), lambda v: select(libs[v], gm["this"], q.shape[0], kg))
-            line[f"k{k}_rescore_ms"] = in_turns(("this",), lambda v: rescore(libs[v], q, base, nrm, gids, k, a))
+            line[f"k{k}_rescore_ms"] = in_turns(both, lambda v: rescore(libs[v], q, base, nrm, gids, k, a))
         print("fused_ab fused", json.dumps(line), flush=True)
         lines.append(line)
         del gm
@@ -277,8 +275,9 @@ def main() -> int:
     del base_p
     fused += fused_cases(libs, d256.base, q256, [({"metric": "L2"}, d256.nrm, 2.0, (10,))])
     ok_flat = all(ln["gmax_equal"] and ln["select_equal"] for ln in flat)
-    ok_fused = all(ln["gmax_equal"] for ln in fused)
-    print("fused_ab: FLAT equal to the other tree:", ok_flat, "; single-pass variants equal:", ok_fused)
+    ok_fused = all(ln["equal"] for ln in fused)
+    print("fused_ab: FLAT equal to the other tree:", ok_flat, "; the fused scan's launches equal (where it has them):",
+          ok_fused)
     return 0 if ok_flat and ok_fused else 1
 
 

@@ -96,10 +96,10 @@ constexpr uint32_t kStageBytes = kTileRows * kStageStride * 4;
 constexpr uint32_t kGbufBytes = kTileQ * kGroupsPerTile * 4;
 static_assert(2 * kOpBytes + kStageBytes <= 3 * kOpBytes + kGbufBytes, "staging overruns the buffers");
 constexpr size_t kFlatSmem = 3 * (size_t)kOpBytes + kGbufBytes + 2 * 8;
-// the single-pass instance: query stages, and blocks an SM it is built for
-// (fused_ab.py also times three stages at one block an SM)
-constexpr int kFusedStages = 2, kFusedBlocks = 2;
-constexpr size_t kFusedSmem = (1 + kFusedStages) * (size_t)kHiOpBytes + kGbufBytes + kFusedStages * 8;
+// both instances ring two query stages; the single pass's smaller tiles fit
+// two blocks an SM (FLAT's one)
+constexpr int kStages = 2;
+constexpr size_t kFusedSmem = (1 + kStages) * (size_t)kHiOpBytes + kGbufBytes + kStages * 8;
 
 __device__ __forceinline__ float flat_score(float a, float dot, float nr) {
   return __fsub_rn(__fmul_rn(a, dot), nr);  // a*dot - |x|^2, no FMA contraction
@@ -107,8 +107,8 @@ __device__ __forceinline__ float flat_score(float a, float dot, float nr) {
 
 // base (nb_pad, d) f32; q_op: (nq_pad/128, kc_n) chunk images of the
 // queries (hi/lo with kThree, hi-only without); gmax (nq_pad, n_groups).
-template <bool kThree, int kStages, int kMinBlocks>
-__global__ void __launch_bounds__(256, kMinBlocks)
+template <bool kThree>
+__global__ void __launch_bounds__(256, kThree ? 1 : 2)
     group_max_kernel(const float* __restrict__ base, const float* __restrict__ nrm,
                      const __nv_bfloat16* __restrict__ q_op, float* __restrict__ gmax, int kc_n, int n_qt,
                      int n_groups, float a) {
@@ -147,8 +147,9 @@ __global__ void __launch_bounds__(256, kMinBlocks)
       split_rows<256>(xst + kHalfRows * kStageStride, sA, kHalfRows, kTileRows, kHalfRows, true, tid);
     } else {
       // thread t rounds row t % 128's slices t / 128 + 2 j (8 features, two
-      // float4 each) straight into the image, kRound slices in flight
-      constexpr int kRound = kMinBlocks == 1 ? 8 : 2;
+      // float4 each) straight into the image, kRound slices in flight (four
+      // spilled at the two blocks' 128 registers)
+      constexpr int kRound = 2;
       const int r = tid % kTileRows;
       const float* src_r = src + (size_t)r * d;
 #pragma unroll
@@ -170,7 +171,7 @@ __global__ void __launch_bounds__(256, kMinBlocks)
     __syncthreads();  // sA is whole and visible to wgmma; the staging tile is free
   };
   auto load_b = [&](int s) {  // q_op chunk image s is (query tile, chunk) of step s
-    const int st = ring ? (kStages == 2 ? s & 1 : s % kStages) : 0;
+    const int st = ring ? s & 1 : 0;
     mbar_expect_tx(&bars[st], kOp);
     bulk_g2s(sB0 + st * kOp, q_op + (size_t)s * kOpElems, kOp, &bars[st]);
   };
@@ -193,7 +194,7 @@ __global__ void __launch_bounds__(256, kMinBlocks)
   float acc[kTileQ / 2];
   for (int s = 0; s < steps; ++s) {
     const int kc = s % kc_n;
-    const int st = ring ? (kStages == 2 ? s & 1 : s % kStages) : 0;
+    const int st = ring ? s & 1 : 0;
     if ((kThree ? !ring : kc_n > 1) || s == 0) load_a(kc);  // the last step's products and group maxima are done
     if (kThree && ring && s == 0 && tid == 0 && steps > 1) load_b(1);  // stage 1 is free of the staging
     mbar_wait(&bars[st], ph_b[st]);
@@ -500,12 +501,12 @@ __global__ void __launch_bounds__(kSelThreads)
   }
 }
 
-template <bool kThree, int kStages, int kMinBlocks>
+template <bool kThree>
 int launch_group_max(size_t smem, const void* base, const void* nrm, const void* q_op, void* gmax, int nb_pad,
                      int nq_pad, int d, float a, void* stream) {
   if (nb_pad % kTileRows || nq_pad % kTileQ || d % kChunk || nb_pad <= 0 || nq_pad <= 0 || d <= 0)
     return (int)cudaErrorInvalidValue;
-  auto kernel = group_max_kernel<kThree, kStages, kMinBlocks>;
+  auto kernel = group_max_kernel<kThree>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   kernel<<<nb_pad / kTileRows, 256, smem, (cudaStream_t)stream>>>(
@@ -524,15 +525,14 @@ using namespace kw;
 // nb_pad/16).
 extern "C" int kw_flat_group_max(const void* base, const void* nrm, const void* q_op, void* gmax,
                                  int nb_pad, int nq_pad, int d, float a, void* stream) {
-  return launch_group_max<true, 2, 1>(kFlatSmem, base, nrm, q_op, gmax, nb_pad, nq_pad, d, a, stream);
+  return launch_group_max<true>(kFlatSmem, base, nrm, q_op, gmax, nb_pad, nq_pad, d, a, stream);
 }
 
 // As kw_flat_group_max with the single bf16 pass: q_op (nq_pad/128, d/128,
 // 16, 128, 8) hi-only images (cuda_flat.query_operand_hi).
 extern "C" int kw_fused_group_max(const void* base, const void* nrm, const void* q_op, void* gmax,
                                   int nb_pad, int nq_pad, int d, float a, void* stream) {
-  return launch_group_max<false, kFusedStages, kFusedBlocks>(kFusedSmem, base, nrm, q_op, gmax, nb_pad, nq_pad, d,
-                                                            a, stream);
+  return launch_group_max<false>(kFusedSmem, base, nrm, q_op, gmax, nb_pad, nq_pad, d, a, stream);
 }
 
 // gmax rows 0..nq-1 (row stride n) -> top-k (value, group id) per row.

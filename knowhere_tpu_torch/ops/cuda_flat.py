@@ -146,12 +146,19 @@ def flat_group_max(base, nrm, q_op, a_coef: float) -> torch.Tensor:
 
 def fused_group_max(base, nrm, q_op, a_coef: float) -> torch.Tensor:
     """The single-pass group-max launch alone, against the queries'
-    ``query_operand_hi`` image."""
-    return _group_max("kw_fused_group_max", "fused_knn_scan (group max)", base, nrm, q_op, a_coef)
+    ``query_operand_hi`` image; counted in ``fused_group_max.launches``."""
+    gmax = _group_max("kw_fused_group_max", "fused_knn_scan (group max)", base, nrm, q_op, a_coef)
+    fused_group_max.launches += 1
+    return gmax
+
+
+fused_group_max.launches = 0
 
 
 def flat_select(gmax: torch.Tensor, nq: int, k: int):
-    """The select launch alone: top-k (values, group ids) of gmax rows 0..nq-1."""
+    """The select launch alone: top-k (values, group ids) of gmax rows
+    0..nq-1; counted in ``flat_select.launches`` (FLAT's and the fused
+    scan's)."""
     out_v = torch.empty((nq, k), dtype=torch.float32, device=gmax.device)
     out_g = torch.empty((nq, k), dtype=torch.int32, device=gmax.device)
     p = cuda_build.ptr
@@ -161,7 +168,11 @@ def flat_select(gmax: torch.Tensor, nq: int, k: int):
         ),
         "flat_group_scan (select)",
     )
+    flat_select.launches += 1
     return out_v, out_g
+
+
+flat_select.launches = 0
 
 
 def flat_group_scan(base: torch.Tensor, nrm: torch.Tensor, q: torch.Tensor, k: int, a_coef: float):
@@ -240,8 +251,9 @@ def fused_rescore_plain(q, base, nrm, gids, k: int, a_coef: float):
 def fused_rescore(q: torch.Tensor, base: torch.Tensor, nrm: torch.Tensor, gids: torch.Tensor, k: int, a_coef: float):
     """The fused scan's third launch (csrc/flat_scan.cu fused_rescore_kernel,
     one block a query): the top-k rows of the (nq, kg) groups ``gids`` as
-    ``fused_rescore_plain`` defines them. Returns (scores (nq,k) f32, ids
-    (nq,k) int32)."""
+    ``fused_rescore_plain`` defines them; counted in
+    ``fused_rescore.launches``. Returns (scores (nq,k) f32, ids (nq,k)
+    int32)."""
     if not q.is_cuda:
         return fused_rescore_plain(q, base, nrm, gids, k, a_coef)
     nq, kg = gids.shape
@@ -259,7 +271,11 @@ def fused_rescore(q: torch.Tensor, base: torch.Tensor, nrm: torch.Tensor, gids: 
         ),
         "fused_knn_scan (rescore)",
     )
+    fused_rescore.launches += 1
     return out_s, out_i
+
+
+fused_rescore.launches = 0
 
 
 def _phase2(q, base_g, nrm_g, gids, k_out: int, a_coef: float):

@@ -5,7 +5,7 @@ pass (q and the rows rounded to bf16, products and sums in f32), score
 ``2*dot - norms`` for L2 or ``dot - norms`` for IP (norms are 0 for real IP
 rows, 1e38 for pad rows), and keeps the top-k per query with the smaller row
 id winning among equal scores; a slot whose score is <= -1e38/2 gets id -1.
-For CUDA tensors it runs ``fused_knn_blocks``: per block of
+For CUDA tensors it runs ``fused_knn_blocks``: per block of at most
 ``cuda_flat.NQ_BLOCK`` queries, the single-pass instance of FLAT's
 tensor-core group-max kernel, FLAT's group select at kg = min(k, groups) and
 a rescore kernel over the winning groups' rows (csrc/flat_scan.cu; the
@@ -33,6 +33,7 @@ NEG_INF = -1e38
 ROW_TILE = 128  # corpus rows per kernel tile: the corpus is padded to it
 FEAT_CHUNK = 128  # the kernels take features in chunks of 128
 MAX_K = 1024
+GMAX_BYTES = 256 << 20  # bound on a query block's (queries, nb/16) f32 group maxima
 _PLAIN_ROWS = 65536  # corpus rows per step of the plain version
 
 
@@ -56,11 +57,20 @@ def fused_knn_scan_plain(q, base, norms, *, k: int, is_l2: bool):
     return best_s, best_i.int()
 
 
+def query_block(nb_pad: int) -> int:
+    """Queries a block of ``fused_knn_blocks`` over nb_pad corpus rows:
+    ``cuda_flat.NQ_BLOCK``, or fewer (whole 128-query tiles of the kernel)
+    so that its group maxima stay under GMAX_BYTES: 1,024 up to about 1M
+    rows; one tile from about 8M rows, whose maxima then grow past it."""
+    per_query = nb_pad // cuda_flat.GROUP * 4
+    return min(cuda_flat.NQ_BLOCK, max(128, GMAX_BYTES // per_query // 128 * 128))
+
+
 def fused_knn_blocks(q, base, norms, *, k: int, is_l2: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The scan as three launches per block of ``cuda_flat.NQ_BLOCK`` queries
-    (the group maxima of a block are (NQ_BLOCK, nb/16) f32): the single-pass
-    group max, the select of the top kg = min(k, nb/16) groups, and the
-    rescore of their rows. On CPU tensors each launch's plain version runs."""
+    """The scan as three launches per block of ``query_block(nb)`` queries:
+    the single-pass group max, the select of the top kg = min(k, nb/16)
+    groups, and the rescore of their rows. On CPU tensors each launch's
+    plain version runs."""
     a = 2.0 if is_l2 else 1.0
     kg = min(k, base.shape[0] // cuda_flat.GROUP)
     nq = q.shape[0]
@@ -68,9 +78,10 @@ def fused_knn_blocks(q, base, norms, *, k: int, is_l2: bool) -> Tuple[torch.Tens
         return torch.empty((0, k), dtype=torch.float32, device=q.device), torch.empty(
             (0, k), dtype=torch.int32, device=q.device
         )
+    block = query_block(base.shape[0])
     s_parts, i_parts = [], []
-    for s0 in range(0, nq, cuda_flat.NQ_BLOCK):
-        qb = q[s0 : s0 + cuda_flat.NQ_BLOCK]
+    for s0 in range(0, nq, block):
+        qb = q[s0 : s0 + block]
         _, gids = cuda_flat.fused_group_scan(base, norms, qb, kg, a)
         s, i = cuda_flat.fused_rescore(qb, base, norms, gids, k, a)
         s_parts.append(s)

@@ -157,6 +157,26 @@ def test_query_blocks_give_the_same_bits(data, monkeypatch):
     assert torch.equal(one[0], blocks[0]) and torch.equal(one[1], blocks[1])
 
 
+def test_query_block_bounds_the_group_maxima(data, monkeypatch):
+    """The query block shrinks with the corpus so that a block's (queries,
+    nb/16) f32 group maxima stay under GMAX_BYTES, in whole 128-query tiles
+    and at least one; 1,024 at the 1M-row table shape. A budget forced down
+    to one tile gives the same bits as one block over 300 queries."""
+    assert fused_topk.query_block(1_000_064) == 1024
+    assert fused_topk.query_block(10_000_000) == 128
+    for nb_pad in (1 << 20, 3_000_064, 1 << 22):
+        block = fused_topk.query_block(nb_pad)
+        assert block % 128 == 0 and block * (nb_pad // 16) * 4 <= fused_topk.GMAX_BYTES
+    xb, xq = data
+    q = np.tile(xq, (30, 1))  # 300 rows
+    base, norms, qt = _padded(xb, q, False)
+    one = fused_topk.fused_knn_blocks(qt, base, norms, k=10, is_l2=False)
+    monkeypatch.setattr(fused_topk, "GMAX_BYTES", 128 * (base.shape[0] // 16) * 4)
+    assert fused_topk.query_block(base.shape[0]) == 128
+    blocks = fused_topk.fused_knn_blocks(qt, base, norms, k=10, is_l2=False)
+    assert torch.equal(one[0], blocks[0]) and torch.equal(one[1], blocks[1])
+
+
 def test_rescore_empty_groups_and_slots_match_jax(data):
     """20 real rows padded to 48 (the last group all padding, so its group
     id is -1) at k=50 > kg * 16 = 48: the real rows, then (-1e38, -1)
