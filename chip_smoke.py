@@ -31,50 +31,62 @@ Run from the root of a checkout on a machine with one CUDA GPU. In order:
    Serialize/Deserialize round trip, and an EXACT-precision search of the
    first 1,000 queries (the plain decode scan) that FAST must come within
    0.01 recall of;
-6. IVF_SQ8 on the SIFT1M-like corpus (nlist=1024, sq_type SQ8, FAST,
+6. the range path on the same corpus, with FLAT, IVF_FLAT and IVF_PQ from
+   steps 4 and 5 (the reference's range leg, bench.py:1033-1068: radius =
+   the median 10th-NN distance of 200 queries, nprobe=64, 1,000 queries):
+   FLAT RangeSearch identical to BruteForce.RangeSearch and to its own
+   top-100 inside the radius; IVF_FLAT RangeSearch (FAST: the int8 scan's
+   wide-k rounds) and IVF_PQ RangeSearch (the ADC scan's), every distance
+   in the window, recall against FLAT's range sets, and the IVF_FLAT call
+   once more as one query block, bit for bit; IVF_FLAT AnnIterator, 100
+   queries x 1,000 items; GetVectorByIds and CalcDistByIDs of 1,000 ids;
+   a huge radius on a 100,000-row IVF_FLAT (the covering exact pass); warm
+   wall times, the rounds (k, nprobe), peak device memory;
+7. IVF_SQ8 on the SIFT1M-like corpus (nlist=1024, sq_type SQ8, FAST,
    nprobe=16, k=10; the bench's SQ8 leg): served by the int8 scan over the
    u8 codes with an SQ8-decode rerank; recall@10 against the FLAT truth,
    warm QPS, a 50% bitset search, a Serialize/Deserialize round trip,
    EXACT on the first 1,000 queries; then the same BinarySet loaded with
    KNOWHERE_DISABLE_INT8_SCAN=1, served by the SQ scan kernel, its recall,
    warm QPS and one torch-profiler pass over one search;
-7. IVF_RABITQ on the same corpus (nlist=1024, raw refine, FAST, nprobe=16,
+8. IVF_RABITQ on the same corpus (nlist=1024, raw refine, FAST, nprobe=16,
    refine_k=8, k=10): served by the RaBitQ scan kernel; recall, warm QPS,
    one torch-profiler pass over one search, bitset, round trip, EXACT on
    1,000 queries;
-8. HNSW at the bench's configuration on the same corpus (M=16,
+9. HNSW at the bench's configuration on the same corpus (M=16,
    efConstruction=200, L2, FAST): the build (its all-pairs kNN graph runs
    through the f32 scan kernel; the inline walk must be active), recall@10
    and warm QPS at ef=48, the ef ladder 32 / 48 / 64, a 50% bitset, a 95%
    bitset (the exact-scan fallback), a Serialize/Deserialize round trip, the
    same BinarySet in lean mode (KNOWHERE_GRAPH_INLINE=0, the general walk),
    and one torch-profiler pass over one search;
-9. the single-pass fused kNN scan (fused_knn, the counterpart of the
+10. the single-pass fused kNN scan (fused_knn, the counterpart of the
    reference's pallas_knn) over all queries at k=10, held against its plain
    version on the same inputs, recall@10 against the FLAT truth and its wall
    time beside FLAT's;
-10. the bench's GIST leg of IVF_PQ (m=96, nbits=8, FP16 refine, so
+11. the bench's GIST leg of IVF_PQ (m=96, nbits=8, FP16 refine, so
    m * ksub = 24,576 LUT entries) at a reduced size: a GIST-like corpus of
    100,000 x 960 with 1,000 queries instead of 1M, nlist=256 instead of
    1024 and nprobe=32 instead of 384 (refine_k=32), all cut for chip time;
    FLAT ground truth on that corpus, FAST recall within 0.01 of EXACT;
-11. one torch-profiler pass over one search each of IVF_FLAT (the int8
+12. one torch-profiler pass over one search each of IVF_FLAT (the int8
    scan), IVF_PQ (the ADC scan at its real shape) and IVF_SQ8 FAST (the
-   int8 scan over u8 codes), after every timed search: device ms per
+   int8 scan over u8 codes), and over one IVF_FLAT RangeSearch of step 6
+   (range_profile), after every timed search: device ms per
    kernel, device busy and idle share; then one more IVF_PQ search whose
    ADC launch is held against its plain version on the same inputs, with
    its task count, the share of empty tasks and the share of padded query
    rows in the others;
-12. run the device build's Lloyd steps (a k-means step at the IVF build's
+13. run the device build's Lloyd steps (a k-means step at the IVF build's
    shape, PQ's batched step at SIFT's codebook shape) twice each on the
    same inputs: the same bits;
-13. print the reproducibility line (IVF_FLAT, IVF_PQ and GIST IVF_PQ
+14. print the reproducibility line (IVF_FLAT, IVF_PQ and GIST IVF_PQ
    recall, the ADC task count of one IVF_PQ search: two processes on the
    same seeds print the same), the kernel summary (each kernel's time,
    plain-version time and bound), the card line, and the contract line
    {"ok": true, "device": {...}} last.
 
-Kernel launch counters are zeroed right before each of phases 4-10 and read
+Kernel launch counters are zeroed right before each of phases 4-11 and read
 right after it; every kernel must have launched on its path.
 
 Every phase raises on failure; the script then exits non-zero and prints no
@@ -154,6 +166,14 @@ HNSW_RECALL_FLOOR, HNSW_TPU_ANCHOR = 0.96, 0.9728  # ef=48, 4-bit inline walk
 HNSW_FILTERED_FLOOR, HNSW_FILTERED_ANCHOR = 0.94, 0.9575  # 50% bitset
 HNSW_LEAN_FLOOR, HNSW_LEAN_ANCHOR = 0.96, 0.9734  # general walk
 HNSW_FALLBACK_FLOOR = 0.99  # 95% bitset: the exact scan
+# range path: the reference's range leg (bench.py:1033-1068): radius = the
+# median 10th-NN distance of 200 queries, nprobe=64, 1,000 queries. Recall is
+# the leg's: the mean over queries of |found & exact| / |exact|.
+RANGE_NQ, RANGE_NPROBE = 1000, 64
+RANGE_IVF_RECALL_FLOOR = 0.98  # the JAX package's TPU anchor is 0.9935 (docs/BENCHMARKS.md:23)
+RANGE_PQ_RECALL_FLOOR = 0.975  # no anchor: just under the first measured value, 0.9785
+RANGE_TIE = 1e-3  # FLAT's range set against its top-100: rows this close (relative) to the radius may differ
+ITER_NQ, ITER_ITEMS, ITER_RECALL_FLOOR = 100, 1000, 0.95
 # Published H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W): device
 # memory bytes/s, and operations/s by operand type.
 HBM_BYTES_PER_S = 3.35e12
@@ -902,6 +922,7 @@ def main_path(kt, xb, xq, k=10, nlist=1024, nprobe=12, search_reps=5):
     if out["recall_at_10"] < RECALL_FLOOR:
         raise AssertionError(f"IVF_FLAT recall@10 {out['recall_at_10']} < {RECALL_FLOOR}")
     _profile_later("ivf_profile", lambda idx=ivf: _search(idx, kt, xq, cfg_ivf))  # the int8 scan's search
+    out["_index"] = ivf  # handed to the range path, removed before printing
 
     drop = np.random.default_rng(1).random(len(xb)) < 0.5
     fids, _ = _search(ivf, kt, xq, cfg_ivf, kt.BitsetView.from_bool_array(drop))
@@ -1020,6 +1041,7 @@ def _filtered_and_round_trip(kt, name, tag, idx, ids, xb, xq, flat, search):
 def pq_path(kt, xb, xq, gt, flat):
     """IVF_PQ at the north-star configuration through the public API."""
     pq, ids, out = _serve(kt, "IVF_PQ", "pq", xb, xq, gt, IVF_PQ_BUILD, IVF_PQ_SEARCH, PQ_RECALL_FLOOR)
+    out["_index"] = pq  # handed to the range path, removed before printing
     out["pq_tpu_anchor_recall_at_10"] = PQ_TPU_ANCHOR  # the reference's, not the port's
     # ivf_adc_scan at its real shape, held against its plain version there,
     # and the share of its tasks that are empty
@@ -1360,6 +1382,184 @@ def fused_knn_path(xb, xq, gt, flat_search_s, k=10):
     return out
 
 
+def _range(idx, kt, xq, cfg):
+    """(ids, dists, lims) of a RangeSearch; raises on failure."""
+    res = idx.RangeSearch(kt.GenDataSetFromArray(xq), cfg, kt.BitsetView())
+    if not res.has_value():
+        raise RuntimeError(f"RangeSearch failed: {res.error().name}: {res.what()}")
+    v = res.value()
+    return np.asarray(v.ids), np.asarray(v.distance), np.asarray(v.lims)
+
+
+def _csr_sets(ids, lims):
+    return [set(ids[lims[i] : lims[i + 1]].tolist()) for i in range(len(lims) - 1)]
+
+
+def _range_recall(got, want) -> float:
+    """The reference leg's recall: the mean over queries with exact hits of
+    |found & exact| / |exact|."""
+    per_q = [len(a & b) / len(b) for a, b in zip(got, want) if b]
+    return float(np.mean(per_q)) if per_q else 1.0
+
+
+def _with_rounds(idx, fn):
+    """fn()'s output and the (k, nprobe) of each search round it ran (none
+    for FLAT, which has no rounds)."""
+    node, rounds = idx.node, []
+    if not hasattr(node, "_search_batch"):
+        return fn(), rounds
+    orig = node._search_batch
+
+    def record(xq, k, nprobe, *args, **kw):
+        rounds.append((int(k), int(nprobe)))
+        return orig(xq, k, nprobe, *args, **kw)
+
+    node._search_batch = record
+    try:
+        return fn(), rounds
+    finally:
+        del node._search_batch
+
+
+def _warm_range(idx, kt, xq, cfg):
+    """A warm-up, then one timed RangeSearch with its rounds and the peak
+    device memory of the timed call."""
+    import torch
+
+    _range(idx, kt, xq, cfg)
+    torch.cuda.reset_peak_memory_stats()
+    (res, rounds), wall = _timed(lambda: _with_rounds(idx, lambda: _range(idx, kt, xq, cfg)))
+    return res, {"wall_s": wall, "rounds": rounds, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                 "hits_per_query": float(res[2][-1]) / len(xq)}
+
+
+def _in_window(dists, radius, lims) -> bool:
+    """Every distance finite and inside the radius, each query's run best first."""
+    runs = (np.diff(dists[lims[i] : lims[i + 1]]) for i in range(len(lims) - 1))
+    return bool(np.isfinite(dists).all() and (dists < radius).all() and all((r >= 0).all() for r in runs))
+
+
+def range_path(kt, xb, xq, flat, ivf, pq):
+    """RangeSearch, AnnIterator and the by-id reads on the SIFT-like corpus
+    (the module docstring, step 6): FLAT against BruteForce and its own
+    top-100, IVF_FLAT (the int8 scan's wide-k rounds) and IVF_PQ (the ADC
+    scan's) against FLAT, IVF_FLAT's iterator, GetVectorByIds and
+    CalcDistByIDs, and the covering exact pass on a 100,000-row IVF_FLAT."""
+    from knowhere_tpu_torch.models import ivf as ivf_mod
+
+    t_phase = time.perf_counter()
+    q = xq[:RANGE_NQ]
+    out = {}
+    d10 = _search(flat, kt, xq[:200], {"metric_type": "L2", "k": 10})[1][:, 9]
+    radius = float(np.median(d10))
+    out["radius"] = radius
+    cfg = {"metric_type": "L2", "radius": radius}
+
+    # FLAT: identical to BruteForce.RangeSearch; the set of each query equals
+    # its top-100 ids inside the radius wherever the 100th lies outside it
+    (f_ids, f_d, f_lims), out["flat"] = _warm_range(flat, kt, q, cfg)
+    bf = kt.BruteForce.RangeSearch(kt.GenDataSetFromArray(xb), kt.GenDataSetFromArray(q), cfg)
+    if not bf.has_value():
+        raise RuntimeError(f"BruteForce.RangeSearch failed: {bf.what()}")
+    if not (np.array_equal(np.asarray(bf.value().lims), f_lims) and np.array_equal(np.asarray(bf.value().ids), f_ids)):
+        raise AssertionError("FLAT RangeSearch differs from BruteForce.RangeSearch")
+    if not _in_window(f_d, radius, f_lims):
+        raise AssertionError("FLAT RangeSearch returned a distance outside the window or out of order")
+    top_i, top_d = _search(flat, kt, q, {"metric_type": "L2", "k": 100})
+    flat_sets = _csr_sets(f_ids, f_lims)
+    checked = 0
+    for i in range(len(q)):
+        if top_d[i, -1] < radius:
+            continue
+        want = set(top_i[i][top_d[i] < radius].tolist())
+        for r in flat_sets[i] ^ want:
+            if abs(float(((q[i] - xb[r]) ** 2).sum()) - radius) > RANGE_TIE * radius:
+                raise AssertionError(f"FLAT range set of query {i} differs from its top-100 at row {r}")
+        checked += 1
+    out["flat"]["queries_checked_vs_top100"] = checked
+
+    # IVF_FLAT (FAST: the int8 scan's rounds) and IVF_PQ (the ADC scan's)
+    icfg = dict(cfg, nprobe=RANGE_NPROBE)
+    (i_ids, i_d, i_lims), out["ivf_flat"] = _warm_range(ivf, kt, q, icfg)
+    if not _in_window(i_d, radius, i_lims):
+        raise AssertionError("IVF_FLAT RangeSearch returned a distance outside the window or out of order")
+    out["ivf_flat"]["recall"] = _range_recall(_csr_sets(i_ids, i_lims), flat_sets)
+    if out["ivf_flat"]["recall"] < RANGE_IVF_RECALL_FLOOR:
+        raise AssertionError(f"IVF_FLAT range recall {out['ivf_flat']['recall']} < {RANGE_IVF_RECALL_FLOOR}")
+    _profile_later("range_profile", lambda idx=ivf: _range(idx, kt, q, icfg))  # where its wall goes
+    # the same call in one query block: the wide rounds' blocks give its bits
+    budget = ivf_mod.SCAN_BLOCK_BYTES
+    ivf_mod.SCAN_BLOCK_BYTES = 1 << 40
+    try:
+        import torch
+
+        torch.cuda.reset_peak_memory_stats()
+        one = _range(ivf, kt, q, icfg)
+        out["ivf_flat"]["one_block_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        ivf_mod.SCAN_BLOCK_BYTES = budget
+    out["ivf_flat"]["blocks_bit_equal"] = all(
+        a.dtype == b.dtype and np.array_equal(a.view(np.uint8), b.view(np.uint8)) for a, b in zip(one, (i_ids, i_d, i_lims))
+    )
+    if not out["ivf_flat"]["blocks_bit_equal"]:
+        raise AssertionError("IVF_FLAT RangeSearch in query blocks differs from one block")
+    (p_ids, p_d, p_lims), out["ivf_pq"] = _warm_range(pq, kt, q, icfg)
+    if not _in_window(p_d, radius, p_lims):
+        raise AssertionError("IVF_PQ RangeSearch returned a distance outside the window or out of order")
+    out["ivf_pq"]["recall"] = _range_recall(_csr_sets(p_ids, p_lims), flat_sets)
+    if out["ivf_pq"]["recall"] < RANGE_PQ_RECALL_FLOOR:
+        raise AssertionError(f"IVF_PQ range recall {out['ivf_pq']['recall']} < {RANGE_PQ_RECALL_FLOOR}")
+
+    # IVF_FLAT AnnIterator: ITER_ITEMS items of ITER_NQ queries
+    def drain():
+        res = ivf.AnnIterator(kt.GenDataSetFromArray(q[:ITER_NQ]), {"metric_type": "L2", "nprobe": RANGE_NPROBE},
+                              kt.BitsetView())
+        if not res.has_value():
+            raise RuntimeError(f"AnnIterator failed: {res.what()}")
+        items = []
+        for it in res.value():
+            got = [it.Next() for _ in range(ITER_ITEMS) if it.HasNext()]
+            items.append((np.array([i for i, _ in got]), np.array([d for _, d in got])))
+        return items
+
+    items, rounds = _with_rounds(ivf, drain)
+    items, wall = _timed(drain)
+    for ids, d in items:
+        if len(ids) != ITER_ITEMS or len(np.unique(ids)) != ITER_ITEMS or (np.diff(d) < 0).any():
+            raise AssertionError("IVF_FLAT iterator: short, repeated ids or distances out of order")
+    gt10 = _search(flat, kt, q[:ITER_NQ], {"metric_type": "L2", "k": 10})[0]
+    out["iterator"] = {"wall_s": wall, "rounds": rounds,
+                       "recall_at_10": recall_at(np.stack([ids[:10] for ids, _ in items]), gt10)}
+    if out["iterator"]["recall_at_10"] < ITER_RECALL_FLOOR:
+        raise AssertionError(f"IVF_FLAT iterator recall@10 {out['iterator']['recall_at_10']} < {ITER_RECALL_FLOOR}")
+
+    # by-id reads
+    pick = np.random.default_rng(5).choice(len(xb), 1000, replace=False)
+    res, wall = _timed(lambda: ivf.GetVectorByIds(kt.GenIdsDataSet(pick)))
+    if not res.has_value() or not np.array_equal(np.asarray(res.value().tensor).reshape(len(pick), -1), xb[pick]):
+        raise AssertionError("IVF_FLAT GetVectorByIds is not the corpus rows")
+    dres, dwall = _timed(lambda: ivf.CalcDistByIDs(kt.GenDataSetFromArray(q[:100]), None, pick, len(pick)))
+    want = ((q[:100, None, :].astype(np.float64) - xb[pick][None].astype(np.float64)) ** 2).sum(-1)
+    err = float(np.abs(dres.value() - want).max() / np.abs(want).max()) if dres.has_value() else float("inf")
+    out["by_id"] = {"get_vector_s": wall, "calc_dist_s": dwall, "calc_dist_max_rel_err": err}
+    if err > 1e-3:
+        raise AssertionError(f"IVF_FLAT CalcDistByIDs differs from numpy float64 by {err}")
+
+    # a huge radius on a 100,000-row IVF_FLAT: the rounds stop at
+    # DEVICE_K_MAX = 65,536 and the covering exact pass returns every row
+    n_small = min(100_000, len(xb))
+    small = kt.IndexFactory.Instance().Create("IVF_FLAT").value()
+    if small.Build(kt.GenDataSetFromArray(xb[:n_small]), {"metric_type": "L2", "nlist": 256}) != kt.Status.success:
+        raise RuntimeError("IVF_FLAT (100,000 rows) Build failed")
+    (h_ids, h_d, h_lims), out["covering"] = _warm_range(small, kt, q[:8], {"metric_type": "L2", "radius": 1e12})
+    if not (np.diff(h_lims) == n_small).all() or not _in_window(h_d, 1e12, h_lims):
+        raise AssertionError("the covering pass did not return every row, sorted")
+    if any(len(np.unique(h_ids[h_lims[i] : h_lims[i + 1]])) != n_small for i in range(8)):
+        raise AssertionError("the covering pass returned a row twice")
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def _run_path(name, wrappers, must_launch, fn):
     """Drive one path with every launch counter zeroed just before it; the
     counts are read just after it, and each kernel of the path must have
@@ -1422,11 +1622,16 @@ def main() -> int:
         "main path", wrappers, ("ivf_int8_scan", "ivf_f32_scan", "flat_group_scan"),
         lambda: main_path(kt, xb, xq),
     )
-    print("main path:", json.dumps(e2e))
+    print("main path:", json.dumps({k: v for k, v in e2e.items() if k != "_index"}))
     launches = {n: counts[n] for n in ("ivf_int8_scan", "ivf_f32_scan", "flat_group_scan")}
     pq_out, counts = _run_path("ivf_pq path", wrappers, ("ivf_adc_scan",), lambda: pq_path(kt, xb, xq, gt, flat))
-    print("ivf_pq path:", json.dumps(pq_out))
+    print("ivf_pq path:", json.dumps({k: v for k, v in pq_out.items() if k != "_index"}))
     launches["ivf_adc_scan"] = counts["ivf_adc_scan"]
+    range_out, _ = _run_path(
+        "range path", wrappers, ("ivf_int8_scan", "ivf_adc_scan"),
+        lambda: range_path(kt, xb, xq, flat, e2e.pop("_index"), pq_out.pop("_index")),
+    )
+    print("range path:", json.dumps(range_out))
     sq_out, counts = _run_path(
         "ivf_sq8 path", wrappers, ("ivf_int8_scan", "ivf_sq_scan"), lambda: sq8_path(kt, xb, xq, gt, flat)
     )

@@ -4,7 +4,8 @@ H100.
 The same public API as the JAX package (factory / Index / DataSet /
 BitsetView / BinarySet, Status codes, the KWTPU section format), with the
 TPU's Pallas kernels replaced by CUDA kernels written for Hopper
-(``csrc/``). This slice serves FLAT and IVF_FLAT:
+(``csrc/``). It serves FLAT, the IVF family (IVF_FLAT, IVF_PQ, IVF_SQ8,
+IVF_RABITQ), the HNSW family and the dense BruteForce calls:
 
     import knowhere_tpu_torch as kt
     kt.set_device("cuda")          # the default; "cpu" runs the plain versions
@@ -37,5 +38,6 @@ from .status import KnowhereException, Status, StatusCategory, expected, status_
 
 # Importing models registers the index families with the factory.
 from . import models  # noqa: F401  isort: skip
+from .brute_force import BruteForce  # noqa: F401  isort: skip
 
 __version__ = "0.1.0"

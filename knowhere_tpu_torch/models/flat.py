@@ -4,26 +4,30 @@ dense FLAT only).
 The stored base lives on the device once. Unfiltered L2/IP/COSINE searches
 over nb >= 16384 rows with k <= 1024 take the two-phase exact scan
 (ops/cuda_flat.py, CUDA group-scan kernel) on any device; filtered and small
-searches take the streaming tiled scan (ops/topk.py).
+searches take the streaming tiled scan (ops/topk.py). RangeSearch runs the
+tiled range scan (ops/range.py); AnnIterator and CalcDistByIDs score full
+f32 distances on the device (AnnIterator keeps one nb-float row a query on
+the host, so callers keep nq small).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 
 from ..binaryset import BinarySet
 from ..bitset import BitsetView
 from ..config import BaseConfig, Config
-from ..dataset import DataSet, GenResultDataSet, GenTensorDataSet
+from ..dataset import DataSet, GenRangeResultDataSet, GenResultDataSet, GenTensorDataSet
 from ..device import to_device
 from ..factory import register_index
 from ..feature import feature
 from ..index_param import BINARY_METRICS, IndexEnum, normalize_metric
-from ..index_node import IndexNode
+from ..index_node import IndexNode, PrecomputedDistanceIterator
 from ..io.serialize import read_sections, write_sections
 from ..ops import distances as D
+from ..ops import range as R
 from ..ops import topk as T
 from ..status import KnowhereException, Status, expected
 from ..utils.spill import release_spill, spill_array
@@ -132,6 +136,29 @@ class FlatIndexNode(IndexNode):
             xq = xq / np.maximum(qn, 1e-12)
         return flat_topk(xq, store, k)
 
+    def RangeSearch(self, dataset: DataSet, cfg: Config, bitset: BitsetView) -> "expected[DataSet]":
+        metric = normalize_metric(cfg.metric_type)
+        self._check_metric(metric)
+        dev = self._ensure_device()
+        mask = bitset.device_mask(self.Count()) if not bitset.empty_view() else None
+        ids, dists, lims = R.range_search(
+            np.asarray(dataset.tensor, dtype=np.float32), dev, cfg.radius, cfg.range_filter, metric,
+            bitset_mask=mask, aux=D.base_aux(metric, dev),
+        )
+        ids, dists, lims = R.apply_range_search_k(
+            ids, dists, lims, cfg.get("range_search_k", -1), D.larger_is_better(metric)
+        )
+        return expected.Ok(GenRangeResultDataSet(dataset.rows, ids, dists, lims))
+
+    def AnnIterator(
+        self, dataset: DataSet, cfg: Config, bitset: BitsetView, use_knowhere_search_pool=True
+    ) -> "expected[List]":
+        metric = normalize_metric(cfg.metric_type)
+        self._check_metric(metric)
+        dev = self._ensure_device()
+        keep = bitset.host_mask(self.Count()) if not bitset.empty_view() else None
+        return expected.Ok(precomputed_iterators(np.asarray(dataset.tensor, dtype=np.float32), dev, metric, keep))
+
     def GetVectorByIds(self, dataset: DataSet) -> "expected[DataSet]":
         if self._xb is None:
             return expected.Err(Status.empty_index, "index not built")
@@ -139,6 +166,16 @@ class FlatIndexNode(IndexNode):
         if ids.min(initial=0) < 0 or ids.max(initial=-1) >= self.Count():
             return expected.Err(Status.invalid_args, "id out of range")
         return expected.Ok(GenTensorDataSet(self._xb[ids], len(ids), self._dim))
+
+    def CalcDistByIDs(self, query_ds, bitset, ids, rows) -> "expected[np.ndarray]":
+        """Exact distances of every query to the stored rows ``ids`` under
+        the build metric: (nq, len(ids)) f32."""
+        if self._xb is None:
+            return expected.Err(Status.empty_index, "index not built")
+        sub = to_device(np.asarray(self._xb[np.asarray(ids, dtype=np.int64)]))
+        q = to_device(np.asarray(query_ds.tensor, dtype=np.float32))
+        dmat = D.pairwise_distance(self._metric, q, sub, D.base_aux(self._metric, sub))
+        return expected.Ok(dmat.cpu().numpy())
 
     @staticmethod
     def HasRawData(metric_type: str) -> bool:
@@ -184,6 +221,19 @@ class FlatIndexNode(IndexNode):
     @staticmethod
     def CreateConfig() -> Config:
         return FlatConfig()
+
+
+def precomputed_iterators(xq: np.ndarray, base, metric: str, keep: Optional[np.ndarray], chunk: int = 256) -> list:
+    """One PrecomputedDistanceIterator a query over its full distance row to
+    ``base`` (a device tensor), computed on the device ``chunk`` queries at a
+    time; ``keep`` is the host keep-mask or None."""
+    larger = D.larger_is_better(metric)
+    aux = D.base_aux(metric, base)
+    iterators = []
+    for s in range(0, xq.shape[0], chunk):
+        dmat = D.pairwise_distance(metric, to_device(xq[s : s + chunk]), base, aux).cpu().numpy()
+        iterators.extend(PrecomputedDistanceIterator(row, keep, larger) for row in dmat)
+    return iterators
 
 
 register_index(

@@ -36,15 +36,25 @@ merges per query:
   the reference.
 
 A query that comes back with fewer than k results is re-probed with nprobe x4
-per round until it is full (ensure_topk_full, on by default). CC appends,
-RangeSearch, iterators and GetVectorByIds come with later slices of the port
-and report Status.not_implemented; so does IVF_SQ_CC.
+per round until it is full (ensure_topk_full, on by default). A scan whose
+merge pool and rerank rows would pass SCAN_BLOCK_BYTES runs its queries in
+blocks (results are per query, so they equal one block's bit for bit).
+
+RangeSearch and AnnIterator run the same searches in expanding rounds (k x4
+a round up to DEVICE_K_MAX, nprobe x4 while a frontier runs short), each
+round through the variant's scan kernel; what the rounds cannot cover ends
+in one exact pass over every stored row (_full_sorted: the rows as the
+scans score them, decoded on the device, distances in float64).
+GetVectorByIds returns IVF_FLAT's raw rows; PQ, SQ and RaBitQ answer
+Status.not_implemented, as HasRawData says. CalcDistByIDs scores the raw or
+refine rows. CC appends and IVF_SQ_CC are not ported yet.
 """
 
 from __future__ import annotations
 
+import math
 import os
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -52,18 +62,20 @@ import torch
 from ..binaryset import BinarySet
 from ..bitset import BitsetView
 from ..config import BaseConfig, Config, Entry, Stage
-from ..dataset import DataSet, GenResultDataSet
+from ..dataset import DataSet, GenRangeResultDataSet, GenResultDataSet, GenTensorDataSet
 from ..device import get_device, to_device
 from ..factory import register_index
 from ..feature import feature
 from ..index_param import IndexEnum, metric as M, normalize_metric
-from ..index_node import IndexNode
+from .. import index_node as _index_node
+from ..index_node import ExpandingIteratorGroup, IndexNode
 from ..io.serialize import read_sections, write_sections
 from ..ops import distances as D
 from ..ops import quant as Q
 from ..ops.distances import DistancePrecision, get_distance_precision, pad_rows_ladder
-from ..ops.ivf_cuda import LIST_ALIGN
-from ..ops.ivf_scan import coarse_probe, coarse_probe_host, ivf_scan_search
+from ..ops.adc_cuda import unpack_codes
+from ..ops.ivf_cuda import LIST_ALIGN, unpack_signs
+from ..ops.ivf_scan import _nib, coarse_probe, coarse_probe_host, ivf_scan_search, pool_bound, scan_route
 from ..ops.kmeans import assign_rows, kmeans
 from ..ops.refine import RefineStore, refine_topk_device, sq8_encode
 from ..status import KnowhereException, Status, expected
@@ -75,6 +87,15 @@ B_SLACK = 2048  # zero rows after the store: a block slice never runs off its en
 # zeroed buffer filled in chunks of this many bytes, never a full-size
 # float64 or padded temporary (as knowhere_tpu/models/ivf.py uploads)
 UPLOAD_CHUNK_BYTES = 256 << 20
+# device bytes one query block of a scan may hold: its merge pool (about
+# POOL_ENTRY_BYTES a candidate) and the rows its rerank gathers. A search
+# whose batch would pass it (the wide-k rounds of RangeSearch and
+# AnnIterator, a Search at a large k) runs its queries in blocks; at k=10
+# the block is the whole batch.
+SCAN_BLOCK_BYTES = 2 << 30
+POOL_ENTRY_BYTES = 32  # f32 score + int64 position, and the merge sort's copy of both
+FULL_SORT_ROWS = 65536  # stored rows decoded per step of _full_sorted
+FULL_SORT_QUERIES = 64  # queries per step of _full_sorted: (64, nb) distances and their sort
 
 
 def match_nlist(rows: int, nlist: int) -> int:
@@ -198,6 +219,7 @@ class IvfIndexNode(IndexNode):
         self._centroids: Optional[np.ndarray] = None
         self._norms_raw: Optional[np.ndarray] = None  # cosine restore norms
         self._row_ids: Optional[np.ndarray] = None  # padded sorted pos -> row id (-1 pad)
+        self._pos_of_row: Optional[np.ndarray] = None  # row id -> padded sorted pos (derived)
         self._offsets: Optional[np.ndarray] = None  # (nlist+1,) padded storage starts
         self._lengths: Optional[np.ndarray] = None  # (nlist,) TRUE list lengths
         self._count = 0
@@ -309,6 +331,8 @@ class IvfIndexNode(IndexNode):
         dst = np.arange(nb, dtype=np.int64) + np.repeat(self._offsets[:-1] - true_starts, counts)
         self._row_ids = np.full(nb_pad, -1, dtype=np.int64)
         self._row_ids[dst] = order
+        self._pos_of_row = np.empty(nb, dtype=np.int64)
+        self._pos_of_row[order] = dst
 
         def place(a_sorted: np.ndarray, fill=0) -> np.ndarray:
             """Scatter unpadded sorted rows into the aligned layout."""
@@ -369,6 +393,8 @@ class IvfIndexNode(IndexNode):
         self._offsets = np.asarray(arrays["offsets"], dtype=np.int64)
         valid = self._row_ids >= 0
         self._count = int(valid.sum())
+        self._pos_of_row = np.empty(self._count, dtype=np.int64)
+        self._pos_of_row[self._row_ids[valid]] = np.nonzero(valid)[0]
         if "lengths" in arrays:
             self._lengths = np.asarray(arrays["lengths"], dtype=np.int64)
         else:  # pre-alignment blob: storage was compact
@@ -623,29 +649,46 @@ class IvfIndexNode(IndexNode):
             return _Plan("bf16", True, min(max(4 * k_coarse, 32), max(nb, 1)), k_coarse)
         return _Plan("fast", False, k_coarse, k_coarse)
 
-    def _kernel_eligible(self, plan: _Plan) -> bool:
-        """Whether the scan takes a kernel path (the reference's fused path):
-        the probe then stays on the device."""
-        from ..ops.ivf_scan import adc_available, int8_available, rbq_available, scan_available, sq_available
+    def _route(self, plan: _Plan) -> str:
+        """The scan's path (ops/ivf_scan.scan_route): a kernel's, or "plain"."""
+        return scan_route(
+            self._store, self._d_dev, plan.k_scan, self._offsets, plan.prec, self._sq_levels, self._sq_packed4
+        )[0]
 
-        st, d, k_scan, offs = self._store, self._d_dev, plan.k_scan, self._offsets
-        if plan.prec == "int8":
-            return int8_available(st, d, k_scan, offs)
-        if plan.prec == "exact":
-            return False
-        if self.VARIANT == "pq":
-            return adc_available(st, d, k_scan, offs)
-        if self.VARIANT == "sq":
-            return sq_available(d, st["codes"].shape[1], k_scan, offs, self._sq_levels, self._sq_packed4, plan.prec)
-        if self._is_rabitq():
-            return rbq_available(st, d, k_scan, offs)
-        return scan_available(d, k_scan, offs, plan.prec)
+    def _scan_blocks(self, plan: _Plan, nprobe: int, nq: int, nq_pad: int):
+        """(query row ranges, pool width) of one scan: the whole padded batch
+        when it fits SCAN_BLOCK_BYTES, else blocks of its first nq rows. The
+        merged pool holds its candidates in its first ``width`` columns, so
+        the rerank gathers no more."""
+        pool = pool_bound(self._route(plan), self._lengths, nprobe, plan.k_scan)
+        width = min(plan.k_scan, pool)
+        reranks = plan.two_stage or self._refine_store is not None
+        per_query = pool * POOL_ENTRY_BYTES + (width * self._d_dev * 4 if reranks else 0)
+        nqb = max(1, SCAN_BLOCK_BYTES // per_query)
+        if nqb >= nq_pad:
+            return [(0, nq_pad)], width
+        return [(b, min(b + nqb, nq)) for b in range(0, nq, nqb)], width
 
-    def _run_scan(self, q_pad_dev, probes, plan: _Plan, keep_sorted, k: int):
-        """Scan (in the OPQ frame for IVF_PQ) and refine one padded query
-        batch: (scores or dists, positions, "score" | "dist") on the device."""
-        is_l2 = self._is_l2_like()
+    def _run_scan(self, q_pad_dev, probes, plan: _Plan, keep_sorted, k: int, nq: int):
+        """Scan (in the OPQ frame for IVF_PQ) and refine the first nq rows of
+        one padded query batch, in query blocks when it is wide (_scan_blocks):
+        (scores or dists, positions, "score" | "dist") on the device."""
         q_scan = q_pad_dev @ self._store["rot_t"] if "rot_t" in self._store else q_pad_dev
+        nprobe = self._nlist if probes is None else probes.shape[1]
+        blocks, width = self._scan_blocks(plan, nprobe, nq, q_pad_dev.shape[0])
+        outs = [
+            self._scan_block(
+                q_pad_dev[b0:b1], q_scan[b0:b1], None if probes is None else probes[b0:b1],
+                plan, keep_sorted, k, width,
+            )
+            for b0, b1 in blocks
+        ]
+        if len(outs) == 1:
+            return outs[0]
+        return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs]), outs[0][2]
+
+    def _scan_block(self, q_pad_dev, q_scan, probes, plan: _Plan, keep_sorted, k: int, width: int):
+        is_l2 = self._is_l2_like()
         s, p = ivf_scan_search(
             q_scan, self._store, probes, self._offsets, plan.k_scan, is_l2,
             keep_sorted=keep_sorted, prec=plan.prec, list_lengths=self._lengths,
@@ -656,17 +699,24 @@ class IvfIndexNode(IndexNode):
                 store = RefineStore("sq8", self._store["codes"], self._store["vmin"], self._store["vdiff"])
             else:
                 store = RefineStore("raw", self._store["data"])
-            return (*refine_topk_device(q_pad_dev, store, p, plan.k_coarse, is_l2), "dist")
-        if self._refine_store is not None:
-            return (*refine_topk_device(q_pad_dev, self._refine_store, p, k, is_l2), "dist")
-        return s, p, "score"
+            k_out = plan.k_coarse
+        elif self._refine_store is not None:
+            store, k_out = self._refine_store, k
+        else:
+            return s, p, "score"
+        d_r, p_r = refine_topk_device(q_pad_dev, store, p[:, :width], k_out, is_l2)
+        if d_r.shape[1] < k_out:  # a pool narrower than k_out: the refine's own padding
+            pad = (0, k_out - d_r.shape[1])
+            d_r = torch.nn.functional.pad(d_r, pad, value=float("inf") if is_l2 else -float("inf"))
+            p_r = torch.nn.functional.pad(p_r, pad, value=-1)
+        return d_r, p_r, "dist"
 
     def _rescan_subset(self, xq_sub: np.ndarray, probes_sub: np.ndarray, plan: _Plan, keep_sorted, k: int):
         """ensure_topk_full retry for a query subset with host probes."""
         n_sub = xq_sub.shape[0]
         q_pad = self._pad_q_host(xq_sub)
         fill = np.full((q_pad.shape[0] - n_sub, probes_sub.shape[1]), -1, np.int32)
-        s, p, _ = self._run_scan(to_device(q_pad), np.concatenate([probes_sub, fill]), plan, keep_sorted, k)
+        s, p, _ = self._run_scan(to_device(q_pad), np.concatenate([probes_sub, fill]), plan, keep_sorted, k, n_sub)
         return s[:n_sub].cpu().numpy(), p[:n_sub].cpu().numpy().astype(np.int64)
 
     def _search_batch(
@@ -685,7 +735,8 @@ class IvfIndexNode(IndexNode):
         nq_pad = q_pad_dev.shape[0]
         if nprobe_cur >= self._nlist:
             probes = None  # full probe: the deterministic full-scan layout
-        elif self._kernel_eligible(plan) or nq * self._nlist * max(self._dim, 1) > 1 << 24:
+        elif self._route(plan) != "plain" or nq * self._nlist * max(self._dim, 1) > 1 << 24:
+            # a kernel path (the reference's fused path) keeps the probe on the device
             probes = coarse_probe(q_pad_dev, self._store["centroids"], nprobe=nprobe_cur, is_l2=is_l2)
             # padded query rows would probe real lists: mask them out
             row = torch.arange(nq_pad, device=probes.device)[:, None]
@@ -693,7 +744,7 @@ class IvfIndexNode(IndexNode):
         else:
             probes = coarse_probe_host(xq, self._centroids, nprobe_cur, is_l2)
             probes = np.concatenate([probes, np.full((nq_pad - nq, probes.shape[1]), -1, np.int32)])
-        s, p, mode = self._run_scan(q_pad_dev, probes, plan, keep_sorted, k)
+        s, p, mode = self._run_scan(q_pad_dev, probes, plan, keep_sorted, k, nq)
         best_s = s[:nq].cpu().numpy()
         best_p = p[:nq].cpu().numpy().astype(np.int64)
 
@@ -735,6 +786,19 @@ class IvfIndexNode(IndexNode):
         ids = np.where(best_p >= 0, self._row_ids[np.clip(best_p, 0, nb - 1)], -1)
         return dists, ids
 
+    def _queries(self, dataset: DataSet) -> Tuple[np.ndarray, torch.Tensor]:
+        """(compute rows on the host, the padded batch on the device, cached
+        on the dataset)."""
+        xq = self._prep_rows(np.asarray(dataset.tensor))
+        q_pad_dev = dataset.cached_device(
+            f"ivf_qpad:{self._metric}:{self._d_dev}:{get_device()}",
+            lambda: to_device(self._pad_q_host(xq)),
+        )
+        return xq, q_pad_dev
+
+    def _n_valid(self, bitset: BitsetView) -> int:
+        return self.Count() - (bitset.count() if not bitset.empty_view() else 0)
+
     def Search(self, dataset: DataSet, cfg: Config, bitset: BitsetView) -> "expected[DataSet]":
         if self._row_ids is None:
             return expected.Err(Status.empty_index, "index not built")
@@ -743,17 +807,219 @@ class IvfIndexNode(IndexNode):
             return expected.Err(
                 Status.invalid_metric_type, f"index built with {self._metric}, searched with {metric}"
             )
-        xq = self._prep_rows(np.asarray(dataset.tensor))
-        n_valid = self.Count() - (bitset.count() if not bitset.empty_view() else 0)
-        q_pad_dev = dataset.cached_device(
-            f"ivf_qpad:{self._metric}:{self._d_dev}:{get_device()}",
-            lambda: to_device(self._pad_q_host(xq)),
-        )
+        xq, q_pad_dev = self._queries(dataset)
         dists, ids = self._search_batch(
-            xq, cfg.k, int(cfg.get("nprobe", 8)), self._keep_sorted_mask(bitset), n_valid,
+            xq, cfg.k, int(cfg.get("nprobe", 8)), self._keep_sorted_mask(bitset), self._n_valid(bitset),
             bool(cfg.get("ensure_topk_full", True)), q_pad_dev, int(cfg.get("refine_k", 1) or 1),
         )
         return expected.Ok(GenResultDataSet(dataset.rows, cfg.k, ids, dists))
+
+    # --- the covering exact pass (iterator / range-search completion) --------
+    def _decode_rows(self, s: int, e: int) -> torch.Tensor:
+        """Rows at sorted positions [s, e), true width, on the device: the
+        values the scans score against (the raw refine rows when there are
+        some; PQ, SQ and RaBitQ decode their codes). f32, except RaBitQ's
+        decode, which the reference computes in float64."""
+        st, d = self._store, self._dim
+        if self._refine_cfg == "raw" and self._refine_store is not None:
+            return self._refine_store.data[s:e, :d].float()
+        if self.VARIANT == "flat":
+            return st["data"][s:e, :d]
+        if self.VARIANT == "sq":
+            codes = st["codes"][s:e]
+            if self._sq.sq_type in ("FP16", "BF16"):
+                return codes[:, :d].float()
+            if self._sq_packed4:
+                q = torch.stack([codes & 0xF, codes >> 4], dim=-1).reshape(codes.shape[0], -1)[:, :d].float()
+            else:
+                q = codes[:, :d].float()
+            return st["vmin"][:d] + (q + 0.5) / self._sq_levels * st["vdiff"][:d]
+        pos = torch.arange(s, e, device=st["offsets_dev"].device, dtype=torch.int32)
+        lists = (torch.searchsorted(st["offsets_dev"], pos, right=True) - 1).clamp(0, self._nlist - 1)
+        cents = st["centroids"][:, :d][lists]
+        if self.VARIANT == "pq":
+            books = st["codebooks"]  # (m, ksub, sub) f32
+            m = books.shape[0]
+            codes = unpack_codes(st["codes"][s:e], m, _nib(st))
+            dec = books[torch.arange(m, device=books.device)[None, :], codes].reshape(e - s, -1)
+            if self._opq_rot is not None:  # the codes are in the rotated frame
+                dec = dec @ st["rot_t"][:d, :d].T
+            return dec + cents
+        # RaBitQ: the rotated residual is sign / sqrt(d) * r_norm, un-rotated
+        signs = unpack_signs(st["signs"][s:e], d).double()
+        resid = (signs / math.sqrt(d)) * st["r_norm"][s:e].double()[:, None]
+        return cents.double() + resid @ st["rot_t"][:d, :d].T.double()
+
+    def _full_sorted(self, xq: np.ndarray, bitset: BitsetView) -> Tuple[np.ndarray, np.ndarray]:
+        """The covering exact pass over every stored row: (dists, ids), each
+        (nq, n_valid) on the host, best first in the native convention. The
+        distances are float64 over the decoded rows (_decode_rows), rounded
+        to f32, then stably sorted in storage order, as the reference's host
+        pass; here on the device, FULL_SORT_QUERIES queries and
+        FULL_SORT_ROWS rows a step."""
+        rid = self._row_ids
+        nq, nb_pad = xq.shape[0], len(rid)
+        is_l2 = self._is_l2_like()
+        larger = not is_l2
+        invalid = rid < 0
+        if not bitset.empty_view():
+            invalid = invalid | ~bitset.host_mask(self.Count())[np.clip(rid, 0, None)]
+        n_valid = int((~invalid).sum())
+        invalid_dev, rid_dev = to_device(invalid), to_device(rid)
+        out_d = np.empty((nq, n_valid), np.float32)
+        out_i = np.empty((nq, n_valid), np.int64)
+        for q0 in range(0, nq, FULL_SORT_QUERIES):
+            q64 = to_device(np.asarray(xq[q0 : q0 + FULL_SORT_QUERIES], np.float64))
+            dists = torch.empty((q64.shape[0], nb_pad), dtype=torch.float32, device=q64.device)
+            for s in range(0, nb_pad, FULL_SORT_ROWS):
+                e = min(s + FULL_SORT_ROWS, nb_pad)
+                blk = self._decode_rows(s, e).double()
+                dots = q64 @ blk.T
+                if is_l2:
+                    dots = (q64**2).sum(1)[:, None] - 2 * dots + (blk**2).sum(1)[None, :]
+                dists[:, s:e] = dots.float()
+            dists.masked_fill_(invalid_dev[None, :], -float("inf") if larger else float("inf"))
+            order = torch.sort(-dists if larger else dists, dim=1, stable=True).indices[:, :n_valid]
+            out_d[q0 : q0 + FULL_SORT_QUERIES] = torch.gather(dists, 1, order).cpu().numpy()
+            out_i[q0 : q0 + FULL_SORT_QUERIES] = rid_dev[order].cpu().numpy()
+        return out_d, out_i
+
+    # --- RangeSearch, AnnIterator -------------------------------------------
+    def RangeSearch(self, dataset: DataSet, cfg: Config, bitset: BitsetView) -> "expected[DataSet]":
+        """Expanding-k searches over the probed lists until every query's
+        frontier leaves the radius (k x4 a round from 256; nprobe, from at
+        least 8, x4 whenever a frontier runs short, since that means the
+        probed lists ran dry; max_empty_result_buckets rounds that add
+        nothing end it); queries still in range at DEVICE_K_MAX are
+        completed by the covering exact pass. Then the window, and
+        range_search_k."""
+        from ..comp import check_current_cancellation
+
+        if self._row_ids is None:
+            return expected.Err(Status.empty_index, "index not built")
+        xq, q_pad_dev = self._queries(dataset)
+        nq = xq.shape[0]
+        radius = cfg.get("radius", 0.0)
+        range_filter = cfg.get("range_filter", float("inf"))
+        two_sided = np.isfinite(range_filter)
+        larger = not self._is_l2_like()
+        keep_sorted = self._keep_sorted_mask(bitset)
+        n_valid = self._n_valid(bitset)
+        nprobe = min(max(int(cfg.get("nprobe", 8) or 8), 8), self._nlist)
+        max_empty = int(cfg.get("max_empty_result_buckets", 2) or 2)
+
+        k_cur = min(256, max(1, n_valid))
+        cap = min(n_valid, _index_node.DEVICE_K_MAX)
+        empty_rounds = 0
+        while True:
+            check_current_cancellation()
+            dists, ids = self._search_batch(xq, k_cur, nprobe, keep_sorted, n_valid, False, q_pad_dev, 1)
+            filled = ids[:, -1] >= 0
+            if (~filled).any() and nprobe < self._nlist:
+                nprobe = min(self._nlist, nprobe * 4)
+                continue
+            if k_cur >= cap:
+                break
+            frontier = dists[:, -1]
+            still_in = ((frontier > radius) if larger else (frontier < radius)) & filled
+            if not still_in.any():
+                empty_rounds += 1
+                if empty_rounds > max_empty:
+                    break
+            else:
+                empty_rounds = 0
+            k_cur = min(cap, k_cur * 4)
+
+        if cap < n_valid:  # queries still growing at the device cap: the covering pass
+            frontier = dists[:, -1]
+            frontier_in = (frontier > radius) if larger else (frontier < radius)
+            needy = ((ids >= 0).sum(axis=1) < n_valid) & (frontier_in | (ids[:, -1] < 0))
+            if needy.any():
+                act = np.nonzero(needy)[0]
+                pad = ((0, 0), (0, n_valid - dists.shape[1]))
+                dists = np.pad(dists, pad, constant_values=np.float32(-np.inf if larger else np.inf))
+                ids = np.pad(ids, pad, constant_values=-1)
+                for s in range(0, len(act), FULL_SORT_QUERIES):
+                    sub = act[s : s + FULL_SORT_QUERIES]
+                    dists[sub], ids[sub] = self._full_sorted(xq[sub], bitset)
+
+        keep = ids >= 0
+        if larger:
+            keep &= dists > radius
+            if two_sided:
+                keep &= dists <= range_filter
+        else:
+            keep &= dists < radius
+            if two_sided:
+                keep &= dists >= range_filter
+        rsk = cfg.get("range_search_k", -1)
+        if rsk is not None and rsk >= 0:
+            keep &= np.cumsum(keep, axis=1) <= rsk
+        lims = np.zeros(nq + 1, dtype=np.int64)
+        np.cumsum(keep.sum(axis=1), out=lims[1:])
+        return expected.Ok(GenRangeResultDataSet(nq, ids[keep], dists[keep], lims))
+
+    def AnnIterator(
+        self, dataset: DataSet, cfg: Config, bitset: BitsetView, use_knowhere_search_pool=True
+    ) -> "expected[List]":
+        """Resumable rounds (the reference's workspace iterator): round r
+        searches with nprobe0 * 4^r lists and k0 * 4^r results, then one
+        covering exact pass once k passes DEVICE_K_MAX."""
+        if self._row_ids is None:
+            return expected.Err(Status.empty_index, "index not built")
+        xq, q_pad_dev = self._queries(dataset)
+        keep_sorted = self._keep_sorted_mask(bitset)
+        n_valid = self._n_valid(bitset)
+        nprobe0 = min(max(int(cfg.get("nprobe", 8) or 8), 16), self._nlist)
+        k0 = int(min(max(n_valid, 1), 8192))
+        covered = {"done": False}
+
+        def round_fn(r: int):
+            if covered["done"]:
+                return None  # an earlier round covered everything
+            k_r = max(1, min(n_valid, k0 << (2 * r)))
+            nprobe_r = min(self._nlist, nprobe0 << (2 * r))
+            if k_r >= n_valid and nprobe_r >= self._nlist and k_r <= _index_node.DEVICE_K_MAX:
+                covered["done"] = True
+            if k_r > _index_node.DEVICE_K_MAX:
+                covered["done"] = True
+                d_f, i_f = self._full_sorted(xq, bitset)
+                return i_f, d_f
+            dists, ids = self._search_batch(xq, k_r, nprobe_r, keep_sorted, n_valid, True, q_pad_dev, 1)
+            return ids, dists
+
+        group = ExpandingIteratorGroup(xq.shape[0], self.Count(), round_fn)
+        larger = not self._is_l2_like()
+        return expected.Ok([group.make_iterator(i, larger_is_closer=larger) for i in range(xq.shape[0])])
+
+    # --- rows by id ---------------------------------------------------------
+    def GetVectorByIds(self, dataset: DataSet) -> "expected[DataSet]":
+        if not self.HasRawData(self._metric):
+            return expected.Err(Status.not_implemented, "index does not store raw data")
+        if self._row_ids is None:
+            return expected.Err(Status.empty_index, "index not built")
+        ids = np.asarray(dataset.ids, dtype=np.int64)
+        if ids.min(initial=0) < 0 or ids.max(initial=-1) >= self.Count():
+            return expected.Err(Status.invalid_args, "id out of range")
+        out = self._sorted_payload["data"][self._pos_of_row[ids]]
+        if self._metric == M.COSINE and self._norms_raw is not None:  # the stored rows are normalized
+            out = (out * self._norms_raw[ids][:, None]).astype(np.float32)
+        return expected.Ok(GenTensorDataSet(out, len(ids), self._dim))
+
+    def CalcDistByIDs(self, query_ds, bitset, ids, rows) -> "expected[np.ndarray]":
+        """Exact distances of every query to the stored rows ``ids`` (raw rows,
+        or the refine store's), on the device: (nq, len(ids)) f32."""
+        if self.VARIANT == "flat":
+            store = RefineStore("raw", self._store["data"])
+        elif self._refine_store is not None:
+            store = self._refine_store
+        else:
+            return expected.Err(Status.not_implemented, "no raw data for CalcDistByIDs")
+        pos = to_device(self._pos_of_row[np.asarray(ids, dtype=np.int64)])
+        sub = store.rows(pos)[:, : self._dim]
+        q = to_device(self._prep_rows(np.asarray(query_ds.tensor)))
+        internal = self._internal_metric()
+        return expected.Ok(D.pairwise_distance(internal, q, sub, D.base_aux(internal, sub)).cpu().numpy())
 
     def HasRawData(self, metric_type: str = "L2") -> bool:
         # reference CommonHasRawData (ivf.cc:177-199): FLAT true, PQ/SQ/RaBitQ false

@@ -607,6 +607,48 @@ def _tasks(q_dev, store, probes, list_offsets, lens_arr, B, Qg, chunk):
     return (*[to_device(a.astype(np.int32)) for a in arrays], chunk, _pad16(batch.n_slots))
 
 
+def scan_route(
+    store: Dict[str, torch.Tensor], d: int, k: int, list_offsets: np.ndarray, prec: str,
+    sq_levels: int = 0, sq_packed4: bool = False,
+) -> Tuple[str, str]:
+    """The path ivf_scan_search takes, in the reference's dispatch order:
+    ("int8" | "adc" | "f32" | "rbq" | "sq" | "plain", the precision it scans
+    at; int8 without a sidecar falls back to "fast")."""
+    kind = store_kind(store)
+    if prec == "int8":
+        if kind in ("raw", "sq") and int8_available(store, d, k, list_offsets):
+            return "int8", prec
+        prec = "fast"  # no int8 sidecar: the f32 ranking path
+    if kind == "pq" and prec != "exact" and adc_available(store, d, k, list_offsets):
+        return "adc", prec
+    if kind == "raw" and scan_available(d, k, list_offsets, prec):
+        return "f32", prec
+    if kind == "rabitq" and prec != "exact" and rbq_available(store, d, k, list_offsets):
+        return "rbq", prec
+    if kind == "sq" and sq_available(d, store["codes"].shape[1], k, list_offsets, sq_levels, sq_packed4, prec):
+        return "sq", prec
+    return "plain", prec
+
+
+def _plain_block(lens_arr: np.ndarray) -> int:
+    """Rows a plain-scan task covers: 256 for small-list layouts, else 512."""
+    return 256 if float(lens_arr.mean() or 1.0) <= 256 else 512
+
+
+def pool_bound(route: str, list_lengths: np.ndarray, nprobe: int, k: int) -> int:
+    """Upper bound of the candidates one query's merge pool holds (slots S
+    times the per-task top-k kk) on ``route``, probing ``nprobe`` lists:
+    a query's slots are the blocks of its lists, at most those of the
+    nprobe longest. The merged (nq, k) result holds its candidates in its
+    first min(k, bound) columns, then (-inf, -1)."""
+    lens = np.asarray(list_lengths, np.int64)
+    B = _plain_block(lens) if route == "plain" else LIST_ALIGN
+    blocks = (lens + B - 1) // B
+    S = int(np.sort(blocks)[-nprobe:].sum()) if nprobe < blocks.size else int(blocks.sum())
+    kk = min(k, B) if route == "plain" else task_kk(k, B)
+    return max(1, S) * kk
+
+
 def ivf_scan_search(
     q_dev: torch.Tensor,  # (nq, d) f32
     store: Dict[str, torch.Tensor],
@@ -647,25 +689,23 @@ def ivf_scan_search(
     while Qg < min(avg, cap):
         Qg *= 2
 
-    kind = store_kind(store)
+    route, prec = scan_route(store, d, k, list_offsets, prec, sq_levels, sq_packed4)
     args = (q_dev, store, probes, list_offsets, lens_arr, k, is_l2, Qg, keep_sorted)
-    if prec == "int8":
-        if kind in ("raw", "sq") and int8_available(store, d, k, list_offsets):
-            return _int8_search(*args)
-        prec = "fast"  # no int8 sidecar: the f32 ranking path
-    if kind == "pq" and prec != "exact" and adc_available(store, d, k, list_offsets):
+    if route == "int8":
+        return _int8_search(*args)
+    if route == "adc":
         return _adc_search(*args)
-    if kind == "raw" and scan_available(d, k, list_offsets, prec):
+    if route == "f32":
         return _f32_search(*args, three_pass=prec == "fast")
-    if kind == "rabitq" and prec != "exact" and rbq_available(store, d, k, list_offsets):
+    if route == "rbq":
         return _rbq_search(*args, three_pass=prec == "fast")
-    if kind == "sq" and sq_available(d, store["codes"].shape[1], k, list_offsets, sq_levels, sq_packed4, prec):
+    if route == "sq":
         return _sq_search(*args, levels=sq_levels, three_pass=prec == "fast")
 
     # plain full-f32 task scan; blocks shrink for small-list layouts
-    B = 256 if float(lens_arr.mean() or 1.0) <= 256 else 512
+    B = _plain_block(lens_arr)
     kk = min(k, B)
-    chunk = _PLAIN_TASK_CHUNK if kind == "raw" else max(32, _DECODE_BYTES // (B * d * 4))
+    chunk = _PLAIN_TASK_CHUNK if store_kind(store) == "raw" else max(32, _DECODE_BYTES // (B * d * 4))
     tasks = _tasks(q_dev, store, probes, list_offsets, lens_arr, B, Qg, chunk)
     if tasks is None:
         return _empty(nq, k, q_dev.device)

@@ -3,8 +3,8 @@ knowhere_tpu/ops/refine.py).
 
 The scan returns a widened candidate pool; this pass gathers the candidates'
 refine rows (raw f32/fp16/bf16 rows, or SQ8 codes decoded with per-dim
-affine parameters) and recomputes their distances in one batched full-f32
-product, then re-selects the top-k (ties to the earlier candidate, as
+affine parameters) and recomputes their distances in full f32, then
+re-selects the top-k (ties to the earlier candidate, as
 ``jax.lax.top_k``). The reference leaves this to XLA; here it is plain torch
 ops.
 """
@@ -59,7 +59,10 @@ def refine_topk_device(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (dists (nq,k) native convention, positions (nq,k), -1 pad)."""
     vecs = store.rows(cand.clamp(min=0))  # (nq, R, d)
-    dots = torch.einsum("qd,qrd->qr", q, vecs)
+    # a row-wise product and sum, not a batched matmul (whose sums change
+    # with the batch size): a query's scores do not depend on the query
+    # block it is refined in
+    dots = (vecs * q[:, None, :]).sum(2)
     if is_l2:
         dist = (q * q).sum(1, keepdim=True) - 2.0 * dots + (vecs * vecs).sum(2)
         score = -dist

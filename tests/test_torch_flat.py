@@ -13,6 +13,8 @@ import torch
 import knowhere_tpu as kt
 import knowhere_tpu_torch as ktt
 
+from .torch_parity import build, cross_load, search
+
 torch.set_num_threads(2)
 ktt.set_device("cpu")
 
@@ -28,17 +30,11 @@ def _data(nb, nq, d=64, seed=0):
 
 
 def _build(pkg, xb, metric):
-    idx = pkg.IndexFactory.Instance().Create("FLAT").value()
-    assert idx.Build(pkg.GenDataSetFromArray(xb), {"metric_type": metric}) == pkg.Status.success
-    return idx
+    return build(pkg, "FLAT", xb, {"metric_type": metric})
 
 
 def _search(idx, pkg, xq, metric, k=K, bitset=None):
-    res = idx.Search(
-        pkg.GenDataSetFromArray(xq), {"metric_type": metric, "k": k}, bitset or pkg.BitsetView()
-    )
-    assert res.has_value(), res.what()
-    return res.value().ids.reshape(len(xq), k), res.value().distance.reshape(len(xq), k)
+    return search(idx, pkg, xq, {"metric_type": metric, "k": k}, bitset)
 
 
 @pytest.mark.parametrize("nb", [3000, 20000])
@@ -76,12 +72,7 @@ def test_flat_blob_crosses_packages(direction):
     xb, xq = _data(20000, 8, seed=3)
     src, dst = (kt, ktt) if direction == "jax_to_port" else (ktt, kt)
     built = _build(src, xb, "L2")
-    bs = src.BinarySet()
-    assert built.Serialize(bs) == src.Status.success
-    bs2 = dst.BinarySet()
-    bs2.Append("FLAT", bs.GetByName("FLAT").tobytes())
-    loaded = dst.IndexFactory.Instance().Create("FLAT").value()
-    assert loaded.Deserialize(bs2) == dst.Status.success
+    loaded = cross_load(built, dst)
     assert loaded.Count() == len(xb)
     np.testing.assert_array_equal(_search(loaded, dst, xq, "L2")[0], _search(built, src, xq, "L2")[0])
 

@@ -8,8 +8,6 @@ the int8 scan + exact rerank on both sides, EXACT through the full-f32 task
 scan. The port's own Build is held by recall, as the JAX tier is.
 """
 
-import os
-
 import numpy as np
 import pytest
 import torch
@@ -19,14 +17,11 @@ import jax.numpy as jnp
 
 import knowhere_tpu as kt
 import knowhere_tpu_torch as ktt
-from knowhere_tpu.io.serialize import read_sections
 from knowhere_tpu.ops import kmeans as jkmeans
-from knowhere_tpu.ops.distances import DistancePrecision as JP
-from knowhere_tpu.ops.distances import set_distance_precision as jset_prec
 from knowhere_tpu_torch.ops import ivf_scan as tscan
 from knowhere_tpu_torch.ops import kmeans as tkmeans
-from knowhere_tpu_torch.ops.distances import DistancePrecision as TP
-from knowhere_tpu_torch.ops.distances import set_distance_precision as tset_prec
+
+from .torch_parity import build, cross_load, interpret_env, ivf_corpus, recall, search, set_precision
 
 torch.set_num_threads(2)
 ktt.set_device("cpu")
@@ -37,50 +32,17 @@ SEARCH = {"metric_type": "L2", "k": K, "nprobe": NPROBE}
 
 @pytest.fixture(scope="module", autouse=True)
 def _interpret_env():
-    saved = {k: os.environ.get(k) for k in ("KNOWHERE_PALLAS_INTERPRET", "KNOWHERE_IVF_ALIGN_MIN")}
-    os.environ["KNOWHERE_PALLAS_INTERPRET"] = "1"
-    os.environ["KNOWHERE_IVF_ALIGN_MIN"] = "4096"  # aligned lists at test scale
-    yield
-    for k, v in saved.items():
-        if v is None:
-            os.environ.pop(k, None)
-        else:
-            os.environ[k] = v
-    jset_prec(JP.EXACT)
-    tset_prec(TP.EXACT)
-
-
-def _precision(fast: bool):
-    jset_prec(JP.FAST if fast else JP.EXACT)
-    tset_prec(TP.FAST if fast else TP.EXACT)
+    yield from interpret_env()
 
 
 @pytest.fixture(scope="module")
 def corpus():
-    # the generator of tests/test_pallas_interpret_e2e.py, with more queries
-    rng = np.random.default_rng(0)
-    nc, intr = 64, 32
-    centers = rng.standard_normal((nc, DIM)).astype(np.float32)
-    W = rng.standard_normal((intr, DIM)).astype(np.float32) * np.sqrt(DIM / intr) / np.sqrt(intr)
-    xb = centers[rng.integers(0, nc, NB)] + rng.standard_normal((NB, intr)).astype(np.float32) @ W
-    xq = centers[rng.integers(0, nc, NQ)] + rng.standard_normal((NQ, intr)).astype(np.float32) @ W
-    d2 = (xq**2).sum(1)[:, None] - 2.0 * xq @ xb.T + (xb**2).sum(1)[None, :]
-    gt = np.argsort(d2, 1)[:, :K]
-    return xb, xq, gt
+    return ivf_corpus(NB, NQ, DIM, K)
 
 
 @pytest.fixture(scope="module")
 def jax_index(corpus):
-    xb, _, _ = corpus
-    idx = kt.IndexFactory.Instance().Create("IVF_FLAT").value()
-    assert idx.Build(kt.GenDataSetFromArray(xb), {"metric_type": "L2", "nlist": NLIST}) == kt.Status.success
-    return idx
-
-
-def _jax_state(jidx):
-    bs = kt.BinarySet()
-    assert jidx.Serialize(bs) == kt.Status.success
-    return bs.GetByName("IVF_FLAT").tobytes()
+    return build(kt, "IVF_FLAT", corpus[0], {"metric_type": "L2", "nlist": NLIST})
 
 
 @pytest.fixture(scope="module")
@@ -99,19 +61,13 @@ def port_loaded(jax_index):
 
 
 def _search(idx, pkg, xq, bitset=None):
-    res = idx.Search(pkg.GenDataSetFromArray(xq), SEARCH, bitset or pkg.BitsetView())
-    assert res.has_value(), res.what()
-    return res.value().ids.reshape(-1, K), res.value().distance.reshape(-1, K)
-
-
-def _recall(ids, gt):
-    return np.mean([len(set(ids[i]) & set(gt[i])) / K for i in range(len(gt))])
+    return search(idx, pkg, xq, SEARCH, bitset)
 
 
 def _assert_parity(ids_j, d_j, ids_t, d_t, gt):
     same = ids_j == ids_t
     assert same.mean() >= 0.99
-    assert abs(_recall(ids_j, gt) - _recall(ids_t, gt)) <= 0.01
+    assert abs(recall(ids_j, gt) - recall(ids_t, gt)) <= 0.01
     np.testing.assert_allclose(d_t[same], d_j[same], rtol=1e-5)
 
 
@@ -120,17 +76,17 @@ def test_fast_search_matches_jax(corpus, jax_index, port_loaded, monkeypatch):
     hits = []
     orig = tscan._int8_search
     monkeypatch.setattr(tscan, "_int8_search", lambda *a, **kw: hits.append(1) or orig(*a, **kw))
-    _precision(True)
+    set_precision(True)
     ids_j, d_j = _search(jax_index, kt, xq)
     ids_t, d_t = _search(port_loaded, ktt, xq)
     assert hits, "FAST search did not take the int8 scan"
     _assert_parity(ids_j, d_j, ids_t, d_t, gt)
-    assert _recall(ids_t, gt) >= 0.9
+    assert recall(ids_t, gt) >= 0.9
 
 
 def test_exact_search_identical_ids(corpus, jax_index, port_loaded):
     _, xq, _ = corpus
-    _precision(False)
+    set_precision(False)
     ids_j, d_j = _search(jax_index, kt, xq)
     ids_t, d_t = _search(port_loaded, ktt, xq)
     np.testing.assert_array_equal(ids_t, ids_j)
@@ -141,7 +97,7 @@ def test_exact_search_identical_ids(corpus, jax_index, port_loaded):
 def test_filtered_search_matches_jax(corpus, jax_index, port_loaded, fast):
     _, xq, _ = corpus
     drop = np.random.default_rng(1).random(NB) < 0.5
-    _precision(fast)
+    set_precision(fast)
     ids_j, d_j = _search(jax_index, kt, xq, kt.BitsetView.from_bool_array(drop))
     ids_t, d_t = _search(port_loaded, ktt, xq, ktt.BitsetView.from_bool_array(drop))
     valid = ids_t[ids_t >= 0]
@@ -155,38 +111,23 @@ def test_filtered_search_matches_jax(corpus, jax_index, port_loaded, fast):
 
 def test_binaryset_bytes_cross_load_both_ways(corpus, jax_index, port_loaded):
     _, xq, _ = corpus
-    _precision(True)
+    set_precision(True)
     # JAX bytes -> port
-    bs_t = ktt.BinarySet()
-    bs_t.Append("IVF_FLAT", _jax_state(jax_index))
-    idx_t = ktt.IndexFactory.Instance().Create("IVF_FLAT").value()
-    assert idx_t.Deserialize(bs_t) == ktt.Status.success
+    idx_t = cross_load(jax_index, ktt)
     np.testing.assert_array_equal(_search(idx_t, ktt, xq)[0], _search(port_loaded, ktt, xq)[0])
     # port bytes -> JAX
-    bs_p = ktt.BinarySet()
-    assert port_loaded.Serialize(bs_p) == ktt.Status.success
-    bs_j = kt.BinarySet()
-    bs_j.Append("IVF_FLAT", bs_p.GetByName("IVF_FLAT").tobytes())
-    idx_j = kt.IndexFactory.Instance().Create("IVF_FLAT").value()
-    assert idx_j.Deserialize(bs_j) == kt.Status.success
+    idx_j = cross_load(port_loaded, kt)
     np.testing.assert_array_equal(_search(idx_j, kt, xq)[0], _search(jax_index, kt, xq)[0])
 
 
 def test_port_serialize_then_jax_deserialize(corpus):
     """A port-built index, serialized, serves the same results in JAX."""
     xb, xq, gt = corpus
-    _precision(True)
-    idx_t = ktt.IndexFactory.Instance().Create("IVF_FLAT").value()
-    assert idx_t.Build(ktt.GenDataSetFromArray(xb), {"metric_type": "L2", "nlist": NLIST}) == ktt.Status.success
+    set_precision(True)
+    idx_t = build(ktt, "IVF_FLAT", xb, {"metric_type": "L2", "nlist": NLIST})
     ids_t, d_t = _search(idx_t, ktt, xq)
-    assert _recall(ids_t, gt) >= 0.9
-    bs = ktt.BinarySet()
-    assert idx_t.Serialize(bs) == ktt.Status.success
-    bs_j = kt.BinarySet()
-    bs_j.Append("IVF_FLAT", bs.GetByName("IVF_FLAT").tobytes())
-    idx_j = kt.IndexFactory.Instance().Create("IVF_FLAT").value()
-    assert idx_j.Deserialize(bs_j) == kt.Status.success
-    ids_j, d_j = _search(idx_j, kt, xq)
+    assert recall(ids_t, gt) >= 0.9
+    ids_j, d_j = _search(cross_load(idx_t, kt), kt, xq)
     _assert_parity(ids_j, d_j, ids_t, d_t, gt)
 
 
@@ -246,10 +187,9 @@ def test_kmeans_lloyd_step_repeats_bit_for_bit(corpus):
 def test_port_build_recall_at_equal_knob(corpus):
     """A full k-means run is held by recall, not by identical centroids."""
     xb, xq, gt = corpus
-    _precision(False)
-    idx = ktt.IndexFactory.Instance().Create("IVF_FLAT").value()
-    assert idx.Build(ktt.GenDataSetFromArray(xb), {"metric_type": "L2", "nlist": NLIST}) == ktt.Status.success
-    assert _recall(_search(idx, ktt, xq)[0], gt) >= 0.9
+    set_precision(False)
+    idx = build(ktt, "IVF_FLAT", xb, {"metric_type": "L2", "nlist": NLIST})
+    assert recall(_search(idx, ktt, xq)[0], gt) >= 0.9
 
 
 @pytest.mark.parametrize(
@@ -268,13 +208,9 @@ def test_chunked_upload_bit_equal(name, cfg, monkeypatch):
     from knowhere_tpu_torch.models import ivf as tivf
 
     xb = np.random.default_rng(3).standard_normal((3000, 100)).astype(np.float32)
-    built = ktt.IndexFactory.Instance().Create(name).value()
-    assert built.Build(ktt.GenDataSetFromArray(xb), cfg) == ktt.Status.success
-    bs = ktt.BinarySet()
-    assert built.Serialize(bs) == ktt.Status.success
+    built = build(ktt, name, xb, cfg)
     monkeypatch.setattr(tivf, "UPLOAD_CHUNK_BYTES", 4096)  # 10 rows of 400 bytes a chunk
-    idx = ktt.IndexFactory.Instance().Create(name).value()
-    assert idx.Deserialize(bs) == ktt.Status.success
+    idx = cross_load(built, ktt)
     node = idx.node
     assert node._d_dev == 128
     payload = node._sorted_payload
