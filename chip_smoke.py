@@ -38,10 +38,13 @@ Run from the root of a checkout on a machine with one CUDA GPU. In order:
    top-100 inside the radius; IVF_FLAT RangeSearch (FAST: the int8 scan's
    wide-k rounds) and IVF_PQ RangeSearch (the ADC scan's), every distance
    in the window, recall against FLAT's range sets, and the IVF_FLAT call
-   once more as one query block, bit for bit; IVF_FLAT AnnIterator, 100
-   queries x 1,000 items; GetVectorByIds and CalcDistByIDs of 1,000 ids;
-   a huge radius on a 100,000-row IVF_FLAT (the covering exact pass); warm
-   wall times, the rounds (k, nprobe), peak device memory;
+   once more in the smallest query blocks, bit for bit; IVF_FLAT
+   AnnIterator, 100 queries x 1,000 items; GetVectorByIds and CalcDistByIDs
+   of 1,000 ids; a huge radius on a 100,000-row IVF_FLAT (the covering
+   exact pass); warm wall times, the rounds (k, nprobe), peak device
+   memory. Every int8 and ADC scan launch of the first (untimed) call of
+   each, and of the small-block call, is held against its plain version
+   on the same inputs at the tolerance of step 3;
 7. IVF_SQ8 on the SIFT1M-like corpus (nlist=1024, sq_type SQ8, FAST,
    nprobe=16, k=10; the bench's SQ8 leg): served by the int8 scan over the
    u8 codes with an SQ8-decode rerank; recall@10 against the FLAT truth,
@@ -276,7 +279,10 @@ def _agreement(s_k, p_k, s_p, p_p, rtol, atol, pos_agree, sentinels) -> dict:
     -1)."""
     import torch
 
-    out = {"max_abs_err": (s_k - s_p).abs().max().item(), "pos_agree": (p_k == p_p).float().mean().item()}
+    # the share of equal positions counted exactly (an f32 mean of millions
+    # of ones can round below 1.0)
+    same = int((p_k == p_p).sum())
+    out = {"max_abs_err": (s_k - s_p).abs().max().item(), "pos_agree": same / p_k.numel()}
     ok = torch.allclose(s_k, s_p, rtol=rtol, atol=atol) and out["pos_agree"] >= pos_agree
     if sentinels:
         empty = p_p == -1
@@ -1154,27 +1160,92 @@ def late_profiles() -> dict:
     return out
 
 
-def _adc_real_launch(fn) -> dict:
-    """One more fn() with the search's ADC scan wrapped: each launch's
-    output is held against adc_scan_plain on the same inputs at the ADC
-    tolerance, with every empty slot exactly (-1e38, -1); its tasks and
-    those with nrows == 0 (padding of the device task builder's static
-    bound, which the kernel skips) are counted. Its task builder is wrapped
-    to count the query rows of the non-empty tasks and those that are
-    padding (qids < 0, scanned as query 0 and dropped by the merge).
-    Outside the profiler pass: the counts sync the host."""
+def _held_kernels() -> dict:
+    """The kernels whose launches a path's run can hold against their plain
+    versions: (the name ops/ivf_scan launches it by, its plain version,
+    rtol, atol, position agreement, empty slots exactly (-1e38, -1)), the
+    tolerances of their own checks in step 3."""
+    from knowhere_tpu_torch.ops import adc_cuda, ivf_cuda
+
+    return {
+        "ivf_int8_scan": ("int8_scan_tasks", ivf_cuda.int8_scan_plain, INT8_RTOL, 0.0, 1.0, False),
+        "ivf_adc_scan": ("adc_scan_tasks", adc_cuda.adc_scan_plain, ADC_RTOL, ADC_ATOL, ADC_POS_AGREE, True),
+    }
+
+
+def _hold_launches(fn, names):
+    """fn() with every launch of the kernels ``names`` held against its
+    plain version on the same inputs as it returns (_held_kernels); the
+    first that disagrees raises. Returns (fn's output, {name: one
+    agreement a launch, with its tasks, empty tasks, Qg and kk}). The
+    checks sync the host: not for timed calls."""
     import torch
 
-    from knowhere_tpu_torch.ops import adc_cuda, ivf_scan
+    from knowhere_tpu_torch.ops import ivf_scan
 
-    real, real_tasks = ivf_scan.adc_scan_tasks, ivf_scan._tasks
-    seen = {"adc_tasks": 0, "adc_empty_tasks": 0, "adc_live_query_rows": 0, "adc_padded_query_rows": 0}
-    calls = []
+    spec = _held_kernels()
+    real = {n: getattr(ivf_scan, spec[n][0]) for n in names}
+    seen = {n: [] for n in names}
 
-    def capturing(*args, **kw):
-        out = real(*args, **kw)
-        calls.append((args, kw, tuple(o.clone() for o in out)))
-        return out
+    def holding(name):
+        _, plain, rtol, atol, pos_agree, sentinels = spec[name]
+
+        def call(*args, **kw):
+            s_k, p_k = real[name](*args, **kw)
+            s_p, p_p = plain(*args, **kw)
+            torch.cuda.synchronize()
+            agree = _agreement(s_k, p_k, s_p, p_p, rtol, atol, pos_agree, sentinels)
+            agree["scores_differing"] = int((s_k.view(torch.int32) != s_p.view(torch.int32)).sum())
+            agree.update(tasks=int(args[1].numel()), empty_tasks=int((args[1] <= 0).sum()),
+                         Qg=int(s_k.shape[1]), kk=int(kw["kk"]))
+            seen[name].append(agree)
+            if not agree["ok"]:
+                raise AssertionError(f"{name} disagrees with its plain version on a path launch: {agree}")
+            return s_k, p_k
+
+        return call
+
+    for n in names:
+        setattr(ivf_scan, spec[n][0], holding(n))
+    try:
+        out = fn()
+    finally:
+        for n in names:
+            setattr(ivf_scan, spec[n][0], real[n])
+    return out, seen
+
+
+def _held_summary(seen: dict) -> dict:
+    """One line a kernel of _hold_launches' agreements; raises if a kernel
+    held was not launched."""
+    out = {}
+    for name, checks in seen.items():
+        if not checks:
+            raise AssertionError(f"the held run launched no {name}")
+        out[name] = {
+            "launches_held": len(checks), "tasks": sum(c["tasks"] for c in checks),
+            "empty_tasks": sum(c["empty_tasks"] for c in checks),
+            "Qg": sorted({c["Qg"] for c in checks}), "kk": sorted({c["kk"] for c in checks}),
+            "max_abs_err": max(c["max_abs_err"] for c in checks),
+            "min_pos_agree": min(c["pos_agree"] for c in checks),
+            "scores_differing": sum(c["scores_differing"] for c in checks),
+        }
+    return out
+
+
+def _adc_real_launch(fn) -> dict:
+    """One more fn() with the search's ADC launches held against
+    adc_scan_plain (_hold_launches: the ADC tolerance, every empty slot
+    exactly (-1e38, -1)); its tasks and those with nrows == 0 (padding of
+    the device task builder's static bound, which the kernel skips) are
+    counted. Its task builder is wrapped to count the query rows of the
+    non-empty tasks and those that are padding (qids < 0, scanned as query
+    0 and dropped by the merge). Outside the profiler pass: the counts sync
+    the host."""
+    from knowhere_tpu_torch.ops import ivf_scan
+
+    real_tasks = ivf_scan._tasks
+    seen = {"adc_live_query_rows": 0, "adc_padded_query_rows": 0}
 
     def counting_tasks(*args, **kw):
         out = real_tasks(*args, **kw)
@@ -1185,24 +1256,16 @@ def _adc_real_launch(fn) -> dict:
             seen["adc_padded_query_rows"] += int(((qids < 0) & live[:, None]).sum())
         return out
 
-    ivf_scan.adc_scan_tasks, ivf_scan._tasks = capturing, counting_tasks
+    ivf_scan._tasks = counting_tasks
     try:
-        fn()
+        _, held = _hold_launches(fn, ("ivf_adc_scan",))
     finally:
-        ivf_scan.adc_scan_tasks, ivf_scan._tasks = real, real_tasks
-    checks = []
-    for args, kw, (s_k, p_k) in calls:
-        seen["adc_tasks"] += int(args[1].numel())
-        seen["adc_empty_tasks"] += int((args[1] <= 0).sum())
-        s_p, p_p = adc_cuda.adc_scan_plain(*args, **kw)
-        torch.cuda.synchronize()
-        agree = _agreement(s_k, p_k, s_p, p_p, ADC_RTOL, ADC_ATOL, ADC_POS_AGREE, True)
-        agree["scores_differing"] = int((s_k.view(torch.int32) != s_p.view(torch.int32)).sum())
-        checks.append(agree)
-        if not agree["ok"]:
-            raise AssertionError(f"ivf_adc_scan disagrees with its plain version on the real IVF_PQ launch: {agree}")
-    if not calls:
+        ivf_scan._tasks = real_tasks
+    checks = held["ivf_adc_scan"]
+    if not checks:
         raise AssertionError("the IVF_PQ search launched no ADC scan")
+    seen["adc_tasks"] = sum(c.pop("tasks") for c in checks)
+    seen["adc_empty_tasks"] = sum(c.pop("empty_tasks") for c in checks)
     seen["adc_vs_plain"] = checks
     seen["adc_empty_share"] = seen["adc_empty_tasks"] / max(seen["adc_tasks"], 1)
     seen["adc_padded_row_share"] = seen["adc_padded_query_rows"] / max(seen["adc_live_query_rows"], 1)
@@ -1421,16 +1484,23 @@ def _with_rounds(idx, fn):
         del node._search_batch
 
 
-def _warm_range(idx, kt, xq, cfg):
-    """A warm-up, then one timed RangeSearch with its rounds and the peak
-    device memory of the timed call."""
+def _warm_range(idx, kt, xq, cfg, hold=()):
+    """A warm-up with the launches of the kernels ``hold`` held against
+    their plain versions (_hold_launches), then one timed RangeSearch with
+    its rounds and the peak device memory of the timed call; the timed
+    call must equal the warm-up."""
     import torch
 
-    _range(idx, kt, xq, cfg)
+    first, held = _hold_launches(lambda: _range(idx, kt, xq, cfg), hold)
     torch.cuda.reset_peak_memory_stats()
     (res, rounds), wall = _timed(lambda: _with_rounds(idx, lambda: _range(idx, kt, xq, cfg)))
-    return res, {"wall_s": wall, "rounds": rounds, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-                 "hits_per_query": float(res[2][-1]) / len(xq)}
+    if not all(np.array_equal(a, b) for a, b in zip(first, res)):
+        raise AssertionError("a RangeSearch differs from the same call before it")
+    out = {"wall_s": wall, "rounds": rounds, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "hits_per_query": float(res[2][-1]) / len(xq)}
+    if hold:
+        out["held"] = _held_summary(held)
+    return res, out
 
 
 def _in_window(dists, radius, lims) -> bool:
@@ -1480,30 +1550,39 @@ def range_path(kt, xb, xq, flat, ivf, pq):
 
     # IVF_FLAT (FAST: the int8 scan's rounds) and IVF_PQ (the ADC scan's)
     icfg = dict(cfg, nprobe=RANGE_NPROBE)
-    (i_ids, i_d, i_lims), out["ivf_flat"] = _warm_range(ivf, kt, q, icfg)
+    (i_ids, i_d, i_lims), out["ivf_flat"] = _warm_range(ivf, kt, q, icfg, ("ivf_int8_scan",))
     if not _in_window(i_d, radius, i_lims):
         raise AssertionError("IVF_FLAT RangeSearch returned a distance outside the window or out of order")
     out["ivf_flat"]["recall"] = _range_recall(_csr_sets(i_ids, i_lims), flat_sets)
     if out["ivf_flat"]["recall"] < RANGE_IVF_RECALL_FLOOR:
         raise AssertionError(f"IVF_FLAT range recall {out['ivf_flat']['recall']} < {RANGE_IVF_RECALL_FLOOR}")
     _profile_later("range_profile", lambda idx=ivf: _range(idx, kt, q, icfg))  # where its wall goes
-    # the same call in one query block: the wide rounds' blocks give its bits
-    budget = ivf_mod.SCAN_BLOCK_BYTES
-    ivf_mod.SCAN_BLOCK_BYTES = 1 << 40
+    # the same call in the smallest query blocks (one rerank step each):
+    # the blocks give the bits of the default's, and their launches are held
+    budget, scans = ivf_mod.SCAN_BLOCK_BYTES, []
+    real_scan = ivf_mod.ivf_scan_search
+    ivf_mod.SCAN_BLOCK_BYTES = 1
+    ivf_mod.ivf_scan_search = lambda *a, **kw: scans.append(int(a[0].shape[0])) or real_scan(*a, **kw)
     try:
         import torch
 
         torch.cuda.reset_peak_memory_stats()
-        one = _range(ivf, kt, q, icfg)
-        out["ivf_flat"]["one_block_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        blocked, held = _hold_launches(lambda: _range(ivf, kt, q, icfg), ("ivf_int8_scan",))
+        out["ivf_flat"]["small_blocks"] = {
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "scans": len(scans),
+            "smallest_block": min(scans), "held": _held_summary(held),
+        }
     finally:
-        ivf_mod.SCAN_BLOCK_BYTES = budget
+        ivf_mod.SCAN_BLOCK_BYTES, ivf_mod.ivf_scan_search = budget, real_scan
     out["ivf_flat"]["blocks_bit_equal"] = all(
-        a.dtype == b.dtype and np.array_equal(a.view(np.uint8), b.view(np.uint8)) for a, b in zip(one, (i_ids, i_d, i_lims))
+        a.dtype == b.dtype and np.array_equal(a.view(np.uint8), b.view(np.uint8))
+        for a, b in zip(blocked, (i_ids, i_d, i_lims))
     )
     if not out["ivf_flat"]["blocks_bit_equal"]:
-        raise AssertionError("IVF_FLAT RangeSearch in query blocks differs from one block")
-    (p_ids, p_d, p_lims), out["ivf_pq"] = _warm_range(pq, kt, q, icfg)
+        raise AssertionError("IVF_FLAT RangeSearch in small query blocks differs from the default blocks")
+    if min(scans) >= len(q):
+        raise AssertionError(f"IVF_FLAT RangeSearch at SCAN_BLOCK_BYTES=1 ran no query blocks: {scans}")
+    (p_ids, p_d, p_lims), out["ivf_pq"] = _warm_range(pq, kt, q, icfg, ("ivf_adc_scan",))
     if not _in_window(p_d, radius, p_lims):
         raise AssertionError("IVF_PQ RangeSearch returned a distance outside the window or out of order")
     out["ivf_pq"]["recall"] = _range_recall(_csr_sets(p_ids, p_lims), flat_sets)
@@ -1522,13 +1601,13 @@ def range_path(kt, xb, xq, flat, ivf, pq):
             items.append((np.array([i for i, _ in got]), np.array([d for _, d in got])))
         return items
 
-    items, rounds = _with_rounds(ivf, drain)
+    (items, rounds), held = _hold_launches(lambda: _with_rounds(ivf, drain), ("ivf_int8_scan",))
     items, wall = _timed(drain)
     for ids, d in items:
         if len(ids) != ITER_ITEMS or len(np.unique(ids)) != ITER_ITEMS or (np.diff(d) < 0).any():
             raise AssertionError("IVF_FLAT iterator: short, repeated ids or distances out of order")
     gt10 = _search(flat, kt, q[:ITER_NQ], {"metric_type": "L2", "k": 10})[0]
-    out["iterator"] = {"wall_s": wall, "rounds": rounds,
+    out["iterator"] = {"wall_s": wall, "rounds": rounds, "held": _held_summary(held),
                        "recall_at_10": recall_at(np.stack([ids[:10] for ids, _ in items]), gt10)}
     if out["iterator"]["recall_at_10"] < ITER_RECALL_FLOOR:
         raise AssertionError(f"IVF_FLAT iterator recall@10 {out['iterator']['recall_at_10']} < {ITER_RECALL_FLOOR}")
@@ -1551,7 +1630,9 @@ def range_path(kt, xb, xq, flat, ivf, pq):
     small = kt.IndexFactory.Instance().Create("IVF_FLAT").value()
     if small.Build(kt.GenDataSetFromArray(xb[:n_small]), {"metric_type": "L2", "nlist": 256}) != kt.Status.success:
         raise RuntimeError("IVF_FLAT (100,000 rows) Build failed")
-    (h_ids, h_d, h_lims), out["covering"] = _warm_range(small, kt, q[:8], {"metric_type": "L2", "radius": 1e12})
+    (h_ids, h_d, h_lims), out["covering"] = _warm_range(
+        small, kt, q[:8], {"metric_type": "L2", "radius": 1e12}, ("ivf_int8_scan",)
+    )
     if not (np.diff(h_lims) == n_small).all() or not _in_window(h_d, 1e12, h_lims):
         raise AssertionError("the covering pass did not return every row, sorted")
     if any(len(np.unique(h_ids[h_lims[i] : h_lims[i + 1]])) != n_small for i in range(8)):

@@ -20,13 +20,12 @@ import numpy as np
 
 from .bitset import BitsetView
 from .config import BruteForceConfig, Config, Stage
-from .dataset import DataSet, GenRangeResultDataSet, GenResultDataSet
+from .dataset import DataSet, GenResultDataSet
 from .device import to_device
 from .index_node import PrecomputedDistanceIterator
 from .index_param import BINARY_METRICS, DENSE_FLOAT_METRICS, normalize_metric
-from .models.flat import precomputed_iterators
+from .models.flat import precomputed_iterators, range_result
 from .ops import distances as D
-from .ops import range as R
 from .ops import topk as T
 from .status import KnowhereException, Status, expected, guarded_call, guarded_expected
 
@@ -115,14 +114,7 @@ class BruteForce:
             cfg, metric = _load(json_cfg, Stage.RANGE_SEARCH, base_dataset)
             b_dev = _base(base_dataset)
             mask = bitset.device_mask(base_dataset.rows) if bitset and not bitset.empty_view() else None
-            ids, dists, lims = R.range_search(
-                _queries(query_dataset), b_dev, cfg.radius, cfg.range_filter, metric,
-                bitset_mask=mask, aux=D.base_aux(metric, b_dev),
-            )
-            ids, dists, lims = R.apply_range_search_k(
-                ids, dists, lims, cfg.get("range_search_k", -1), D.larger_is_better(metric)
-            )
-            return expected.Ok(GenRangeResultDataSet(query_dataset.rows, ids, dists, lims))
+            return expected.Ok(range_result(_queries(query_dataset), b_dev, cfg, metric, mask))
 
         return guarded_expected(impl)
 

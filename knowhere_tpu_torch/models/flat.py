@@ -141,14 +141,7 @@ class FlatIndexNode(IndexNode):
         self._check_metric(metric)
         dev = self._ensure_device()
         mask = bitset.device_mask(self.Count()) if not bitset.empty_view() else None
-        ids, dists, lims = R.range_search(
-            np.asarray(dataset.tensor, dtype=np.float32), dev, cfg.radius, cfg.range_filter, metric,
-            bitset_mask=mask, aux=D.base_aux(metric, dev),
-        )
-        ids, dists, lims = R.apply_range_search_k(
-            ids, dists, lims, cfg.get("range_search_k", -1), D.larger_is_better(metric)
-        )
-        return expected.Ok(GenRangeResultDataSet(dataset.rows, ids, dists, lims))
+        return expected.Ok(range_result(np.asarray(dataset.tensor, dtype=np.float32), dev, cfg, metric, mask))
 
     def AnnIterator(
         self, dataset: DataSet, cfg: Config, bitset: BitsetView, use_knowhere_search_pool=True
@@ -221,6 +214,19 @@ class FlatIndexNode(IndexNode):
     @staticmethod
     def CreateConfig() -> Config:
         return FlatConfig()
+
+
+def range_result(xq: np.ndarray, base, cfg: Config, metric: str, mask) -> DataSet:
+    """RangeSearch over a device ``base`` (FLAT's and BruteForce's): the
+    window (ops/range.range_search, ``mask`` the device keep-mask or None),
+    then range_search_k, as a CSR dataset."""
+    ids, dists, lims = R.range_search(
+        xq, base, cfg.radius, cfg.range_filter, metric, bitset_mask=mask, aux=D.base_aux(metric, base)
+    )
+    ids, dists, lims = R.apply_range_search_k(
+        ids, dists, lims, cfg.get("range_search_k", -1), D.larger_is_better(metric)
+    )
+    return GenRangeResultDataSet(xq.shape[0], ids, dists, lims)
 
 
 def precomputed_iterators(xq: np.ndarray, base, metric: str, keep: Optional[np.ndarray], chunk: int = 256) -> list:

@@ -36,9 +36,11 @@ merges per query:
   the reference.
 
 A query that comes back with fewer than k results is re-probed with nprobe x4
-per round until it is full (ensure_topk_full, on by default). A scan whose
-merge pool and rerank rows would pass SCAN_BLOCK_BYTES runs its queries in
-blocks (results are per query, so they equal one block's bit for bit).
+per round until it is full (ensure_topk_full, on by default). The rerank
+re-scores its queries in steps whose gathered rows and merge pool stay
+under REFINE_CHUNK_BYTES (one step at k=10); a scan whose merge pool would
+pass SCAN_BLOCK_BYTES runs its queries in blocks of whole steps, so every
+query's bits equal one block's.
 
 RangeSearch and AnnIterator run the same searches in expanding rounds (k x4
 a round up to DEVICE_K_MAX, nprobe x4 while a frontier runs short), each
@@ -72,6 +74,7 @@ from ..index_node import ExpandingIteratorGroup, IndexNode
 from ..io.serialize import read_sections, write_sections
 from ..ops import distances as D
 from ..ops import quant as Q
+from ..ops import range as R
 from ..ops.distances import DistancePrecision, get_distance_precision, pad_rows_ladder
 from ..ops.adc_cuda import unpack_codes
 from ..ops.ivf_cuda import LIST_ALIGN, unpack_signs
@@ -87,13 +90,19 @@ B_SLACK = 2048  # zero rows after the store: a block slice never runs off its en
 # zeroed buffer filled in chunks of this many bytes, never a full-size
 # float64 or padded temporary (as knowhere_tpu/models/ivf.py uploads)
 UPLOAD_CHUNK_BYTES = 256 << 20
-# device bytes one query block of a scan may hold: its merge pool (about
-# POOL_ENTRY_BYTES a candidate) and the rows its rerank gathers. A search
-# whose batch would pass it (the wide-k rounds of RangeSearch and
-# AnnIterator, a Search at a large k) runs its queries in blocks; at k=10
-# the block is the whole batch.
+# device bytes one query block of a scan may hold in its merge pool (about
+# POOL_ENTRY_BYTES a candidate). A search whose pool would pass it (the
+# wide-k rounds of RangeSearch and AnnIterator over many lists, a Search at
+# a large k) runs its queries in blocks of whole refine chunks; at k=10 the
+# block is the whole batch.
 SCAN_BLOCK_BYTES = 2 << 30
 POOL_ENTRY_BYTES = 32  # f32 score + int64 position, and the merge sort's copy of both
+# device bytes one step of the rerank may hold: its gathered rows and their
+# temporaries (RefineStore.row_bytes) and those queries' merge pool. At the
+# k=10 searches of a 10,000-query batch (1M x 128, GIST 1,000 x 960) the
+# step is the whole batch; the wide rounds re-score a few hundred queries
+# a step.
+REFINE_CHUNK_BYTES = 4 << 30
 FULL_SORT_ROWS = 65536  # stored rows decoded per step of _full_sorted
 FULL_SORT_QUERIES = 64  # queries per step of _full_sorted: (64, nb) distances and their sort
 
@@ -158,13 +167,23 @@ _CONFIGS = {
 
 
 class _Plan(NamedTuple):
-    """How one search scans: scan precision, whether the raw rows re-rank
-    the pool (two_stage), the scan's k and the k the refine store re-scores."""
+    """How one search scans: its route (ops/ivf_scan.scan_route: a kernel's,
+    or "plain") and the precision the route scans at, whether the raw rows
+    re-rank the pool (two_stage), the scan's k and the k the refine store
+    re-scores."""
 
+    route: str
     prec: str
     two_stage: bool
     k_scan: int
     k_coarse: int
+
+
+def _refine_chunk(row_bytes: int, pool_bytes: int) -> int:
+    """Queries one rerank step re-scores: as many as keep their gathered rows
+    (``row_bytes`` a query) and merge pool (``pool_bytes``) under
+    REFINE_CHUNK_BYTES."""
+    return max(1, REFINE_CHUNK_BYTES // (row_bytes + pool_bytes))
 
 
 def _bf16_dtype():
@@ -638,78 +657,86 @@ class IvfIndexNode(IndexNode):
         nb = len(self._row_ids)
         k_coarse = max(k, k * max(1, refine_k)) if self._refine_store is not None else k
         if gp == DistancePrecision.EXACT:
-            return _Plan("exact", False, k_coarse, k_coarse)
-        if "i8_nrm" in self._store:
+            prec, two_stage, k_scan = "exact", False, k_coarse
+        elif "i8_nrm" in self._store:
             # int8 candidates (raw or SQ8), re-ranked from the raw rows or by
             # SQ8 decode unless a refine store re-scores them
-            return _Plan("int8", self._refine_store is None, min(max(4 * k_coarse, 48), max(nb, 1)), k_coarse)
-        if self.VARIANT != "flat":  # quantized codes scan bf16 (decode noise dominates)
-            return _Plan("bf16", False, k_coarse, k_coarse)
-        if gp == DistancePrecision.BF16:
-            return _Plan("bf16", True, min(max(4 * k_coarse, 32), max(nb, 1)), k_coarse)
-        return _Plan("fast", False, k_coarse, k_coarse)
-
-    def _route(self, plan: _Plan) -> str:
-        """The scan's path (ops/ivf_scan.scan_route): a kernel's, or "plain"."""
-        return scan_route(
-            self._store, self._d_dev, plan.k_scan, self._offsets, plan.prec, self._sq_levels, self._sq_packed4
-        )[0]
-
-    def _scan_blocks(self, plan: _Plan, nprobe: int, nq: int, nq_pad: int):
-        """(query row ranges, pool width) of one scan: the whole padded batch
-        when it fits SCAN_BLOCK_BYTES, else blocks of its first nq rows. The
-        merged pool holds its candidates in its first ``width`` columns, so
-        the rerank gathers no more."""
-        pool = pool_bound(self._route(plan), self._lengths, nprobe, plan.k_scan)
-        width = min(plan.k_scan, pool)
-        reranks = plan.two_stage or self._refine_store is not None
-        per_query = pool * POOL_ENTRY_BYTES + (width * self._d_dev * 4 if reranks else 0)
-        nqb = max(1, SCAN_BLOCK_BYTES // per_query)
-        if nqb >= nq_pad:
-            return [(0, nq_pad)], width
-        return [(b, min(b + nqb, nq)) for b in range(0, nq, nqb)], width
-
-    def _run_scan(self, q_pad_dev, probes, plan: _Plan, keep_sorted, k: int, nq: int):
-        """Scan (in the OPQ frame for IVF_PQ) and refine the first nq rows of
-        one padded query batch, in query blocks when it is wide (_scan_blocks):
-        (scores or dists, positions, "score" | "dist") on the device."""
-        q_scan = q_pad_dev @ self._store["rot_t"] if "rot_t" in self._store else q_pad_dev
-        nprobe = self._nlist if probes is None else probes.shape[1]
-        blocks, width = self._scan_blocks(plan, nprobe, nq, q_pad_dev.shape[0])
-        outs = [
-            self._scan_block(
-                q_pad_dev[b0:b1], q_scan[b0:b1], None if probes is None else probes[b0:b1],
-                plan, keep_sorted, k, width,
-            )
-            for b0, b1 in blocks
-        ]
-        if len(outs) == 1:
-            return outs[0]
-        return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs]), outs[0][2]
-
-    def _scan_block(self, q_pad_dev, q_scan, probes, plan: _Plan, keep_sorted, k: int, width: int):
-        is_l2 = self._is_l2_like()
-        s, p = ivf_scan_search(
-            q_scan, self._store, probes, self._offsets, plan.k_scan, is_l2,
-            keep_sorted=keep_sorted, prec=plan.prec, list_lengths=self._lengths,
-            sq_levels=self._sq_levels, sq_packed4=self._sq_packed4,
+            prec, two_stage, k_scan = "int8", self._refine_store is None, min(max(4 * k_coarse, 48), max(nb, 1))
+        elif self.VARIANT != "flat":  # quantized codes scan bf16 (decode noise dominates)
+            prec, two_stage, k_scan = "bf16", False, k_coarse
+        elif gp == DistancePrecision.BF16:
+            prec, two_stage, k_scan = "bf16", True, min(max(4 * k_coarse, 32), max(nb, 1))
+        else:
+            prec, two_stage, k_scan = "fast", False, k_coarse
+        route, prec = scan_route(
+            self._store, self._d_dev, k_scan, self._offsets, prec, self._sq_levels, self._sq_packed4
         )
+        return _Plan(route, prec, two_stage, k_scan, k_coarse)
+
+    def _rerank(self, plan: _Plan, k: int) -> Optional[Tuple[RefineStore, int]]:
+        """(store, k kept) of the pass that re-scores the scan's pool, or None
+        when the scan's scores are final."""
         if plan.two_stage:
             if self.VARIANT == "sq":  # exact under the stored values: SQ8 decode
-                store = RefineStore("sq8", self._store["codes"], self._store["vmin"], self._store["vdiff"])
-            else:
-                store = RefineStore("raw", self._store["data"])
-            k_out = plan.k_coarse
-        elif self._refine_store is not None:
-            store, k_out = self._refine_store, k
-        else:
-            return s, p, "score"
-        d_r, p_r = refine_topk_device(q_pad_dev, store, p[:, :width], k_out, is_l2)
+                st = self._store
+                return RefineStore("sq8", st["codes"], st["vmin"], st["vdiff"]), plan.k_coarse
+            return RefineStore("raw", self._store["data"]), plan.k_coarse
+        if self._refine_store is not None:
+            return self._refine_store, k
+        return None
+
+    def _scan_blocks(self, plan: _Plan, nprobe: int, nq: int, rerank):
+        """(query row ranges or None for one block, pool width, refine chunk)
+        of one scan. The merged pool holds its candidates in its first
+        ``width`` columns, so the rerank gathers no more. The rerank
+        re-scores ``chunk`` queries a step (_refine_chunk). A batch whose
+        merge pool would pass SCAN_BLOCK_BYTES scans its first nq rows in
+        blocks of whole chunks (at least one), so each query is re-scored in
+        the same step as in one block, and keeps its bits."""
+        pool = pool_bound(plan.route, self._lengths, nprobe, plan.k_scan)
+        width = min(plan.k_scan, pool)
+        pool_bytes = pool * POOL_ENTRY_BYTES
+        chunk = 1 if rerank is None else _refine_chunk(width * rerank[0].row_bytes(), pool_bytes)
+        nqb = max(1, SCAN_BLOCK_BYTES // pool_bytes // chunk) * chunk
+        if nqb >= nq:
+            return None, width, chunk
+        return [(b, min(b + nqb, nq)) for b in range(0, nq, nqb)], width, chunk
+
+    def _run_scan(self, q_pad_dev, probes, plan: _Plan, keep_sorted, k: int, nq: int):
+        """Scan (in the OPQ frame for IVF_PQ) one padded query batch and
+        re-rank its first nq rows, in query blocks when the merge pool is
+        wide (_scan_blocks): (scores or dists, positions, "score" | "dist")
+        of those nq rows, on the device."""
+        is_l2 = self._is_l2_like()
+        q_scan = q_pad_dev @ self._store["rot_t"] if "rot_t" in self._store else q_pad_dev
+        nprobe = self._nlist if probes is None else probes.shape[1]
+        rerank = self._rerank(plan, k)
+        blocks, width, chunk = self._scan_blocks(plan, nprobe, nq, rerank)
+        outs = []
+        for b0, b1 in blocks or [(0, q_pad_dev.shape[0])]:  # one block: the whole padded batch
+            s, p = ivf_scan_search(
+                q_scan[b0:b1], self._store, None if probes is None else probes[b0:b1], self._offsets,
+                plan.k_scan, is_l2, keep_sorted=keep_sorted, prec=plan.prec, list_lengths=self._lengths,
+                sq_levels=self._sq_levels, sq_packed4=self._sq_packed4, route=plan.route,
+            )
+            n = min(b1, nq) - b0
+            if rerank is not None:
+                s, p = self._rescore(q_pad_dev[b0 : b0 + n], p[:n, :width], rerank, chunk, is_l2)
+            outs.append((s[:n], p[:n]))
+        mode = "score" if rerank is None else "dist"
+        if len(outs) == 1:
+            return (*outs[0], mode)
+        return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs]), mode
+
+    @staticmethod
+    def _rescore(q, cand, rerank, chunk: int, is_l2: bool):
+        store, k_out = rerank
+        d_r, p_r = refine_topk_device(q, store, cand, k_out, is_l2, chunk)
         if d_r.shape[1] < k_out:  # a pool narrower than k_out: the refine's own padding
             pad = (0, k_out - d_r.shape[1])
             d_r = torch.nn.functional.pad(d_r, pad, value=float("inf") if is_l2 else -float("inf"))
             p_r = torch.nn.functional.pad(p_r, pad, value=-1)
-        return d_r, p_r, "dist"
+        return d_r, p_r
 
     def _rescan_subset(self, xq_sub: np.ndarray, probes_sub: np.ndarray, plan: _Plan, keep_sorted, k: int):
         """ensure_topk_full retry for a query subset with host probes."""
@@ -735,7 +762,7 @@ class IvfIndexNode(IndexNode):
         nq_pad = q_pad_dev.shape[0]
         if nprobe_cur >= self._nlist:
             probes = None  # full probe: the deterministic full-scan layout
-        elif self._route(plan) != "plain" or nq * self._nlist * max(self._dim, 1) > 1 << 24:
+        elif plan.route != "plain" or nq * self._nlist * max(self._dim, 1) > 1 << 24:
             # a kernel path (the reference's fused path) keeps the probe on the device
             probes = coarse_probe(q_pad_dev, self._store["centroids"], nprobe=nprobe_cur, is_l2=is_l2)
             # padded query rows would probe real lists: mask them out
@@ -943,15 +970,7 @@ class IvfIndexNode(IndexNode):
                     sub = act[s : s + FULL_SORT_QUERIES]
                     dists[sub], ids[sub] = self._full_sorted(xq[sub], bitset)
 
-        keep = ids >= 0
-        if larger:
-            keep &= dists > radius
-            if two_sided:
-                keep &= dists <= range_filter
-        else:
-            keep &= dists < radius
-            if two_sided:
-                keep &= dists >= range_filter
+        keep = (ids >= 0) & R.in_window(dists, radius, range_filter, larger, two_sided)
         rsk = cfg.get("range_search_k", -1)
         if rsk is not None and rsk >= 0:
             keep &= np.cumsum(keep, axis=1) <= rsk

@@ -630,9 +630,18 @@ def scan_route(
     return "plain", prec
 
 
-def _plain_block(lens_arr: np.ndarray) -> int:
-    """Rows a plain-scan task covers: 256 for small-list layouts, else 512."""
-    return 256 if float(lens_arr.mean() or 1.0) <= 256 else 512
+def route_geometry(route: str, k: int, lens_arr: np.ndarray) -> Tuple[int, int]:
+    """(rows a task covers B, per-task top-k kk) on ``route``: the kernels'
+    LIST_ALIGN blocks at task_kk, the int8 scan's at kk=16 up to k=32 (the
+    rerank only recovers what the scan kept; above k=32 the task_kk cap of
+    32 decides the pool, kept for parity), the plain scan's 256-row blocks
+    for small-list layouts, else 512, at min(k, B). The task build and
+    pool_bound both read it."""
+    if route == "plain":
+        B = 256 if float(lens_arr.mean() or 1.0) <= 256 else 512
+        return B, min(k, B)
+    kk = task_kk(k, LIST_ALIGN)
+    return LIST_ALIGN, min(kk, 16 if k <= 32 else 32) if route == "int8" else kk
 
 
 def pool_bound(route: str, list_lengths: np.ndarray, nprobe: int, k: int) -> int:
@@ -642,10 +651,9 @@ def pool_bound(route: str, list_lengths: np.ndarray, nprobe: int, k: int) -> int
     nprobe longest. The merged (nq, k) result holds its candidates in its
     first min(k, bound) columns, then (-inf, -1)."""
     lens = np.asarray(list_lengths, np.int64)
-    B = _plain_block(lens) if route == "plain" else LIST_ALIGN
+    B, kk = route_geometry(route, k, lens)
     blocks = (lens + B - 1) // B
     S = int(np.sort(blocks)[-nprobe:].sum()) if nprobe < blocks.size else int(blocks.sum())
-    kk = min(k, B) if route == "plain" else task_kk(k, B)
     return max(1, S) * kk
 
 
@@ -661,10 +669,13 @@ def ivf_scan_search(
     list_lengths: Optional[np.ndarray] = None,
     sq_levels: int = 0,
     sq_packed4: bool = False,
+    route: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Scan one store (q_dev in the OPQ frame for PQ, rotated for RaBitQ).
     Returns (scores (nq,k) larger-is-better, positions (nq,k) int32 into the
-    sorted storage; -1 padded), both on the device."""
+    sorted storage; -1 padded), both on the device. A caller that has
+    worked out the route (scan_route) passes it with the precision
+    scan_route returned."""
     from .distances import matmul_precision_name
 
     if prec is None:
@@ -689,8 +700,10 @@ def ivf_scan_search(
     while Qg < min(avg, cap):
         Qg *= 2
 
-    route, prec = scan_route(store, d, k, list_offsets, prec, sq_levels, sq_packed4)
-    args = (q_dev, store, probes, list_offsets, lens_arr, k, is_l2, Qg, keep_sorted)
+    if route is None:
+        route, prec = scan_route(store, d, k, list_offsets, prec, sq_levels, sq_packed4)
+    B, kk = route_geometry(route, k, lens_arr)
+    args = (q_dev, store, probes, list_offsets, lens_arr, k, kk, is_l2, Qg, keep_sorted)
     if route == "int8":
         return _int8_search(*args)
     if route == "adc":
@@ -703,8 +716,6 @@ def ivf_scan_search(
         return _sq_search(*args, levels=sq_levels, three_pass=prec == "fast")
 
     # plain full-f32 task scan; blocks shrink for small-list layouts
-    B = _plain_block(lens_arr)
-    kk = min(k, B)
     chunk = _PLAIN_TASK_CHUNK if store_kind(store) == "raw" else max(32, _DECODE_BYTES // (B * d * 4))
     tasks = _tasks(q_dev, store, probes, list_offsets, lens_arr, B, Qg, chunk)
     if tasks is None:
@@ -748,14 +759,11 @@ def _kernel_search(q_dev, store, probes, list_offsets, lens_arr, k, Qg, kk, scan
     return _merge_tasks(torch.cat(s_parts), torch.cat(p_parts), qids, slots, nq=nq, S=S, kk=kk, k=k)
 
 
-def _int8_search(q_dev, store, probes, list_offsets, lens_arr, k, is_l2, Qg, keep_sorted=None):
+def _int8_search(q_dev, store, probes, list_offsets, lens_arr, k, kk, is_l2, Qg, keep_sorted=None):
     """int8 candidate scan (kernel: ivf_cuda.int8_scan_tasks) over the raw
     store's int8 sidecar or SQ8's own u8 codes. Queries are quantized per
     batch on the device; the caller re-ranks the merged pool, so this path
     never returns final distances."""
-    # the rerank only recovers what the scan kept: kk=16 for small k, the
-    # task_kk cap of 32 above k=32 (decides the pool, kept for parity)
-    kk = min(task_kk(k, LIST_ALIGN), 16 if k <= 32 else 32)
     zi, szv = quantize_queries_int8(q_dev, store["i8_mu"], store["i8_scale"])
     codes = store.get("data_i8", store.get("codes"))
 
@@ -768,10 +776,9 @@ def _int8_search(q_dev, store, probes, list_offsets, lens_arr, k, is_l2, Qg, kee
     return _kernel_search(q_dev, store, probes, list_offsets, lens_arr, k, Qg, kk, scan)
 
 
-def _f32_search(q_dev, store, probes, list_offsets, lens_arr, k, is_l2, Qg, keep_sorted=None, *, three_pass):
+def _f32_search(q_dev, store, probes, list_offsets, lens_arr, k, kk, is_l2, Qg, keep_sorted=None, *, three_pass):
     """Raw f32 scan (kernel: ivf_cuda.f32_scan_tasks); FAST runs the
     reference's three-pass hi/lo bf16 product, BF16 the single bf16 pass."""
-    kk = task_kk(k, LIST_ALIGN)
 
     def scan(blk, nr, _lid, safe):
         return f32_scan_tasks(
@@ -782,10 +789,9 @@ def _f32_search(q_dev, store, probes, list_offsets, lens_arr, k, is_l2, Qg, keep
     return _kernel_search(q_dev, store, probes, list_offsets, lens_arr, k, Qg, kk, scan)
 
 
-def _adc_search(q_dev, store, probes, list_offsets, lens_arr, k, is_l2, Qg, keep_sorted=None):
+def _adc_search(q_dev, store, probes, list_offsets, lens_arr, k, kk, is_l2, Qg, keep_sorted=None):
     """PQ ADC scan (kernel: adc_cuda.adc_scan_tasks) over the whole batch;
     q_dev is in the OPQ-rotated frame, the centroid terms use cent_scan."""
-    kk = task_kk(k, LIST_ALIGN)
     cents = store.get("cent_scan", store["centroids"])
 
     def scan(blk, nr, lid, safe):
@@ -797,10 +803,9 @@ def _adc_search(q_dev, store, probes, list_offsets, lens_arr, k, is_l2, Qg, keep
     return _kernel_search(q_dev, store, probes, list_offsets, lens_arr, k, Qg, kk, scan)
 
 
-def _sq_search(q_dev, store, probes, list_offsets, lens_arr, k, is_l2, Qg, keep_sorted=None, *, levels, three_pass):
+def _sq_search(q_dev, store, probes, list_offsets, lens_arr, k, kk, is_l2, Qg, keep_sorted=None, *, levels, three_pass):
     """SQ8/SQ6 scan (kernel: ivf_cuda.sq_scan_tasks), the codes decoded in
     the scan (the reference's _pallas_scan_search, kind 'sq')."""
-    kk = task_kk(k, LIST_ALIGN)
 
     def scan(blk, nr, _lid, safe):
         return sq_scan_tasks(
@@ -811,11 +816,10 @@ def _sq_search(q_dev, store, probes, list_offsets, lens_arr, k, is_l2, Qg, keep_
     return _kernel_search(q_dev, store, probes, list_offsets, lens_arr, k, Qg, kk, scan)
 
 
-def _rbq_search(q_dev, store, probes, list_offsets, lens_arr, k, is_l2, Qg, keep_sorted=None, *, three_pass):
+def _rbq_search(q_dev, store, probes, list_offsets, lens_arr, k, kk, is_l2, Qg, keep_sorted=None, *, three_pass):
     """RaBitQ sign-plane scan (kernel: ivf_cuda.rbq_scan_tasks); q_dev is in
     the rotated frame, each task reads its list's rotated centroid (the
     reference's _pallas_rbq_search)."""
-    kk = task_kk(k, LIST_ALIGN)
 
     def scan(blk, nr, lid, safe):
         return rbq_scan_tasks(

@@ -27,7 +27,8 @@ from ..device import to_device
 from . import distances as D
 
 
-def _keep(dist: torch.Tensor, radius: float, range_filter: float, larger: bool, two_sided: bool) -> torch.Tensor:
+def in_window(dist, radius: float, range_filter: float, larger: bool, two_sided: bool):
+    """The window's keep mask of ``dist`` (a tensor or a numpy array)."""
     if larger:
         keep = dist > radius
         if two_sided:
@@ -69,7 +70,7 @@ def range_search(
             be = min(bs + tile, nb)
             a = aux[bs:be] if aux is not None else None
             dist = D.pairwise_distance(metric_name, q_dev, base[bs:be], a)
-            keep = _keep(dist, radius, range_filter, larger, two_sided)
+            keep = in_window(dist, radius, range_filter, larger, two_sided)
             if bitset_mask is not None:
                 keep &= bitset_mask[bs:be][None, :]
             r, c = torch.nonzero(keep, as_tuple=True)

@@ -3,10 +3,10 @@ knowhere_tpu/ops/refine.py).
 
 The scan returns a widened candidate pool; this pass gathers the candidates'
 refine rows (raw f32/fp16/bf16 rows, or SQ8 codes decoded with per-dim
-affine parameters) and recomputes their distances in full f32, then
-re-selects the top-k (ties to the earlier candidate, as
-``jax.lax.top_k``). The reference leaves this to XLA; here it is plain torch
-ops.
+affine parameters) and recomputes their distances in a batched full-f32
+product over a step of queries, then re-selects the top-k (ties to the
+earlier candidate, as ``jax.lax.top_k``). The reference leaves this to
+XLA; here it is plain torch ops.
 """
 
 from __future__ import annotations
@@ -42,6 +42,14 @@ class RefineStore:
     vmin: Optional[torch.Tensor] = None
     vdiff: Optional[torch.Tensor] = None
 
+    def row_bytes(self) -> int:
+        """Device bytes one gathered candidate row holds during the pass: its
+        f32 row and one f32 temporary of the same size (the L2 norms'
+        product, or a decode step), plus the gathered source row where the
+        store is not f32."""
+        src = self.data.element_size() if self.data.dtype != torch.float32 else 0
+        return self.data.shape[1] * (8 + src)
+
     def rows(self, pos: torch.Tensor) -> torch.Tensor:
         """f32 rows at storage positions ``pos`` (any shape, all >= 0)."""
         vecs = self.data[pos.long()]
@@ -56,13 +64,24 @@ def refine_topk_device(
     cand: torch.Tensor,  # (nq, R) int32 positions into store.data, -1 padded
     k: int,
     is_l2: bool,
+    chunk: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (dists (nq,k) native convention, positions (nq,k), -1 pad)."""
+    """Returns (dists (nq,k) native convention, positions (nq,k), -1 pad).
+    ``chunk`` queries are re-scored a step (all of them by default). A
+    batched product's sums may change with its batch, so a query's bits
+    depend on the step it is in: a caller that splits a batch splits it at
+    multiples of ``chunk`` to get the same bits."""
+    nq = cand.shape[0]
+    step = nq if chunk is None else max(1, chunk)
+    if step >= nq:
+        return _refine_step(q[:nq], store, cand, k, is_l2)
+    parts = [_refine_step(q[c : c + step], store, cand[c : c + step], k, is_l2) for c in range(0, nq, step)]
+    return torch.cat([d for d, _ in parts]), torch.cat([p for _, p in parts])
+
+
+def _refine_step(q, store: RefineStore, cand, k: int, is_l2: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     vecs = store.rows(cand.clamp(min=0))  # (nq, R, d)
-    # a row-wise product and sum, not a batched matmul (whose sums change
-    # with the batch size): a query's scores do not depend on the query
-    # block it is refined in
-    dots = (vecs * q[:, None, :]).sum(2)
+    dots = torch.einsum("qd,qrd->qr", q, vecs)
     if is_l2:
         dist = (q * q).sum(1, keepdim=True) - 2.0 * dots + (vecs * vecs).sum(2)
         score = -dist

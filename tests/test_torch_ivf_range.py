@@ -342,13 +342,16 @@ def test_calc_dist_by_ids(corpus, pair, name, metric):
 @pytest.mark.parametrize("fast", [False, True])
 @pytest.mark.parametrize("name", list(VARIANTS))
 def test_query_blocks_bit_identical(corpus, pair, name, fast, monkeypatch):
-    """SCAN_BLOCK_BYTES patched to 1 byte runs every scan one query a block:
-    Search at k=10 and k=300 and RangeSearch give the same bits as one block."""
+    """With the rerank at 3 queries a step in both runs, SCAN_BLOCK_BYTES
+    patched to 1 byte scans one rerank step a block (one query where nothing
+    re-ranks): Search at k=10 and k=300 and RangeSearch give the same bits
+    as one block."""
     xb, xq = corpus
     _, t = pair(name)
     set_precision(fast)
     radius = _between(_exact(xq, xb), 0.05)
     cfgs = [{"metric_type": "L2", "k": 10, "nprobe": 4}, {"metric_type": "L2", "k": 300, "nprobe": 4}]
+    monkeypatch.setattr(tivf, "_refine_chunk", lambda *_: 3)
 
     def run():
         outs = []
@@ -366,9 +369,61 @@ def test_query_blocks_bit_identical(corpus, pair, name, fast, monkeypatch):
     monkeypatch.setattr(tivf, "SCAN_BLOCK_BYTES", 1)
     blocked = run()
     set_precision(False)
-    assert calls and max(calls) == 1
+    assert calls and max(calls) <= 3 and len(calls) > len(xq)
     for a, b in zip(whole, blocked):
         assert a.dtype == b.dtype and np.array_equal(a.view(np.uint8), b.view(np.uint8))
+
+
+@pytest.mark.parametrize("name", ["IVF_FLAT", "IVF_PQ", "IVF_RABITQ"])
+def test_k10_search_is_one_block(corpus, pair, name, monkeypatch):
+    """At the default budgets a k=10 Search at FAST scans its whole padded
+    batch in one call and re-ranks every query in one step."""
+    _, xq = corpus
+    _, t = pair(name)
+    scans, steps = [], []
+    scan, refine = tivf.ivf_scan_search, tivf.refine_topk_device
+    monkeypatch.setattr(tivf, "ivf_scan_search", lambda *a, **kw: scans.append(a[0].shape[0]) or scan(*a, **kw))
+    monkeypatch.setattr(
+        tivf, "refine_topk_device", lambda *a, **kw: steps.append((a[2].shape[0], a[5])) or refine(*a, **kw)
+    )
+    set_precision(True)
+    try:
+        res = t.Search(ktt.GenDataSetFromArray(xq), {"metric_type": "L2", "k": 10, "nprobe": 4})
+    finally:
+        set_precision(False)
+    assert res.has_value(), res.what()
+    assert scans == [len(xq)]  # NQ = 16 is its own row ladder step
+    assert len(steps) == 1 and steps[0][0] == len(xq) and steps[0][1] >= len(xq)
+
+
+@pytest.mark.parametrize("k", [10, 300, 3000])
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("name", list(VARIANTS))
+def test_pool_bound_holds_the_merged_pool(corpus, pair, name, fast, k):
+    """ops/ivf_scan.pool_bound reads the task geometry the scan uses
+    (route_geometry): past it the merged pool holds no candidate, so the
+    rerank's slice of that width drops none."""
+    from knowhere_tpu_torch.device import to_device
+    from knowhere_tpu_torch.ops.ivf_scan import coarse_probe_host, pool_bound
+
+    _, xq = corpus
+    node = pair(name)[1].node
+    set_precision(fast)
+    try:
+        plan = node._scan_plan(k, 1)
+        probes = coarse_probe_host(node._prep_rows(xq), node._centroids, 4, node._is_l2_like())
+        q = to_device(node._pad_q_host(node._prep_rows(xq)))[: len(xq)]
+        if "rot_t" in node._store:
+            q = q @ node._store["rot_t"]
+        _, p = tivf.ivf_scan_search(
+            q, node._store, probes, node._offsets, plan.k_scan, node._is_l2_like(), prec=plan.prec,
+            list_lengths=node._lengths, sq_levels=node._sq_levels, sq_packed4=node._sq_packed4, route=plan.route,
+        )
+    finally:
+        set_precision(False)
+    bound = pool_bound(plan.route, node._lengths, 4, plan.k_scan)
+    assert (p[:, bound:] == -1).all()
+    assert (p[:, : min(bound, p.shape[1])] >= 0).sum(1).max() > 0
 
 
 # ---------------------------------------------------------------------------
