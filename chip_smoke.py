@@ -62,7 +62,11 @@ Run from the root of a checkout on a machine with one CUDA GPU. In order:
    and warm QPS at ef=48, the ef ladder 32 / 48 / 64, a 50% bitset, a 95%
    bitset (the exact-scan fallback), a Serialize/Deserialize round trip, the
    same BinarySet in lean mode (KNOWHERE_GRAPH_INLINE=0, the general walk),
-   and one torch-profiler pass over one search;
+   and one torch-profiler pass over one search; then SCANN at the bench's
+   leg (nlist=1024, sub_dim=2: 4-bit PQ with m=64 in the nibble layout,
+   nprobe=12, reorder_k=256): recall@10 against the FLAT truth, warm
+   search, every ADC launch of one search held against its plain version,
+   a 50% bitset, a round trip, GetVectorByIds bit-equal to the input rows;
 10. the single-pass fused kNN scan (fused_knn, the counterpart of the
    reference's pallas_knn) over all queries at k=10, held against its plain
    version on the same inputs, recall@10 against the FLAT truth and its wall
@@ -72,6 +76,20 @@ Run from the root of a checkout on a machine with one CUDA GPU. In order:
    100,000 x 960 with 1,000 queries instead of 1M, nlist=256 instead of
    1024 and nprobe=32 instead of 384 (refine_k=32), all cut for chip time;
    FLAT ground truth on that corpus, FAST recall within 0.01 of EXACT;
+   then the binary path: 256-bit SimHash codes of the corpus (the sign bits
+   under a seeded 128 x 256 gaussian projection), BIN_FLAT truth,
+   BIN_IVF_FLAT HAMMING (nlist=1024, nprobe=16) served by the f32 scan over
+   {0,1} rows, every launch of one search held against its plain version
+   (max abs error 0, positions 1.0), tie-aware recall@10, and JACCARD on a
+   second index (the plain scan: no f32-scan launch); the typed path:
+   IVF_FLAT over the corpus cast to fp16 against FLAT on the same values
+   (no scan kernel launched, GetVectorByIds fp16 rows bit-equal), and a bf16
+   IVF_FLAT through Serialize / Deserialize with no ml_dtypes loaded; the
+   cc path: IVF_FLAT_CC built on 600,000 rows while a writer Adds the other
+   400,000 in 40 batches and two readers search 1,000 queries in a loop
+   (every result full, every merge's epoch served by the int8 scan, 1,000
+   acknowledged rows read back first, final recall@10 within 0.01 of the
+   one-shot IVF_FLAT's), then IVF_SQ_CC at 100,000 rows;
 12. one torch-profiler pass over one search each of IVF_FLAT (the int8
    scan), IVF_PQ (the ADC scan at its real shape) and IVF_SQ8 FAST (the
    int8 scan over u8 codes), and over one IVF_FLAT RangeSearch of step 6
@@ -90,7 +108,8 @@ Run from the root of a checkout on a machine with one CUDA GPU. In order:
    {"ok": true, "device": {...}} last.
 
 Kernel launch counters are zeroed right before each of phases 4-11 and read
-right after it; every kernel must have launched on its path.
+right after it; every kernel must have launched on its path. Each path
+prints its wall time, and the script its own before the kernel summary.
 
 Every phase raises on failure; the script then exits non-zero and prints no
 result. JAX is not imported.
@@ -177,6 +196,37 @@ RANGE_IVF_RECALL_FLOOR = 0.98  # the JAX package's TPU anchor is 0.9935 (docs/BE
 RANGE_PQ_RECALL_FLOOR = 0.975  # no anchor: just under the first measured value, 0.9785
 RANGE_TIE = 1e-3  # FLAT's range set against its top-100: rows this close (relative) to the radius may differ
 ITER_NQ, ITER_ITEMS, ITER_RECALL_FLOOR = 100, 1000, 0.95
+# SCANN at the bench's leg (bench.py:426-440): 4-bit PQ with sub_dim 2 (m=64,
+# ksub=16, the nibble layout), raw rows reordering max(k, reorder_k) = 256
+SCANN_BUILD = {"metric_type": "L2", "nlist": 1024, "sub_dim": 2, "with_raw_data": True}
+SCANN_SEARCH = {"metric_type": "L2", "k": 10, "nprobe": 12, "reorder_k": 256}
+SCANN_RECALL_FLOOR, SCANN_TPU_ANCHOR = 0.95, 0.9584  # the anchor: docs/BENCHMARKS.md:18
+# binary path: 256-bit SimHash codes of the SIFT-like corpus (the sign bits
+# under a seeded 128 x 256 gaussian projection), BIN_IVF_FLAT HAMMING with its
+# f32 scan (one bf16 pass over {0,1} rows) held to the plain version exactly:
+# the scores are integers, so ties decide positions
+BIN_BITS, BIN_NB = 256, 1_000_000
+BIN_BUILD = {"nlist": 1024}
+BIN_SEARCH = {"k": 10, "nprobe": 16}
+BIN_JACCARD_NQ = 1000
+BIN_RECALL_FLOOR = 0.90  # tie-aware recall@10: just under the first measured value, 0.90335
+# typed path: IVF_FLAT over the corpus cast to fp16 (the plain scan over the
+# bf16 device rows, as the reference serves it); the floor just under the
+# first measured value, 0.95575
+TYPED_BUILD = {"metric_type": "L2", "nlist": 1024}
+TYPED_SEARCH = {"metric_type": "L2", "k": 10, "nprobe": 12}
+TYPED_RECALL_FLOOR = 0.95
+TYPED_BF16_NB = 100_000  # the bf16 round trip without ml_dtypes
+# cc path: IVF_FLAT_CC (nlist CC_NLIST) built on the first CC_N0 of CC_NB
+# rows, the rest added in CC_BATCHES batches while CC_READERS threads search
+# CC_NQ queries; then IVF_SQ_CC (nlist CC_SQ_NLIST: at 100,000 rows a list
+# padded to 512 rows would make 1024 lists five times the rows, and no merge
+# would come) at CC_SQ_NB rows
+CC_NB, CC_N0, CC_BATCHES, CC_READERS, CC_NQ = 1_000_000, 600_000, 40, 2, 1000
+CC_SQ_NB, CC_SQ_N0, CC_SQ_NLIST = 100_000, 60_000, 256
+CC_SEARCH, CC_NLIST = {"metric_type": "L2", "k": 10, "nprobe": 12}, 1024
+CC_RECALL_SLACK = 0.01  # final recall may trail the one-shot build's by this much
+CC_READBACK = 1000  # acknowledged rows searched by their own vectors
 # Published H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W): device
 # memory bytes/s, and operations/s by operand type.
 HBM_BYTES_PER_S = 3.35e12
@@ -1138,6 +1188,331 @@ def gist_pq_path(kt, nb=100_000, nq=1_000):
     return out
 
 
+def _peak_gb() -> float:
+    import torch
+
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def _warm(fn, reps: int = 5):
+    """fn() once to warm up, then reps timed calls: (the last output, the
+    times in ms, their median)."""
+    out = fn()
+    times = []
+    for _ in range(reps):
+        out, dt = _timed(fn)
+        times.append(dt * 1e3)
+    return out, times, float(np.median(times))
+
+
+def _store_gb(idx, *keys) -> dict:
+    """Device GB of the index's store tensors ``keys`` (the refine store as
+    "refine")."""
+    node = idx.node
+    out = {}
+    for key in keys:
+        t = node._refine_store.data if key == "refine" else node._store[key]
+        out[key] = t.numel() * t.element_size() / 1e9
+    return out
+
+
+def scann_path(kt, xb, xq, gt, flat):
+    """SCANN at the bench's leg through the public API: 4-bit PQ in the
+    nibble layout scanned by the ADC kernel (every launch of one search held
+    against adc_scan_plain), the raw rows re-scoring max(k, reorder_k)
+    candidates; recall against the FLAT truth, a 50% bitset, a round trip and
+    GetVectorByIds bit-equal to the input rows."""
+    import torch
+
+    from knowhere_tpu_torch.ops.ivf_scan import _nib
+
+    torch.cuda.reset_peak_memory_stats()
+    scann, ids, out = _serve(kt, "SCANN", "scann", xb, xq, gt, SCANN_BUILD, SCANN_SEARCH, SCANN_RECALL_FLOOR)
+    out["scann_tpu_anchor_recall_at_10"] = SCANN_TPU_ANCHOR  # the reference's, not the port's
+    node = scann.node
+    if node._pq.codebooks.shape != (64, 16, 2) or not _nib(node._store):
+        raise AssertionError(f"SCANN's codes are not the m=64 nibble layout: {node._pq.codebooks.shape}")
+    out["scann_device_gb"] = _store_gb(scann, "codes", "refine")
+    held = _adc_real_launch(lambda: _search(scann, kt, xq, SCANN_SEARCH))
+    out["scann_adc_held"] = {k: v for k, v in held.items() if k != "adc_vs_plain"}
+    out["scann_adc_held"]["max_abs_err"] = max(c["max_abs_err"] for c in held["adc_vs_plain"])
+    out["scann_adc_held"]["min_pos_agree"] = min(c["pos_agree"] for c in held["adc_vs_plain"])
+    out["scann_adc_held"]["kk"] = sorted({c["kk"] for c in held["adc_vs_plain"]})
+    out.update(_filtered_and_round_trip(kt, "SCANN", "scann", scann, ids, xb, xq, flat, SCANN_SEARCH)[0])
+    sel = np.random.default_rng(2).choice(len(xb), 1000, replace=False)
+    got = scann.GetVectorByIds(kt.GenIdsDataSet(sel)).value().tensor
+    out["scann_get_vector_bit_equal"] = bool(np.array_equal(np.asarray(got).view(np.uint32), xb[sel].view(np.uint32)))
+    if not out["scann_get_vector_bit_equal"]:
+        raise AssertionError("SCANN GetVectorByIds differs from the input rows")
+    out["scann_peak_device_gb"] = _peak_gb()
+    return out
+
+
+def simhash(x: np.ndarray, proj: np.ndarray, chunk: int = 131072) -> np.ndarray:
+    """The sign bits of x @ proj, packed eight a byte, LSB first."""
+    out = np.empty((len(x), proj.shape[1] // 8), np.uint8)
+    for s0 in range(0, len(x), chunk):
+        out[s0 : s0 + chunk] = np.packbits(x[s0 : s0 + chunk] @ proj > 0, axis=1, bitorder="little")
+    return out
+
+
+def _hamming(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Popcount of a ^ b over the last axis of packed rows."""
+    return np.unpackbits(a ^ b, axis=-1).sum(-1)
+
+
+def _tie_aware_recall(cq, cb, ids, kth) -> float:
+    """The share of returned ids whose true HAMMING distance is at most the
+    true k-th distance of their query (any of a tie may count); an empty
+    slot counts as a miss."""
+    d = _hamming(cb[np.clip(ids, 0, None)], cq[:, None, :])
+    return float(((d <= kth[:, None]) & (ids >= 0)).mean())
+
+
+def binary_path(kt, xb, xq, nb=None):
+    """BIN_FLAT truth and BIN_IVF_FLAT over 256-bit SimHash codes of the
+    corpus: HAMMING served by the f32 scan (every launch of one search held
+    against f32_scan_plain: max abs error 0, positions 1.0), tie-aware
+    recall, warm search; JACCARD on a second index takes the plain scan (no
+    f32-scan launch)."""
+    import torch
+
+    from knowhere_tpu_torch.ops import ivf_cuda
+
+    torch.cuda.reset_peak_memory_stats()
+    nb = nb or BIN_NB
+    proj = np.random.default_rng(7).standard_normal((xb.shape[1], BIN_BITS)).astype(np.float32)
+    t0 = time.perf_counter()
+    cb, cq = simhash(xb[:nb], proj), simhash(xq, proj)
+    out = {"bin_nb": nb, "bin_codes_s": time.perf_counter() - t0}
+
+    def ds(a):
+        return kt.GenDataSet(a.shape[0], BIN_BITS, a)
+
+    def build(name, metric):
+        idx = kt.IndexFactory.Instance().Create(name, data_type="bin1").value()
+        st, secs = _timed(lambda: idx.Build(ds(cb), dict(BIN_BUILD, metric_type=metric)))
+        if st != kt.Status.success:
+            raise RuntimeError(f"{name} {metric} Build: {st.name}")
+        return idx, secs
+
+    def search(idx, q, metric):
+        res = idx.Search(ds(q), dict(BIN_SEARCH, metric_type=metric), kt.BitsetView())
+        if not res.has_value():
+            raise RuntimeError(f"binary Search failed: {res.what()}")
+        k = BIN_SEARCH["k"]
+        return res.value().ids.reshape(len(q), k), res.value().distance.reshape(len(q), k)
+
+    flat, out["bin_flat_build_s"] = build("BIN_FLAT", "HAMMING")
+    (gt, gt_d), out["bin_flat_search_s"] = _timed(lambda: search(flat, cq, "HAMMING"))
+    sample = np.arange(0, len(cq), 97)
+    if not np.array_equal(gt_d[sample], _hamming(cb[gt[sample]], cq[sample][:, None, :]).astype(np.float32)):
+        raise AssertionError("BIN_FLAT distances differ from the popcount of the xor")
+    kth = gt_d[:, -1]
+    ivf, out["bin_ivf_build_s"] = build("BIN_IVF_FLAT", "HAMMING")
+    out["bin_device_gb"] = _store_gb(ivf, "data")
+    (ids, dists), out["bin_search_ms_all"], out["bin_search_ms_median"] = _warm(lambda: search(ivf, cq, "HAMMING"))
+    out["bin_qps"] = len(cq) / out["bin_search_ms_median"] * 1e3
+    if (ids < 0).any() or not np.array_equal(dists, _hamming(cb[ids], cq[:, None, :]).astype(np.float32)):
+        raise AssertionError("BIN_IVF_FLAT returned an empty slot or a distance that is not the popcount")
+    out["bin_recall_at_10_tie_aware"] = _tie_aware_recall(cq, cb, ids, kth)
+    out["bin_recall_at_10_ids"] = recall_at(ids, gt)
+    if out["bin_recall_at_10_tie_aware"] < BIN_RECALL_FLOOR:
+        raise AssertionError(f"BIN_IVF_FLAT tie-aware recall {out['bin_recall_at_10_tie_aware']} < {BIN_RECALL_FLOOR}")
+    _, held = _hold_launches(lambda: search(ivf, cq, "HAMMING"), ("ivf_f32_scan",))
+    out["bin_f32_held"] = _held_summary(held)["ivf_f32_scan"]
+    del ivf, flat
+    torch.cuda.empty_cache()
+
+    jac, out["bin_jaccard_build_s"] = build("BIN_IVF_FLAT", "JACCARD")
+    qj = cq[:BIN_JACCARD_NQ]
+    before = ivf_cuda.f32_scan_tasks.launches
+    (jids, jd), out["bin_jaccard_search_s"] = _timed(lambda: search(jac, qj, "JACCARD"))
+    out["bin_jaccard_f32_launches"] = ivf_cuda.f32_scan_tasks.launches - before
+    if out["bin_jaccard_f32_launches"]:
+        raise AssertionError("BIN_IVF_FLAT JACCARD launched the f32 scan (it takes the plain scan)")
+    if (jids < 0).any() or not ((jd >= 0) & (jd <= 1)).all():
+        raise AssertionError("BIN_IVF_FLAT JACCARD returned an empty slot or a distance outside [0, 1]")
+    out["bin_peak_device_gb"] = _peak_gb()
+    return out
+
+
+def typed_path(kt, xb, xq, wrappers):
+    """IVF_FLAT over the corpus cast to fp16, against FLAT on the f32 view of
+    the same rows (tests/test_typed_storage.py): the plain scan, no kernel
+    launched by the search, GetVectorByIds float16 rows bit-equal to the
+    input; then a bf16 IVF_FLAT (its rows given as bf16 bit patterns, the
+    port's host form) through Serialize / Deserialize with no ml_dtypes
+    loaded. ``wrappers``: the kernels whose launches the search must not
+    add to."""
+    import torch
+
+    from knowhere_tpu_torch.utils.bf16 import bf16_bits
+
+    torch.cuda.reset_peak_memory_stats()
+    xb16, xq16 = xb.astype(np.float16), xq.astype(np.float16)
+    flat, gt = _flat_truth(kt, xb16.astype(np.float32), xq16.astype(np.float32))
+    del flat
+    torch.cuda.empty_cache()
+    out = {}
+    idx = kt.IndexFactory.Instance().Create("IVF_FLAT", data_type="fp16").value()
+    st, out["typed_build_s"] = _timed(lambda: idx.Build(kt.GenDataSetFromArray(xb16), TYPED_BUILD))
+    if st != kt.Status.success:
+        raise RuntimeError(f"IVF_FLAT fp16 Build: {st.name}")
+    if idx.node._store["data"].dtype != torch.bfloat16 or "i8_nrm" in idx.node._store:
+        raise AssertionError("the fp16 store is not held in bf16 without an int8 sidecar")
+    out["typed_device_gb"] = _store_gb(idx, "data")
+    before = {n: w.launches for n, w in wrappers.items()}
+    (ids, _), out["typed_search_ms_all"], out["typed_search_ms_median"] = _warm(
+        lambda: _search(idx, kt, xq16, TYPED_SEARCH)
+    )
+    out["typed_scan_launches"] = {n: w.launches - before[n] for n, w in wrappers.items()}
+    if any(out["typed_scan_launches"].values()):
+        raise AssertionError(f"a scan kernel served the fp16 store: {out['typed_scan_launches']}")
+    out["typed_qps"] = len(xq) / out["typed_search_ms_median"] * 1e3
+    out["typed_recall_at_10"] = recall_at(ids, gt)
+    if (ids < 0).any() or out["typed_recall_at_10"] < TYPED_RECALL_FLOOR:
+        raise AssertionError(f"IVF_FLAT fp16 recall@10 {out['typed_recall_at_10']} < {TYPED_RECALL_FLOOR}")
+    sel = np.random.default_rng(3).choice(len(xb), 1000, replace=False)
+    got = np.asarray(idx.GetVectorByIds(kt.GenIdsDataSet(sel)).value().tensor)
+    if got.dtype != np.float16 or not np.array_equal(got.view(np.uint16), xb16[sel].view(np.uint16)):
+        raise AssertionError(f"IVF_FLAT fp16 GetVectorByIds: {got.dtype}, not the input rows")
+    out["typed_peak_device_gb"] = _peak_gb()
+    del idx
+    torch.cuda.empty_cache()
+
+    bits = bf16_bits(xb[:TYPED_BF16_NB])
+    b16 = kt.IndexFactory.Instance().Create("IVF_FLAT", data_type="bf16").value()
+    if b16.Build(kt.GenDataSetFromArray(bits), {"metric_type": "L2", "nlist": 256}) != kt.Status.success:
+        raise RuntimeError("IVF_FLAT bf16 Build failed")
+    bs = kt.BinarySet()
+    if b16.Serialize(bs) != kt.Status.success:
+        raise RuntimeError("IVF_FLAT bf16 Serialize failed")
+    again = kt.IndexFactory.Instance().Create("IVF_FLAT", data_type="bf16").value()
+    if again.Deserialize(bs) != kt.Status.success:
+        raise RuntimeError("IVF_FLAT bf16 Deserialize failed")
+    q = bf16_bits(xq[:1000])
+    out["bf16_roundtrip_ids_identical"] = bool(np.array_equal(
+        _search(again, kt, q, TYPED_SEARCH)[0], _search(b16, kt, q, TYPED_SEARCH)[0]
+    ))
+    if not out["bf16_roundtrip_ids_identical"] or "ml_dtypes" in sys.modules:
+        raise AssertionError("the bf16 round trip changed the ids, or loaded ml_dtypes")
+    return out
+
+
+def _cc_run(kt, name, xb, xq, xq_eval, gt, one_shot, n0, batches, nlist):
+    """Build ``name`` on xb[:n0]; a writer Adds the rest in ``batches``
+    batches while CC_READERS threads search xq in a loop. Every reader result
+    must be full with ids in range; every merge's epoch must serve through
+    the int8 scan; after the last Add each of CC_READBACK acknowledged rows,
+    searched by its own vector, comes back first (IVF_FLAT_CC: at distance
+    0 up to f32 rounding; IVF_SQ_CC scores merged rows by their SQ8 decode);
+    the final recall@10 of xq_eval against gt must reach one_shot -
+    CC_RECALL_SLACK."""
+    import threading
+
+    import torch
+
+    from knowhere_tpu_torch.ops import ivf_cuda
+
+    torch.cuda.reset_peak_memory_stats()
+    nb, k = len(xb), CC_SEARCH["k"]
+    idx = kt.IndexFactory.Instance().Create(name).value()
+    st, build_s = _timed(lambda: idx.Build(kt.GenDataSetFromArray(xb[:n0]), dict(CC_SEARCH, nlist=nlist)))
+    if st != kt.Status.success:
+        raise RuntimeError(f"{name} Build: {st.name}")
+    stop, errors, reader_ms = threading.Event(), [], []
+
+    def reader():
+        while not stop.is_set():
+            try:
+                (ids, d), dt = _timed(lambda: _search(idx, kt, xq, CC_SEARCH))
+            except Exception as e:  # noqa: BLE001 - reported by the main thread
+                errors.append(repr(e))
+                return
+            if (ids < 0).any() or ids.max() >= nb or not np.isfinite(d).all():
+                errors.append(f"a reader got a short or out-of-range result (max id {ids.max()})")
+                return
+            reader_ms.append(dt * 1e3)
+
+    threads = [threading.Thread(target=reader) for _ in range(CC_READERS)]
+    for t in threads:
+        t.start()
+    merges, add_s, step = [], 0.0, (nb - n0) // batches
+    try:
+        for b in range(batches):
+            lo, hi = n0 + b * step, (nb if b == batches - 1 else n0 + (b + 1) * step)
+            pending = idx.node._pending_count
+            st, dt = _timed(lambda: idx.Add(kt.GenDataSetFromArray(xb[lo:hi]), CC_SEARCH))
+            add_s += dt
+            if st != kt.Status.success:
+                raise RuntimeError(f"{name} Add: {st.name}")
+            if idx.node._pending_count == 0:  # this Add merged the pending rows into a new epoch
+                before = ivf_cuda.int8_scan_tasks.launches
+                _search(idx, kt, xq[:16], CC_SEARCH)
+                if "i8_nrm" not in idx.node._store or ivf_cuda.int8_scan_tasks.launches == before:
+                    raise AssertionError(f"{name}: the epoch after merge {len(merges) + 1} did not serve the int8 scan")
+                merges.append({"after_add": b + 1, "pending_merged": pending + hi - lo, "add_s": dt})
+            if errors:
+                break
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=600)
+    if errors:
+        raise AssertionError(f"{name} reader: {errors[0]}")
+    if idx.Count() != nb or not merges or not reader_ms:
+        raise AssertionError(f"{name}: Count {idx.Count()} of {nb}, {len(merges)} merges, {len(reader_ms)} reads")
+    out = {"rows": nb, "build_rows": n0, "build_s": build_s, "merges": merges, "add_rows_per_s": (nb - n0) / add_s,
+           "reader_searches": len(reader_ms), "reader_ms_median": float(np.median(reader_ms)),
+           "reader_ms_p99": float(np.percentile(reader_ms, 99)), "pending_after_last_add": idx.node._pending_count}
+    sel = np.random.default_rng(4).choice(np.arange(n0, nb), CC_READBACK, replace=False)
+    ids, d = _search(idx, kt, xb[sel], CC_SEARCH)
+    tol = 1e-5 * (xb[sel].astype(np.float64) ** 2).sum(1) + 1e-3
+    out["readback_top1_own_id"] = float((ids[:, 0] == sel).mean())
+    out["readback_max_own_dist"] = float(d[:, 0].max())
+    if out["readback_top1_own_id"] < 1.0 or (name == "IVF_FLAT_CC" and (d[:, 0] > tol).any()):
+        raise AssertionError(f"{name}: an acknowledged row did not come back first at distance 0: {out}")
+    (ids, _), out["final_search_ms_all"], out["final_search_ms_median"] = _warm(
+        lambda: _search(idx, kt, xq_eval, CC_SEARCH)
+    )
+    out["recall_at_10"], out["one_shot_recall_at_10"] = recall_at(ids, gt), one_shot
+    if out["recall_at_10"] < one_shot - CC_RECALL_SLACK:
+        raise AssertionError(f"{name} recall {out['recall_at_10']} < one-shot {one_shot} - {CC_RECALL_SLACK}")
+    out["peak_device_gb"] = _peak_gb()
+    return out
+
+
+def _one_shot(kt, name, xs, qs, nlist, k=10):
+    """(FLAT truth of qs over xs, recall@10 of ``name`` built on all of xs
+    at once): the bar of a cc run over rows other than the main path's."""
+    import torch
+
+    _, gt = _flat_truth(kt, xs, qs, k)
+    ref = kt.IndexFactory.Instance().Create(name).value()
+    if ref.Build(kt.GenDataSetFromArray(xs), dict(CC_SEARCH, nlist=nlist)) != kt.Status.success:
+        raise RuntimeError(f"{name} one-shot Build failed")
+    recall = recall_at(_search(ref, kt, qs, CC_SEARCH)[0], gt)
+    del ref
+    torch.cuda.empty_cache()
+    return gt, recall
+
+
+def cc_path(kt, xb, xq, gt, one_shot_recall):
+    """IVF_FLAT_CC at CC_NB rows (at the full corpus, the main path's FLAT
+    truth and one-shot IVF_FLAT recall are the bar), then IVF_SQ_CC at
+    CC_SQ_NB rows against a one-shot IVF_SQ_CC build of the same rows, each
+    with concurrent readers."""
+    if CC_NB != len(xb):
+        gt, one_shot_recall = _one_shot(kt, "IVF_FLAT", xb[:CC_NB], xq, CC_NLIST)
+    out = {"ivf_flat_cc": _cc_run(kt, "IVF_FLAT_CC", xb[:CC_NB], xq[:CC_NQ], xq, gt, one_shot_recall,
+                                  CC_N0 * CC_NB // 1_000_000, CC_BATCHES, CC_NLIST)}
+    xs, qs = xb[:CC_SQ_NB], xq[:CC_NQ]
+    gt_s, one_shot = _one_shot(kt, "IVF_SQ_CC", xs, qs, CC_SQ_NLIST)
+    out["ivf_sq_cc"] = _cc_run(kt, "IVF_SQ_CC", xs, qs, qs, gt_s, one_shot, CC_SQ_N0, CC_BATCHES, CC_SQ_NLIST)
+    return out
+
+
 # (name, search): torch-profiler passes run after every timed search of the
 # script (late_profiles), so that the searches timed on the paths before
 # them do not follow a profiler pass, which can slow the searches timed
@@ -1164,12 +1539,15 @@ def _held_kernels() -> dict:
     """The kernels whose launches a path's run can hold against their plain
     versions: (the name ops/ivf_scan launches it by, its plain version,
     rtol, atol, position agreement, empty slots exactly (-1e38, -1)), the
-    tolerances of their own checks in step 3."""
+    tolerances of their own checks in step 3; the f32 scan's over {0,1}
+    rows (the binary path), where every product and sum is an exact
+    integer: scores and positions equal."""
     from knowhere_tpu_torch.ops import adc_cuda, ivf_cuda
 
     return {
         "ivf_int8_scan": ("int8_scan_tasks", ivf_cuda.int8_scan_plain, INT8_RTOL, 0.0, 1.0, False),
         "ivf_adc_scan": ("adc_scan_tasks", adc_cuda.adc_scan_plain, ADC_RTOL, ADC_ATOL, ADC_POS_AGREE, True),
+        "ivf_f32_scan": ("f32_scan_tasks", ivf_cuda.f32_scan_plain, 0.0, 0.0, 1.0, True),
     }
 
 
@@ -1647,9 +2025,11 @@ def _run_path(name, wrappers, must_launch, fn):
     launched. Returns (fn's output, counts)."""
     for w in wrappers.values():
         w.launches = 0
+    t0 = time.perf_counter()
     out = fn()
+    wall = time.perf_counter() - t0
     counts = {n: w.launches for n, w in wrappers.items()}
-    print(f"{name} launches:", json.dumps(counts))
+    print(f"{name} launches:", json.dumps(counts), f"(wall {wall:.2f} s)")
     missing = [n for n in must_launch if counts[n] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the {name}: {missing}")
@@ -1659,6 +2039,7 @@ def _run_path(name, wrappers, must_launch, fn):
 def main() -> int:
     import torch
 
+    t_script = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1669,8 +2050,8 @@ def main() -> int:
     import knowhere_tpu_torch as kt
     from knowhere_tpu_torch.ops import adc_cuda, cuda_build, cuda_flat, fused_topk, ivf_cuda
 
-    if "jax" in sys.modules:
-        raise AssertionError("the port imported jax")
+    if "jax" in sys.modules or "ml_dtypes" in sys.modules:
+        raise AssertionError("the port imported jax or ml_dtypes")
     kt.set_device("cuda")
     dev = torch.device("cuda")
     card = card_line()
@@ -1726,6 +2107,8 @@ def main() -> int:
     # HNSW before FLAT is dropped: its filtered truths need it
     hnsw_out, _ = _run_path("hnsw path", wrappers, ("ivf_f32_scan",), lambda: hnsw_path(kt, xb, xq, gt, flat))
     print("hnsw path:", json.dumps(hnsw_out))
+    scann_out, _ = _run_path("scann path", wrappers, ("ivf_adc_scan",), lambda: scann_path(kt, xb, xq, gt, flat))
+    print("scann path:", json.dumps(scann_out))
     del flat
     torch.cuda.empty_cache()
     # the fused scan's three launches are counted apart too: each
@@ -1745,6 +2128,16 @@ def main() -> int:
     launches["fused_knn_scan"] = calls
     gist_out, _ = _run_path("gist ivf_pq path", wrappers, ("ivf_adc_scan", "flat_group_scan"), lambda: gist_pq_path(kt))
     print("gist ivf_pq path:", json.dumps(gist_out))
+    bin_out, _ = _run_path("binary path", wrappers, ("ivf_f32_scan",), lambda: binary_path(kt, xb, xq))
+    print("binary path:", json.dumps(bin_out))
+    typed_out, _ = _run_path("typed path", wrappers, (), lambda: typed_path(kt, xb, xq, wrappers))
+    print("typed path:", json.dumps(typed_out))
+    cc_out, _ = _run_path(
+        "cc path", wrappers, ("ivf_int8_scan",), lambda: cc_path(kt, xb, xq, gt, e2e["recall_at_10"])
+    )
+    print("cc path:", json.dumps(cc_out))
+    if "jax" in sys.modules or "ml_dtypes" in sys.modules:
+        raise AssertionError("the port imported jax or ml_dtypes")
     profiles = late_profiles()
     print("late profiles:", json.dumps(profiles))
     # after every timed search: its steps' large blocks do not share a
@@ -1801,6 +2194,7 @@ def main() -> int:
     for entry in kernels:
         extra = ("group_max_ms", "select_ms", "yardstick_ms", "rescore_ms", "two_call_topk_ms")
         entry.update({key: first[entry["name"]][key] for key in extra if key in first[entry["name"]]})
+    print(f"script wall s: {time.perf_counter() - t_script:.2f}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

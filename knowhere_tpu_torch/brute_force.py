@@ -1,15 +1,17 @@
 """BruteForce — index-free exact search, the recall oracle (counterpart of
-the dense part of knowhere_tpu/brute_force.py).
+knowhere_tpu/brute_force.py without its sparse part).
 
 The reference's static API (include/knowhere/comp/brute_force.h:29-66):
 Search / SearchWithBuf / RangeSearch / AnnIterator and the multi-chunk
 SearchOnChunkWithBuf / AnnIteratorOnChunk, over dense float data with
-L2/IP/COSINE. The base goes to the device once a call and is streamed
-through the tiled kNN scan (ops/topk.py) or the tiled range scan
-(ops/range.py); the iterators score full distance rows on the device.
+L2/IP/COSINE and over binary data (uint8 rows, eight bits a byte, LSB
+first) with HAMMING/JACCARD/SUBSTRUCTURE/SUPERSTRUCTURE. The base goes to
+the device once a call (binary rows and queries unpacked to {0,1} planes)
+and is streamed through the tiled kNN scan (ops/topk.py) or the tiled range
+scan (ops/range.py); the iterators score full distance rows on the device.
 
-Binary metrics (HAMMING/JACCARD/SUBSTRUCTURE/SUPERSTRUCTURE) and sparse
-bases are not ported yet: they answer Status.not_implemented.
+Sparse bases (SearchSparse, BM25) are not ported yet: they answer
+Status.not_implemented.
 """
 
 from __future__ import annotations
@@ -30,18 +32,20 @@ from .ops import topk as T
 from .status import KnowhereException, Status, expected, guarded_call, guarded_expected
 
 _NO_SPARSE = "sparse brute force (SearchSparse, BM25) is not ported to knowhere_tpu_torch yet"
-_NO_BINARY = "binary metrics (HAMMING, JACCARD, SUBSTRUCTURE, SUPERSTRUCTURE) are not ported to knowhere_tpu_torch yet"
 
 
 def _check(base_ds: DataSet, metric: str) -> Optional[KnowhereException]:
-    """The error a dense call over ``base_ds`` with ``metric`` answers, or None."""
+    """The error a call over ``base_ds`` with ``metric`` answers, or None."""
     if base_ds.is_sparse:
         return KnowhereException(_NO_SPARSE, Status.not_implemented)
+    is_bin_data = np.asarray(base_ds.tensor).dtype == np.uint8
     if metric in BINARY_METRICS:
-        return KnowhereException(_NO_BINARY, Status.not_implemented)
+        if not is_bin_data:
+            return KnowhereException(f"binary metric {metric} requires packed uint8 data", Status.invalid_metric_type)
+        return None
     if metric not in DENSE_FLOAT_METRICS:
         return KnowhereException(f"metric {metric} not supported by BruteForce", Status.invalid_metric_type)
-    if np.asarray(base_ds.tensor).dtype == np.uint8:
+    if is_bin_data:
         return KnowhereException(f"metric {metric} not valid for binary data", Status.invalid_metric_type)
     return None
 
@@ -59,13 +63,14 @@ def _load(json_cfg, stage: Stage, base_ds: DataSet):
     return cfg, metric
 
 
-def _base(base_ds: DataSet):
-    """A dense base's rows on the device."""
-    return to_device(np.asarray(base_ds.tensor, dtype=np.float32))
-
-
-def _queries(query_ds: DataSet) -> np.ndarray:
-    return np.asarray(query_ds.tensor, dtype=np.float32)
+def _prep(base_ds: DataSet, query_ds: DataSet, metric: str):
+    """(queries on the host, the base's rows on the device): f32 rows, or
+    for a binary metric both unpacked to {0,1} planes of base_ds.dim bits."""
+    xb, xq = np.asarray(base_ds.tensor), np.asarray(query_ds.tensor)
+    if metric in BINARY_METRICS:
+        bits = base_ds.dim
+        return D.unpack_bits_host(xq.view(np.uint8), bits), to_device(D.unpack_bits_host(xb.view(np.uint8), bits))
+    return np.asarray(xq, dtype=np.float32), to_device(np.asarray(xb, dtype=np.float32))
 
 
 class BruteForce:
@@ -78,11 +83,9 @@ class BruteForce:
     ) -> "expected[DataSet]":
         def impl():
             cfg, metric = _load(json_cfg, Stage.SEARCH, base_dataset)
-            b_dev = _base(base_dataset)
+            xq, b_dev = _prep(base_dataset, query_dataset, metric)
             mask = bitset.device_mask(base_dataset.rows) if bitset and not bitset.empty_view() else None
-            ids, dists = T.knn_search(
-                _queries(query_dataset), b_dev, cfg.k, metric, bitset_mask=mask, aux=D.base_aux(metric, b_dev)
-            )
+            ids, dists = T.knn_search(xq, b_dev, cfg.k, metric, bitset_mask=mask, aux=D.base_aux(metric, b_dev))
             return expected.Ok(GenResultDataSet(query_dataset.rows, cfg.k, ids, dists))
 
         return guarded_expected(impl)
@@ -112,9 +115,9 @@ class BruteForce:
     ) -> "expected[DataSet]":
         def impl():
             cfg, metric = _load(json_cfg, Stage.RANGE_SEARCH, base_dataset)
-            b_dev = _base(base_dataset)
+            xq, b_dev = _prep(base_dataset, query_dataset, metric)
             mask = bitset.device_mask(base_dataset.rows) if bitset and not bitset.empty_view() else None
-            return expected.Ok(range_result(_queries(query_dataset), b_dev, cfg, metric, mask))
+            return expected.Ok(range_result(xq, b_dev, cfg, metric, mask))
 
         return guarded_expected(impl)
 
@@ -131,7 +134,7 @@ class BruteForce:
         def impl():
             _, metric = _load(json_cfg, Stage.ITERATOR, base_dataset)
             keep = bitset.host_mask(base_dataset.rows) if bitset and not bitset.empty_view() else None
-            return expected.Ok(precomputed_iterators(_queries(query_dataset), _base(base_dataset), metric, keep))
+            return expected.Ok(precomputed_iterators(*_prep(base_dataset, query_dataset, metric), metric, keep))
 
         return guarded_expected(impl)
 
@@ -164,11 +167,10 @@ class BruteForce:
             total = sum(ds.rows for ds in chunk_datasets)
             keep = bitset.host_mask(total) if bitset and not bitset.empty_view() else None
             larger = D.larger_is_better(metric)
-            xq = _queries(query_dataset)
             part_ids, part_d = [], []
             row0 = 0
             for ds in chunk_datasets:
-                b_dev = _base(ds)
+                xq, b_dev = _prep(ds, query_dataset, metric)
                 mask = to_device(keep[row0 : row0 + ds.rows]) if keep is not None else None
                 ids_c, d_c = T.knn_search(
                     xq, b_dev, min(k, ds.rows), metric, bitset_mask=mask, aux=D.base_aux(metric, b_dev)
@@ -215,11 +217,10 @@ class BruteForce:
                     raise err
             total = sum(ds.rows for ds in chunk_datasets)
             keep = bitset.host_mask(total) if bitset and not bitset.empty_view() else None
-            q_dev = to_device(_queries(query_dataset))
             dmats = []
             for ds in chunk_datasets:
-                b_dev = _base(ds)
-                dmats.append(D.pairwise_distance(metric, q_dev, b_dev, D.base_aux(metric, b_dev)).cpu().numpy())
+                xq, b_dev = _prep(ds, query_dataset, metric)
+                dmats.append(D.pairwise_distance(metric, to_device(xq), b_dev, D.base_aux(metric, b_dev)).cpu().numpy())
             dmat = np.concatenate(dmats, axis=1)
             larger = D.larger_is_better(metric)
             return expected.Ok([PrecomputedDistanceIterator(row, keep, larger) for row in dmat])

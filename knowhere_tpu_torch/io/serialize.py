@@ -25,6 +25,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 import numpy as np
 
 from ..status import KnowhereException, Status
+from ..utils.bf16 import BF16_NAME
 
 MAGIC = b"KWTPU\x01"
 ALIGN = 64
@@ -36,8 +37,12 @@ def _pad(n: int) -> int:
 
 
 def write_sections(
-    arrays: Dict[str, np.ndarray], meta: Optional[Dict[str, Any]] = None
+    arrays: Dict[str, np.ndarray], meta: Optional[Dict[str, Any]] = None, bf16: Tuple[str, ...] = ()
 ) -> bytes:
+    """The KWTPU bytes of ``arrays`` and ``meta``. The sections named in
+    ``bf16`` hold bf16 rows as uint16 bit patterns (utils/bf16.py): they are
+    written under the dtype name "bfloat16", as the reference writes its
+    ml_dtypes rows, over the same bytes."""
     header: Dict[str, Any] = {
         "format_version": FORMAT_VERSION,
         "meta": meta or {},
@@ -58,7 +63,7 @@ def write_sections(
             sections[name] = {
                 "offset": off,
                 "nbytes": arr.nbytes,
-                "dtype": str(arr.dtype),
+                "dtype": BF16_NAME if name in bf16 else str(arr.dtype),
                 "shape": list(arr.shape),
             }
             off += arr.nbytes
@@ -87,11 +92,9 @@ def write_sections(
 
 
 def _dtype(name: str) -> np.dtype:
-    """numpy dtype of a section; "bfloat16" (bf16 refine rows, written from an
-    ml_dtypes array as the reference writes them) needs ml_dtypes loaded."""
-    if name == "bfloat16":
-        import ml_dtypes  # noqa: F401  (registers the dtype name with numpy)
-    return np.dtype(name)
+    """numpy dtype of a section; a "bfloat16" section (bf16 rows) reads as
+    its uint16 bit patterns (utils/bf16.py)."""
+    return np.dtype(np.uint16) if name == BF16_NAME else np.dtype(name)
 
 
 def read_sections(

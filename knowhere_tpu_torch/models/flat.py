@@ -1,13 +1,20 @@
-"""FLAT — exact scan index (counterpart of knowhere_tpu/models/flat.py,
-dense FLAT only).
+"""FLAT and BIN_FLAT — exact scan index (counterpart of
+knowhere_tpu/models/flat.py).
 
-The stored base lives on the device once. Unfiltered L2/IP/COSINE searches
-over nb >= 16384 rows with k <= 1024 take the two-phase exact scan
-(ops/cuda_flat.py, CUDA group-scan kernel) on any device; filtered and small
-searches take the streaming tiled scan (ops/topk.py). RangeSearch runs the
-tiled range scan (ops/range.py); AnnIterator and CalcDistByIDs score full
-f32 distances on the device (AnnIterator keeps one nb-float row a query on
-the host, so callers keep nq small).
+FLAT takes fp32, fp16, bf16 and int8 rows, and BIN_FLAT (BINFLAT) bin1 rows
+packed eight bits a byte, LSB first. The stored base lives on the device
+once, at its own width (a bf16 corpus as torch.bfloat16, held on the host as
+its uint16 bit patterns, utils/bf16.py); a binary base is unpacked to {0,1}
+int8 planes there, and binary queries are unpacked the same way. Unfiltered
+L2/IP/COSINE searches over nb >= 16384 rows with k <= 1024 take the
+two-phase exact scan (ops/cuda_flat.py, CUDA group-scan kernel) on any
+device; filtered, small and binary searches take the streaming tiled scan
+(ops/topk.py), as in the reference. RangeSearch runs the tiled range scan
+(ops/range.py); AnnIterator and CalcDistByIDs score full f32 distances on
+the device (AnnIterator keeps one nb-float row a query on the host, so
+callers keep nq small). GetVectorByIds returns the stored rows: packed bits
+for BIN_FLAT. TPU_BRUTE_FORCE, GPU_CUVS_BRUTE_FORCE, GPU_BRUTE_FORCE and
+GPU_FAISS_FLAT name the same index.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ from ..ops import distances as D
 from ..ops import range as R
 from ..ops import topk as T
 from ..status import KnowhereException, Status, expected
+from ..utils.bf16 import as_f32, bf16_bits, rows_to_device
 from ..utils.spill import release_spill, spill_array
 
 # the two-phase scan serves corpora at least this large (as the reference)
@@ -46,24 +54,38 @@ class FlatIndexNode(IndexNode):
         super().__init__(version, object)
         self.index_type = IndexEnum.INDEX_FAISS_IDMAP
         self.data_type = "fp32"
-        self._xb: Optional[np.ndarray] = None  # stored rows (host)
+        self._xb: Optional[np.ndarray] = None  # stored rows (host; packed bits for bin1)
         self._dim = 0
         self._metric = "L2"
         self._dev = None  # device copy of the rows
         self._scan_stores = {}  # metric -> cuda_flat.FlatScanStore
 
+    def _is_binary(self) -> bool:
+        return self.data_type == "bin1"
+
     def _ensure_device(self):
         if self._dev is None:
             if self._xb is None:
                 raise KnowhereException("index is empty", Status.empty_index)
-            self._dev = to_device(self._xb)
+            if self._is_binary():
+                self._dev = to_device(D.unpack_bits_host(self._xb, self._dim))
+            else:
+                self._dev = rows_to_device(bf16_bits(self._xb) if self.data_type == "bf16" else self._xb)
             # the device copy is the search structure; the host copy (read by
             # Serialize, GetVectorByIds and Add) becomes a disk-backed memmap
             self._xb = spill_array(self._xb)
         return self._dev
 
+    def _rows(self, x) -> np.ndarray:
+        """Query or stored rows as the scans take them: {0,1} planes for
+        bin1, f32 otherwise (bf16 bit patterns widened)."""
+        x = np.asarray(x)
+        if self._is_binary():
+            return D.unpack_bits_host(x.view(np.uint8), self._dim)
+        return as_f32(x)
+
     def _check_metric(self, metric: str) -> None:
-        if metric in BINARY_METRICS:
+        if (metric in BINARY_METRICS) != self._is_binary():
             raise KnowhereException(
                 f"metric {metric} incompatible with data type {self.data_type}",
                 Status.invalid_metric_type,
@@ -103,7 +125,7 @@ class FlatIndexNode(IndexNode):
         metric = normalize_metric(cfg.metric_type)
         self._check_metric(metric)
         dev = self._ensure_device()
-        xq = np.asarray(dataset.tensor, dtype=np.float32)
+        xq = self._rows(dataset.tensor)
         if (
             bitset.empty_view()
             and metric in ("L2", "IP", "COSINE")
@@ -141,7 +163,7 @@ class FlatIndexNode(IndexNode):
         self._check_metric(metric)
         dev = self._ensure_device()
         mask = bitset.device_mask(self.Count()) if not bitset.empty_view() else None
-        return expected.Ok(range_result(np.asarray(dataset.tensor, dtype=np.float32), dev, cfg, metric, mask))
+        return expected.Ok(range_result(self._rows(dataset.tensor), dev, cfg, metric, mask))
 
     def AnnIterator(
         self, dataset: DataSet, cfg: Config, bitset: BitsetView, use_knowhere_search_pool=True
@@ -150,7 +172,7 @@ class FlatIndexNode(IndexNode):
         self._check_metric(metric)
         dev = self._ensure_device()
         keep = bitset.host_mask(self.Count()) if not bitset.empty_view() else None
-        return expected.Ok(precomputed_iterators(np.asarray(dataset.tensor, dtype=np.float32), dev, metric, keep))
+        return expected.Ok(precomputed_iterators(self._rows(dataset.tensor), dev, metric, keep))
 
     def GetVectorByIds(self, dataset: DataSet) -> "expected[DataSet]":
         if self._xb is None:
@@ -165,8 +187,8 @@ class FlatIndexNode(IndexNode):
         the build metric: (nq, len(ids)) f32."""
         if self._xb is None:
             return expected.Err(Status.empty_index, "index not built")
-        sub = to_device(np.asarray(self._xb[np.asarray(ids, dtype=np.int64)]))
-        q = to_device(np.asarray(query_ds.tensor, dtype=np.float32))
+        sub = to_device(self._rows(self._xb[np.asarray(ids, dtype=np.int64)]))
+        q = to_device(self._rows(query_ds.tensor))
         dmat = D.pairwise_distance(self._metric, q, sub, D.base_aux(self._metric, sub))
         return expected.Ok(dmat.cpu().numpy())
 
@@ -186,6 +208,7 @@ class FlatIndexNode(IndexNode):
                 "data_type": self.data_type,
                 "index_type": self.Type(),
             },
+            bf16=("xb",) if self._xb.dtype == np.uint16 else (),
         )
         binset.Append(self.Type(), blob)
         return Status.success
@@ -242,8 +265,20 @@ def precomputed_iterators(xq: np.ndarray, base, metric: str, keep: Optional[np.n
     return iterators
 
 
+_DENSE_TYPES = ("fp32", "fp16", "bf16", "int8")
+_BINARY = feature.BINARY | feature.MMAP | feature.KNN | feature.NO_TRAIN
+_GPU = feature.ALL_DENSE_TYPE | feature.KNN | feature.NO_TRAIN | feature.GPU
+
 register_index(
-    IndexEnum.INDEX_FAISS_IDMAP,
-    ("fp32", "fp16", "bf16", "int8"),
-    feature.ALL_DENSE_TYPE | feature.MMAP | feature.KNN | feature.NO_TRAIN,
+    IndexEnum.INDEX_FAISS_IDMAP, _DENSE_TYPES, feature.ALL_DENSE_TYPE | feature.MMAP | feature.KNN | feature.NO_TRAIN,
 )(FlatIndexNode)
+# BINFLAT: the legacy name the reference registers beside BIN_FLAT (flat.cc:418)
+for _name in (IndexEnum.INDEX_FAISS_BIN_IDMAP, "BINFLAT"):
+    register_index(_name, ("bin1",), _BINARY)(FlatIndexNode)
+# the brute-force names (TPU_BRUTE_FORCE is the reference's counterpart of
+# GPU_CUVS_BRUTE_FORCE) and the legacy faiss-GPU name
+for _name in (
+    IndexEnum.INDEX_TPU_BRUTEFORCE, IndexEnum.INDEX_CUVS_BRUTEFORCE, IndexEnum.INDEX_GPU_BRUTEFORCE,
+    IndexEnum.INDEX_FAISS_GPU_IDMAP,
+):
+    register_index(_name, _DENSE_TYPES, _GPU)(FlatIndexNode)

@@ -49,7 +49,7 @@ from ..ops import topk as T
 from ..ops.distances import pad_rows_ladder
 from ..ops.refine import RefineStore, refine_topk_device, sq8_encode
 from ..status import KnowhereException, Status, expected
-from .ivf import _bf16_dtype, _rows_to_device
+from ..utils.bf16 import as_f32, bf16_bits, rows_to_device
 
 # Bitset density beyond which the walk strands and the reference falls back
 # to an exact scan (IndexConditionalWrapper).
@@ -222,7 +222,7 @@ class HnswIndexNode(IndexNode):
         elif self.VARIANT == "sq":
             self._sq = Q.sq_train(x, (self._train_cfg.get("sq_type") if self._train_cfg else None) or "SQ8")
             if self._sq.sq_type in ("FP16", "BF16"):  # cast rows, a bf16 raw store
-                self._payload = {"data": x.astype(_bf16_dtype())}
+                self._payload = {"data": bf16_bits(x)}
             else:
                 self._payload = {"codes": Q.sq_encode(self._sq, x)}
         elif self.VARIANT == "pq":
@@ -276,7 +276,7 @@ class HnswIndexNode(IndexNode):
         elif kind == "fp16":
             self._payload["refine"] = x.astype(np.float16)
         elif kind == "bf16":
-            self._payload["refine"] = x.astype(_bf16_dtype())
+            self._payload["refine"] = bf16_bits(x)
 
     def _upload(self) -> None:
         self._graph_dev = to_device(np.asarray(self._graph, np.int32))
@@ -293,7 +293,7 @@ class HnswIndexNode(IndexNode):
             self._kind = "raw"
         elif self.VARIANT == "sq":
             if "data" in p:  # FP16/BF16: bf16 raw store
-                self._store = {"data": _rows_to_device(np.asarray(p["data"]))}
+                self._store = {"data": rows_to_device(np.asarray(p["data"]))}
                 self._kind = "raw"
             else:
                 self._store = {
@@ -308,7 +308,7 @@ class HnswIndexNode(IndexNode):
             self._kind = self.VARIANT
         self._refine_store = None
         if "refine" in p:
-            rows = _rows_to_device(np.asarray(p["refine"]))
+            rows = rows_to_device(np.asarray(p["refine"]))
             if self._refine_cfg == "sq8":
                 self._refine_store = RefineStore("sq8", rows, to_device(p["refine_vmin"]), to_device(p["refine_vdiff"]))
             else:
@@ -448,7 +448,8 @@ class HnswIndexNode(IndexNode):
         p = self._payload
         self._raw_host = np.concatenate([self._raw_host, np.asarray(x_new_in)])
         if "data" in p:  # flat rows, or SQ's FP16/BF16 rows
-            p["data"] = np.concatenate([p["data"], x_new.astype(p["data"].dtype)])
+            app = bf16_bits(x_new) if p["data"].dtype == np.uint16 else x_new.astype(p["data"].dtype)
+            p["data"] = np.concatenate([p["data"], app])
         elif self.VARIANT == "sq":
             p["codes"] = np.concatenate([p["codes"], Q.sq_encode(self._sq, x_new)])
         elif self.VARIANT == "pq":
@@ -470,6 +471,8 @@ class HnswIndexNode(IndexNode):
             if kind == "sq8":
                 sq = Q.SQCodec("SQ8", p["refine_vmin"], p["refine_vdiff"], dim=d)
                 app = Q.sq_encode(sq, x_new)
+            elif kind == "bf16":
+                app = bf16_bits(x_new)
             else:
                 app = x_new.astype(np.asarray(p["refine"]).dtype)
             p["refine"] = np.concatenate([p["refine"], app])
@@ -658,10 +661,10 @@ class HnswIndexNode(IndexNode):
             if self._refine_cfg == "sq8":
                 return Q.sq_decode(torch.from_numpy(ref), torch.from_numpy(np.asarray(p["refine_vmin"])),
                                    torch.from_numpy(np.asarray(p["refine_vdiff"])), 256).numpy()
-            return ref.astype(np.float32)
+            return as_f32(ref)
         if self.VARIANT == "sq":
             if "data" in p:
-                return np.asarray(p["data"], dtype=np.float32)
+                return as_f32(p["data"])
             sq = self._sq
             return Q.sq_decode(torch.from_numpy(np.asarray(p["codes"])), torch.from_numpy(sq.vmin),
                                torch.from_numpy(sq.vdiff), sq.levels, sq.sq_type == "SQ4", self._dim).numpy()
@@ -855,7 +858,8 @@ class HnswIndexNode(IndexNode):
                 meta["pq_nbits"] = self._pq.nbits
             if self._prq_books is not None:
                 arrays["prq_codebooks"] = self._prq_books
-            binset.Append(self.Type(), write_sections(arrays, meta=meta))
+            bf16 = tuple(k_ for k_, v in arrays.items() if v.dtype == np.uint16)
+            binset.Append(self.Type(), write_sections(arrays, meta=meta, bf16=bf16))
             return Status.success
 
     def Deserialize(self, binset: BinarySet, cfg: Config) -> Status:

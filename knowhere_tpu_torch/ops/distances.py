@@ -7,8 +7,17 @@
 Every f32 product here is full f32 (TF32 is off, see ``device.py``). The
 precision mode does not change these products: it only selects which IVF
 scan serves a search (EXACT keeps the f32 task scan; FAST and BF16 route to
-the int8 or f32 scan kernels), exactly as the reference dispatches. Binary
-metrics come with a later slice of the port.
+the int8 or f32 scan kernels), exactly as the reference dispatches.
+
+The binary metrics score bit-unpacked {0,1} planes (unpack_bits_host):
+the intersection popcount(q & b) is one f32 product of the planes, exact
+for counts below 2^24 (the reference takes it as an int8 product into
+int32), and the popcounts are row sums:
+
+- HAMMING:        |q| + |b| - 2 inter
+- JACCARD:        1 - inter / (|q| + |b| - inter), 0 where the union is empty
+- SUBSTRUCTURE:   |q| - inter      (0 iff q is a subset of b)
+- SUPERSTRUCTURE: |b| - inter      (0 iff q is a superset of b)
 """
 
 from __future__ import annotations
@@ -88,26 +97,66 @@ def cosine_distance(q: torch.Tensor, b: torch.Tensor, b_norms=None) -> torch.Ten
     return dot / denom
 
 
-_DENSE = {M.L2: False, M.IP: True, M.COSINE: True}
+def _popcount(bits: torch.Tensor) -> torch.Tensor:
+    return bits.float().sum(1)
+
+
+def hamming_distance(q: torch.Tensor, b: torch.Tensor, b_pop=None) -> torch.Tensor:
+    inter = _dot(q, b)
+    if b_pop is None:
+        b_pop = _popcount(b)
+    return _popcount(q)[:, None] + b_pop.float()[None, :] - 2.0 * inter
+
+
+def jaccard_distance(q: torch.Tensor, b: torch.Tensor, b_pop=None) -> torch.Tensor:
+    inter = _dot(q, b)
+    if b_pop is None:
+        b_pop = _popcount(b)
+    union = _popcount(q)[:, None] + b_pop.float()[None, :] - inter
+    return torch.where(union == 0.0, torch.zeros_like(union), 1.0 - inter / union)
+
+
+def substructure_distance(q: torch.Tensor, b: torch.Tensor, b_pop=None) -> torch.Tensor:
+    return _popcount(q)[:, None] - _dot(q, b)
+
+
+def superstructure_distance(q: torch.Tensor, b: torch.Tensor, b_pop=None) -> torch.Tensor:
+    if b_pop is None:
+        b_pop = _popcount(b)
+    return b_pop.float()[None, :] - _dot(q, b)
+
+
+# metric name -> (distance(q, b, aux), larger is better)
+_METRICS = {
+    M.L2: (l2_sqr_distance, False),
+    M.IP: (lambda q, b, aux=None: ip_distance(q, b), True),
+    M.COSINE: (cosine_distance, True),
+    M.HAMMING: (hamming_distance, False),
+    M.JACCARD: (jaccard_distance, False),
+    M.SUBSTRUCTURE: (substructure_distance, False),
+    M.SUPERSTRUCTURE: (superstructure_distance, False),
+}
+_BINARY = (M.HAMMING, M.JACCARD, M.SUBSTRUCTURE, M.SUPERSTRUCTURE)
+
+
+def is_binary_metric(metric_name: str) -> bool:
+    return metric_name.upper() in _BINARY
 
 
 def larger_is_better(metric_name: str) -> bool:
     m = metric_name.upper()
-    if m not in _DENSE:
+    if m not in _METRICS:
         raise ValueError(f"unknown metric {metric_name}")
-    return _DENSE[m]
+    return _METRICS[m][1]
 
 
 def pairwise_distance(metric_name: str, q, b, aux=None) -> torch.Tensor:
-    """(nq,d) x (nb,d) -> (nq,nb) distances/similarities."""
+    """(nq,d) x (nb,d) -> (nq,nb) distances/similarities; binary metrics
+    take bit-unpacked {0,1} planes."""
     m = metric_name.upper()
-    if m == M.IP:
-        return ip_distance(q, b)
-    if m == M.L2:
-        return l2_sqr_distance(q, b, aux)
-    if m == M.COSINE:
-        return cosine_distance(q, b, aux)
-    raise ValueError(f"unknown metric {metric_name}")
+    if m not in _METRICS:
+        raise ValueError(f"unknown metric {metric_name}")
+    return _METRICS[m][0](q, b, aux)
 
 
 def unpack_bits_host(packed: np.ndarray, dim_bits: int) -> np.ndarray:
@@ -120,10 +169,13 @@ def unpack_bits_host(packed: np.ndarray, dim_bits: int) -> np.ndarray:
 
 
 def base_aux(metric_name: str, b: torch.Tensor):
-    """|b|^2 for L2, |b| for COSINE, None for IP."""
+    """|b|^2 for L2, |b| for COSINE, the popcount for HAMMING, JACCARD and
+    SUPERSTRUCTURE, None for IP and SUBSTRUCTURE."""
     m = metric_name.upper()
     if m == M.L2:
         return (b.float() ** 2).sum(1)
     if m == M.COSINE:
         return torch.sqrt((b.float() ** 2).sum(1))
+    if m in (M.HAMMING, M.JACCARD, M.SUPERSTRUCTURE):
+        return _popcount(b)
     return None

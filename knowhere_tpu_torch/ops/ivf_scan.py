@@ -17,7 +17,10 @@ kernel for PQ stores below EXACT; the f32 scan kernel for FAST/BF16 raw
 stores; the RaBitQ kernel for RaBitQ stores below EXACT; the SQ kernel for
 SQ8/SQ6 stores at FAST/BF16. Every kernel needs an aligned store and
 d % 128 == 0. EXACT and everything else take the plain task scan
-(``_scan_chunk``, which decodes PQ, SQ and RaBitQ codes). The store's kind
+(``_scan_chunk``, which decodes PQ, SQ and RaBitQ codes): among them typed
+raw stores (fp16/bf16/int8 rows, each sliced block widened to f32) and
+JACCARD over binary planes (the kernels score L2 and IP only; HAMMING is L2
+over {0,1} rows and keeps the kernels). The store's kind
 is read from its keys (``store_kind``). Only the kernel wrappers
 (ops/ivf_cuda.py, ops/adc_cuda.py) look at the tensors' device.
 """
@@ -378,13 +381,15 @@ def _scan_chunk(
     is_l2: bool,
     sq_levels: int = 0,
     sq_packed4: bool = False,
+    is_jaccard: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-f32 task scan: (scores (Tc,Qg,kk) larger-is-better, positions
     (Tc,Qg,kk)); -inf / -1 for empty slots. PQ stores decode each row as its
     codewords plus the list's scan-frame centroid (cent_scan under OPQ); SQ
     stores decode their codes (SQ4 unpacked, FP16/BF16 widened); RaBitQ
     stores score the estimator with the f32 query residual, sqrt(d) at the
-    scanned width d."""
+    scanned width d. Raw rows of any width widen to f32; JACCARD scores the
+    similarity inter / max(union, 1e-9) of {0,1} rows (distance 1 - score)."""
     d = q.shape[1]
     rows_idx = row_start.long()[:, None] + torch.arange(B, device=q.device)[None, :]
     qs = q[qids.long().clamp(min=0)]  # (Tc, Qg, d)
@@ -416,7 +421,11 @@ def _scan_chunk(
             rows = store["data"][rows_idx].float()  # (Tc, B, d)
             norms = store["norms"][rows_idx] if is_l2 else None
         dots = torch.bmm(qs, rows.transpose(1, 2))
-        score = 2.0 * dots - norms[:, None, :] if is_l2 else dots
+        if is_jaccard:
+            union = qs.sum(-1, keepdim=True) + rows.sum(-1)[:, None, :] - dots
+            score = dots / torch.clamp(union, min=1e-9)
+        else:
+            score = 2.0 * dots - norms[:, None, :] if is_l2 else dots
     ok = (torch.arange(B, device=q.device)[None, :] < nrows.long()[:, None])[:, None, :]
     if keep_sorted is not None:
         ok = ok & keep_sorted[rows_idx][:, None, :]
@@ -609,19 +618,21 @@ def _tasks(q_dev, store, probes, list_offsets, lens_arr, B, Qg, chunk):
 
 def scan_route(
     store: Dict[str, torch.Tensor], d: int, k: int, list_offsets: np.ndarray, prec: str,
-    sq_levels: int = 0, sq_packed4: bool = False,
+    sq_levels: int = 0, sq_packed4: bool = False, is_jaccard: bool = False,
 ) -> Tuple[str, str]:
     """The path ivf_scan_search takes, in the reference's dispatch order:
     ("int8" | "adc" | "f32" | "rbq" | "sq" | "plain", the precision it scans
-    at; int8 without a sidecar falls back to "fast")."""
+    at; int8 without a sidecar falls back to "fast"). Typed (non-f32) raw
+    stores and JACCARD take the plain scan, as there."""
     kind = store_kind(store)
     if prec == "int8":
-        if kind in ("raw", "sq") and int8_available(store, d, k, list_offsets):
+        if kind in ("raw", "sq") and not is_jaccard and int8_available(store, d, k, list_offsets):
             return "int8", prec
         prec = "fast"  # no int8 sidecar: the f32 ranking path
     if kind == "pq" and prec != "exact" and adc_available(store, d, k, list_offsets):
         return "adc", prec
-    if kind == "raw" and scan_available(d, k, list_offsets, prec):
+    raw_is_f32 = kind == "raw" and store["data"].dtype == torch.float32
+    if raw_is_f32 and not is_jaccard and scan_available(d, k, list_offsets, prec):
         return "f32", prec
     if kind == "rabitq" and prec != "exact" and rbq_available(store, d, k, list_offsets):
         return "rbq", prec
@@ -670,6 +681,7 @@ def ivf_scan_search(
     sq_levels: int = 0,
     sq_packed4: bool = False,
     route: Optional[str] = None,
+    is_jaccard: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Scan one store (q_dev in the OPQ frame for PQ, rotated for RaBitQ).
     Returns (scores (nq,k) larger-is-better, positions (nq,k) int32 into the
@@ -701,7 +713,7 @@ def ivf_scan_search(
         Qg *= 2
 
     if route is None:
-        route, prec = scan_route(store, d, k, list_offsets, prec, sq_levels, sq_packed4)
+        route, prec = scan_route(store, d, k, list_offsets, prec, sq_levels, sq_packed4, is_jaccard)
     B, kk = route_geometry(route, k, lens_arr)
     args = (q_dev, store, probes, list_offsets, lens_arr, k, kk, is_l2, Qg, keep_sorted)
     if route == "int8":
@@ -725,6 +737,7 @@ def ivf_scan_search(
         _scan_chunk(
             q_dev, store, rs[c : c + Tc], nr[c : c + Tc], lid[c : c + Tc], qids[c : c + Tc],
             keep_sorted, B=B, kk=kk, is_l2=is_l2, sq_levels=sq_levels, sq_packed4=sq_packed4,
+            is_jaccard=is_jaccard,
         )
         for c in range(0, rs.shape[0], Tc)
     ]

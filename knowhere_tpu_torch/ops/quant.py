@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..device import to_device
+from ..utils.bf16 import bf16_bits
 from .kmeans import cluster_sums
 
 
@@ -171,14 +172,12 @@ def sq_train(x: np.ndarray, sq_type: str) -> SQCodec:
 def sq_encode(codec: SQCodec, x: np.ndarray) -> np.ndarray:
     """(n, d) rows -> codes: uint8 floor((x - vmin) / vdiff * levels) clipped
     to the grid (SQ4 packs two codes a byte, low nibble first), or the rows
-    as float16 / bfloat16."""
+    as float16 / bf16 (their uint16 bit patterns, utils/bf16.py)."""
     t = codec.sq_type
     if t == "FP16":
         return x.astype(np.float16)
     if t == "BF16":
-        import ml_dtypes  # the reference's host bf16 type
-
-        return x.astype(ml_dtypes.bfloat16)
+        return bf16_bits(x)
     levels = codec.levels
     q = np.clip(
         np.floor((x - codec.vmin[None, :]) / codec.vdiff[None, :] * levels), 0, levels - 1

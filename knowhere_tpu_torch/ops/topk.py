@@ -1,11 +1,21 @@
 """Streaming tiled k-NN in plain PyTorch (counterpart of
 knowhere_tpu/ops/topk.py).
 
-FLAT's filtered and small-corpus path. The base is scanned in tiles; each
-tile's (nq, tile) score block is merged into a running (nq, k) best, so the
+FLAT's filtered and small-corpus path, BruteForce's and the IVF pending
+rows'. The base is scanned in tiles; each tile's (nq, tile) score block is
+reduced to its candidates and merged into a running (nq, k) best, so the
 full (nq, nb) matrix is never materialized. Scores are sign-normalized to
 "larger is better" internally; the wrappers return the metric's native
-convention. Ties go to the lower id, as ``jax.lax.top_k`` resolves them.
+convention.
+
+The selection is the reference's, step for step, so that ties (the binary
+metrics' small integer distances hold many) resolve as they do there: a
+tile whose width is a GROUP multiple, with at least two groups and k of
+them at most, keeps the rows of its k groups of largest maximum (exact:
+every top-k row lies in such a group), in the order of their groups'
+maxima; other tiles keep their top k. The merge takes the top k of the
+running best followed by the tile's candidates. Every top k takes the
+leftmost among equal scores, as ``jax.lax.top_k`` does.
 """
 
 from __future__ import annotations
@@ -20,8 +30,9 @@ from . import distances as D
 
 _NEG_INF = -float("inf")
 
-DEFAULT_TILE = 65536
+DEFAULT_TILE = 131072
 DEFAULT_QUERY_CHUNK = 1024
+GROUP = 64  # rows a group of the group-max selection
 
 
 def topk_leftmost(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -29,6 +40,21 @@ def topk_leftmost(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Ten
     wins (``torch.topk`` does not promise an order for ties)."""
     vals, idx = torch.sort(scores, dim=1, descending=True, stable=True)
     return vals[:, :k], idx[:, :k]
+
+
+def _tile_candidates(score: torch.Tensor, kk: int, groups: bool, off: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(scores, ids) a tile contributes to the merge: the rows of its kk
+    groups of largest maximum (``groups``; the width a GROUP multiple), or
+    its top kk."""
+    nq = score.shape[0]
+    if not groups:
+        s_t, i_t = topk_leftmost(score, kk)
+        return s_t, i_t + off
+    sg = score.reshape(nq, -1, GROUP)
+    _, g_i = topk_leftmost(sg.amax(dim=2), kk)  # (nq, kk) winning groups
+    cand = torch.gather(sg, 1, g_i[:, :, None].expand(-1, -1, GROUP))
+    ids = g_i[:, :, None] * GROUP + torch.arange(GROUP, device=score.device)[None, None, :] + off
+    return cand.reshape(nq, kk * GROUP), ids.reshape(nq, kk * GROUP)
 
 
 def knn_device(
@@ -44,6 +70,8 @@ def knn_device(
     metric_name = metric_name.upper()
     sign = 1.0 if D.larger_is_better(metric_name) else -1.0
     nq, nb = q.shape[0], base.shape[0]
+    tile = min(tile, max(nb, 1))
+    n_full = nb // tile
     best_s = torch.full((nq, k), _NEG_INF, dtype=torch.float32, device=q.device)
     best_i = torch.full((nq, k), -1, dtype=torch.int64, device=q.device)
     for s0 in range(0, nb, tile):
@@ -52,11 +80,19 @@ def knn_device(
         score = D.pairwise_distance(metric_name, q, base[s0:e0], a) * sign
         if mask is not None:
             score = score.masked_fill(~mask[s0:e0][None, :], _NEG_INF)
-        ids = torch.arange(s0, e0, device=q.device, dtype=torch.int64)
-        cat_s = torch.cat([best_s, score], dim=1)
-        top_s, sel = topk_leftmost(cat_s, k)
-        cat_i = torch.cat([best_i, ids[None, :].expand(nq, -1)], dim=1)
-        best_s, best_i = top_s, torch.gather(cat_i, 1, sel)
+        width = e0 - s0
+        kk = min(k, width)
+        if s0 < n_full * tile:  # a full tile: groups only when its width is a GROUP multiple
+            n_groups = width // GROUP
+            groups = width % GROUP == 0 and kk <= n_groups and n_groups >= 2
+        else:  # the remainder: padded with -inf to a GROUP multiple
+            n_groups = -(-width // GROUP)
+            groups = kk <= n_groups and n_groups >= 2
+            if groups and width % GROUP:
+                score = torch.nn.functional.pad(score, (0, n_groups * GROUP - width), value=_NEG_INF)
+        s_t, i_t = _tile_candidates(score, kk, groups, s0)
+        top_s, sel = topk_leftmost(torch.cat([best_s, s_t], dim=1), k)
+        best_s, best_i = top_s, torch.gather(torch.cat([best_i, i_t], dim=1), 1, sel)
     best_i = torch.where(best_s == _NEG_INF, torch.full_like(best_i, -1), best_i)
     return best_s * sign, best_i
 

@@ -34,10 +34,13 @@ def test_status_enum_matches_reference():
 
 
 def test_only_flat_and_ivf_flat_registered():
+    """The names the port registers: the FLAT and IVF families and HNSW."""
     names = {name for name, _ in ktt.IndexFactory.Instance()._registry}
     assert names == {
-        "FLAT", "IVF_FLAT", "IVF_PQ", "GPU_FAISS_IVF_PQ", "IVF_SQ8", "GPU_FAISS_IVF_SQ8",
-        "IVF_RABITQ", "IVF_RABITQ_FASTSCAN", "HNSW", "HNSW_SQ", "HNSW_PQ", "HNSW_PRQ",
+        "FLAT", "BIN_FLAT", "BINFLAT", "TPU_BRUTE_FORCE", "GPU_CUVS_BRUTE_FORCE", "GPU_BRUTE_FORCE",
+        "GPU_FAISS_FLAT", "IVF_FLAT", "IVF_FLAT_CC", "GPU_FAISS_IVF_FLAT", "IVF_PQ", "GPU_FAISS_IVF_PQ",
+        "SCANN", "IVF_SQ8", "IVF_SQ_CC", "GPU_FAISS_IVF_SQ8", "IVF_RABITQ", "IVF_RABITQ_FASTSCAN",
+        "BIN_IVF_FLAT", "IVFBIN", "HNSW", "HNSW_SQ", "HNSW_PQ", "HNSW_PRQ",
     }
 
 

@@ -73,7 +73,9 @@ def test_sq_encode_byte_identical(corpus, sq_type):
         np.testing.assert_array_equal(codec_t.vdiff, codec_j.vdiff)
     codes_j = jquant.sq_encode(codec_j, x)
     codes_t = tquant.sq_encode(codec_t, x)
-    assert codes_t.dtype == codes_j.dtype and codes_t.shape == codes_j.shape
+    # the port holds BF16 rows as their uint16 bit patterns (utils/bf16.py)
+    assert codes_t.dtype == (np.uint16 if sq_type == "BF16" else codes_j.dtype)
+    assert codes_t.shape == codes_j.shape
     np.testing.assert_array_equal(codes_t.view(np.uint8), codes_j.view(np.uint8))
     if codec_j.vmin is not None:  # the decode is the reference's, bit for bit
         dec_j = np.asarray(jquant.sq_decode_dev(codec_j, jnp.asarray(codes_j), jnp.asarray(codec_j.vmin),

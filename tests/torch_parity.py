@@ -15,13 +15,14 @@ from knowhere_tpu_torch.ops.distances import DistancePrecision as TP
 from knowhere_tpu_torch.ops.distances import set_distance_precision as tset_prec
 
 
-def interpret_env():
+def interpret_env(align_min: int = 4096):
     """Body of a module fixture: the JAX package's IVF searches run their
-    Pallas kernels in interpret mode and lists are aligned at test scale;
-    the environment and both packages' precision are restored after."""
+    Pallas kernels in interpret mode and lists are aligned at test scale
+    (corpora of at least ``align_min`` rows); the environment and both
+    packages' precision are restored after."""
     saved = {k: os.environ.get(k) for k in ("KNOWHERE_PALLAS_INTERPRET", "KNOWHERE_IVF_ALIGN_MIN")}
     os.environ["KNOWHERE_PALLAS_INTERPRET"] = "1"
-    os.environ["KNOWHERE_IVF_ALIGN_MIN"] = "4096"  # aligned lists at test scale
+    os.environ["KNOWHERE_IVF_ALIGN_MIN"] = str(align_min)  # aligned lists at test scale
     yield
     for k, v in saved.items():
         if v is None:
@@ -68,16 +69,17 @@ def search(idx, pkg, xq, cfg, bitset=None):
     return res.value().ids.reshape(-1, k), res.value().distance.reshape(-1, k)
 
 
-def cross_load(src_idx, dst_pkg):
-    """Load src_idx's BinarySet bytes into a fresh index of the same name in
-    dst_pkg (the same package gives a Serialize/Deserialize round trip)."""
+def cross_load(src_idx, dst_pkg, data_type="fp32"):
+    """Load src_idx's BinarySet bytes into a fresh index of the same name
+    (and ``data_type``) in dst_pkg (the same package gives a
+    Serialize/Deserialize round trip)."""
     src_pkg = kt if isinstance(src_idx, kt.Index) else ktt
     bs = src_pkg.BinarySet()
     assert src_idx.Serialize(bs) == src_pkg.Status.success
     bs2 = dst_pkg.BinarySet()
     for name in bs:
         bs2.Append(name, bs.GetByName(name).tobytes())
-    idx = dst_pkg.IndexFactory.Instance().Create(src_idx.Type()).value()
+    idx = dst_pkg.IndexFactory.Instance().Create(src_idx.Type(), data_type=data_type).value()
     assert idx.Deserialize(bs2) == dst_pkg.Status.success
     return idx
 
