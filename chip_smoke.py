@@ -89,7 +89,22 @@ Run from the root of a checkout on a machine with one CUDA GPU. In order:
    400,000 in 40 batches and two readers search 1,000 queries in a loop
    (every result full, every merge's epoch served by the int8 scan, 1,000
    acknowledged rows read back first, final recall@10 within 0.01 of the
-   one-shot IVF_FLAT's), then IVF_SQ_CC at 100,000 rows;
+   one-shot IVF_FLAT's), then IVF_SQ_CC at 100,000 rows; the graph families
+   path: HNSW over the corpus cast to fp16 at 1M x 128 (HNSW_BUILD, ef=48;
+   its kNN graph through the f32 scan, the first launch held against its
+   plain version; recall against FLAT over the fp16 values beside the fp32
+   HNSW's, warm search, a 50% bitset, a round trip, fp16 rows read back
+   bit-equal, the store's device GB, feder's overview and walk replay),
+   then at GRAPH_NB rows: HNSW over bf16 and over int8 rows (recall, round
+   trip), binary HNSW over SimHash codes (HAMMING: the IP-ranked f32 build
+   route, a launch held exactly, tie-aware recall against BIN_FLAT; JACCARD
+   on 1,000 queries), SVS_VAMANA_LVQ on the forced inline walk and then
+   lean, SVS_VAMANA_LEANVEC (svs_leanvec_dim 64), GPU_CUVS_CAGRA
+   (graph_degree 32, itopk_size 64, refine_ratio 2), one FAST search each
+   of GPU_CUVS_IVF_FLAT (the int8 scan; feder's IVF overview and probes)
+   and GPU_CUVS_IVF_PQ (the ADC scan), and KMEANS Train on 1M x 128 at
+   1,024 clusters twice (bit-equal) with its Assign held to FLAT's nearest
+   centroid;
 12. one torch-profiler pass over one search each of IVF_FLAT (the int8
    scan), IVF_PQ (the ADC scan at its real shape) and IVF_SQ8 FAST (the
    int8 scan over u8 codes), and over one IVF_FLAT RangeSearch of step 6
@@ -227,6 +242,27 @@ CC_SQ_NB, CC_SQ_N0, CC_SQ_NLIST = 100_000, 60_000, 256
 CC_SEARCH, CC_NLIST = {"metric_type": "L2", "k": 10, "nprobe": 12}, 1024
 CC_RECALL_SLACK = 0.01  # final recall may trail the one-shot build's by this much
 CC_READBACK = 1000  # acknowledged rows searched by their own vectors
+# graph families path: HNSW over the corpus cast to fp16 at full size
+# (HNSW_BUILD, ef=48), then GRAPH_NB-row legs: bf16 and int8 HNSW, binary
+# HNSW over SimHash codes, SVS_VAMANA_LVQ, SVS_VAMANA_LEANVEC, GPU_CUVS_CAGRA,
+# one search each of GPU_CUVS_IVF_FLAT / GPU_CUVS_IVF_PQ, feder and KMEANS.
+# Each recall floor sits just under its first measured value (the value in
+# its comment: at GRAPH_NB = 100,000 rows, which the path was cut to from
+# 200,000 to keep its wall under 90 s; H100 80GB HBM3, 700 W).
+GRAPH_NB, GRAPH_NQ = 100_000, 1000
+GRAPH_SEARCH = {"metric_type": "L2", "k": 10, "ef": 48}
+FP16_HNSW_FLOOR = 0.97  # 0.97327 at 1M rows (the fp32 HNSW of the same run: 0.9735)
+TYPED_HNSW_FLOOR = 0.93  # bf16 0.9376, int8 0.9332
+BIN_HNSW_FLOOR = 0.84  # tie-aware recall@10, 0.8413
+LVQ_FLOOR = 0.92  # 0.9252 on the inline walk, 0.9313 lean
+LEANVEC_FLOOR = 0.71  # 0.7112 (64 of 128 dims walked)
+CAGRA_FLOOR = 0.945  # 0.9478
+CUVS_IVF_FLOOR = {"GPU_CUVS_IVF_FLAT": 0.73, "GPU_CUVS_IVF_PQ": 0.705}  # 0.7336, 0.7095
+CUVS_IVF_BUILD = {"metric_type": "L2", "nlist": 256}
+CUVS_IVF_SEARCH = {"metric_type": "L2", "k": 10, "nprobe": 16}
+CAGRA_BUILD = {"metric_type": "L2", "graph_degree": 32}
+CAGRA_SEARCH = {"metric_type": "L2", "k": 10, "itopk_size": 64, "refine_ratio": 2}
+KMEANS_K = 1024
 # Published H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W): device
 # memory bytes/s, and operations/s by operand type.
 HBM_BYTES_PER_S = 3.35e12
@@ -1551,12 +1587,14 @@ def _held_kernels() -> dict:
     }
 
 
-def _hold_launches(fn, names):
+def _hold_launches(fn, names, limit=None, tol=None):
     """fn() with every launch of the kernels ``names`` held against its
-    plain version on the same inputs as it returns (_held_kernels); the
-    first that disagrees raises. Returns (fn's output, {name: one
-    agreement a launch, with its tasks, empty tasks, Qg and kk}). The
-    checks sync the host: not for timed calls."""
+    plain version on the same inputs as it returns (_held_kernels; ``tol``,
+    if given, replaces their (rtol, atol, position agreement); only the
+    first ``limit`` launches of each when given); the first that disagrees
+    raises. Returns (fn's output, {name: one agreement a launch, with its
+    tasks, empty tasks, Qg and kk}). The checks sync the host: not for
+    timed calls."""
     import torch
 
     from knowhere_tpu_torch.ops import ivf_scan
@@ -1567,8 +1605,12 @@ def _hold_launches(fn, names):
 
     def holding(name):
         _, plain, rtol, atol, pos_agree, sentinels = spec[name]
+        if tol is not None:
+            rtol, atol, pos_agree = tol
 
         def call(*args, **kw):
+            if limit is not None and len(seen[name]) >= limit:
+                return real[name](*args, **kw)
             s_k, p_k = real[name](*args, **kw)
             s_p, p_p = plain(*args, **kw)
             torch.cuda.synchronize()
@@ -1790,6 +1832,275 @@ def hnsw_path(kt, xb, xq, gt, flat, search_reps=5):
     out["hnsw_lean_tpu_anchor"] = HNSW_LEAN_ANCHOR
     if out["hnsw_lean_recall_at_10"] < HNSW_LEAN_FLOOR:
         raise AssertionError(f"HNSW lean-mode recall {out['hnsw_lean_recall_at_10']} < {HNSW_LEAN_FLOOR}")
+    return out
+
+
+def _graph_build(kt, name, x, cfg, dt="fp32", ds=None):
+    """Create and Build ``name`` over x; (index, build seconds)."""
+    idx = kt.IndexFactory.Instance().Create(name, data_type=dt).value()
+    st, secs = _timed(lambda: idx.Build(ds(x) if ds else kt.GenDataSetFromArray(x), cfg))
+    if st != kt.Status.success:
+        raise RuntimeError(f"{name} {dt} Build: {st.name}")
+    return idx, secs
+
+
+def _round_trip(kt, idx, name, dt, search_fn, ids):
+    """Serialize -> Deserialize into a fresh index; the same ids required."""
+    bs = kt.BinarySet()
+    if idx.Serialize(bs) != kt.Status.success:
+        raise RuntimeError(f"{name} {dt} Serialize failed")
+    again = kt.IndexFactory.Instance().Create(name, data_type=dt).value()
+    if again.Deserialize(bs) != kt.Status.success:
+        raise RuntimeError(f"{name} {dt} Deserialize failed")
+    same = bool(np.array_equal(search_fn(again), ids))
+    if not same:
+        raise AssertionError(f"{name} {dt}: Serialize/Deserialize changed the result ids")
+    return same, bs
+
+
+def _floor(out, key, floor):
+    """Record a recall under its floor; graph_families_path raises after its
+    last leg, with every number it took."""
+    if out[key] < floor:
+        out.setdefault("below_floor", []).append([key, out[key], floor])
+
+
+def graph_families_path(kt, xb, xq, fp32_hnsw_recall):
+    """HNSW over the corpus cast to fp16 at 1M x 128 (its kNN graph through
+    the f32 scan, the first launch held against f32_scan_plain; the general
+    walk over the bf16-held rows, as the reference serves them), then
+    GRAPH_NB-row legs: bf16 and int8 HNSW, binary HNSW over SimHash codes
+    (above 65,536 rows: the IP-ranked f32 build route, a launch held
+    exactly), SVS_VAMANA_LVQ (inline forced, and lean), SVS_VAMANA_LEANVEC,
+    GPU_CUVS_CAGRA, one FAST search each of GPU_CUVS_IVF_FLAT (int8 scan)
+    and GPU_CUVS_IVF_PQ (ADC scan), feder's JSON on the fp16 HNSW and the
+    cuVS IVF_FLAT, and KMEANS Train on 1M x 128 twice (bit-equal) with its
+    Assign against FLAT's nearest centroid. Each index is freed before the
+    next is built."""
+    import torch
+
+    from knowhere_tpu_torch.ops import adc_cuda, ivf_cuda
+    from knowhere_tpu_torch.utils.bf16 import bf16_bits, bf16_to_f32
+
+    f32 = ivf_cuda.f32_scan_tasks
+    out = {"graph_nb": GRAPH_NB, "graph_nq": GRAPH_NQ}
+    torch.cuda.reset_peak_memory_stats()
+    t_path = time.perf_counter()
+
+    # --- fp16 HNSW at full size ---------------------------------------------
+    xb16, xq16 = xb.astype(np.float16), xq.astype(np.float16)
+    flat, gt = _flat_truth(kt, xb16.astype(np.float32), xq16.astype(np.float32))
+    drop = np.random.default_rng(11).random(len(xb)) < 0.5
+    fgt, _ = _search(flat, kt, xq16.astype(np.float32), {"metric_type": "L2", "k": 10},
+                     kt.BitsetView.from_bool_array(drop))
+    del flat
+    torch.cuda.empty_cache()
+    before = f32.launches
+    (idx, out["fp16_build_s"]), held = _hold_launches(
+        lambda: _graph_build(kt, "HNSW", xb16, HNSW_BUILD, "fp16"), ("ivf_f32_scan",),
+        limit=1, tol=(F32_RTOL, F32_ATOL, F32_POS_AGREE))
+    out["fp16_build_f32_scan_launches"] = f32.launches - before
+    out["fp16_build_f32_held"] = _held_summary(held)["ivf_f32_scan"]
+    node = idx.node
+    if node._store["data"].dtype != torch.bfloat16 or node._inline is not None:
+        raise AssertionError("the fp16 HNSW store is not held in bf16 on the general walk")
+    out["fp16_device_gb"] = _store_gb(idx, "data")
+    (ids, dists), out["fp16_search_ms_all"], out["fp16_search_ms_median"] = _warm(
+        lambda: _search(idx, kt, xq16, GRAPH_SEARCH))
+    out["fp16_qps"] = len(xq) / out["fp16_search_ms_median"] * 1e3
+    out["fp16_recall_at_10"] = recall_at(ids, gt)
+    out["fp32_hnsw_recall_at_10_same_run"] = fp32_hnsw_recall
+    out["fp16_short_rows"] = int((ids < 0).any(1).sum())
+    if not np.isfinite(dists[ids >= 0]).all():
+        raise AssertionError("fp16 HNSW returned a distance that is not finite")
+    _floor(out, "fp16_recall_at_10", FP16_HNSW_FLOOR)
+    (fids, _), out["fp16_filtered_s"] = _timed(
+        lambda: _search(idx, kt, xq16, GRAPH_SEARCH, kt.BitsetView.from_bool_array(drop)))
+    if drop[fids[fids >= 0]].any():
+        raise AssertionError("fp16 HNSW filtered search returned a filtered id")
+    out["fp16_filtered_recall_at_10"] = recall_at(fids, fgt)
+    out["fp16_roundtrip_ids_identical"], _ = _round_trip(
+        kt, idx, "HNSW", "fp16", lambda again: _search(again, kt, xq16, GRAPH_SEARCH)[0], ids)
+    sel = np.random.default_rng(4).choice(len(xb), 1000, replace=False)
+    got = np.asarray(idx.GetVectorByIds(kt.GenIdsDataSet(sel)).value().tensor)
+    out["fp16_get_vector_bit_equal"] = bool(got.dtype == np.float16 and np.array_equal(got.view(np.uint16),
+                                                                                       xb16[sel].view(np.uint16)))
+    if not out["fp16_get_vector_bit_equal"]:
+        raise AssertionError("fp16 HNSW GetVectorByIds differs from the input rows")
+    # feder on the fp16 HNSW: the overview parses, each trace starts at an entry
+    meta = json.loads(idx.GetIndexMeta({"overview_levels": 3}).value().get("json_info"))
+    scfg = idx.node.CreateConfig()
+    kt.Config.load(scfg, GRAPH_SEARCH, kt.Stage.SEARCH)
+    (visit, out["feder_hnsw_visit_s"]) = _timed(
+        lambda: json.loads(idx.node.GetFederVisit(kt.GenDataSetFromArray(xq16[:2]), scfg).value().get("json_id_set")))
+    entries = set(idx.node._entry.tolist())
+    if meta["count"] != len(xb) or len(meta["overview_levels"]) != 3 or not all(
+            tr and tr[0]["source"] == -1 and tr[0]["id"] in entries for tr in visit):
+        raise AssertionError("feder on the fp16 HNSW: a bad overview or a trace not from an entry")
+    out["feder_hnsw_visits"] = [len(tr) for tr in visit]
+    out["fp16_peak_device_gb"] = _peak_gb()
+    del idx, node
+    torch.cuda.empty_cache()
+    out["fp16_leg_s"] = time.perf_counter() - t_path
+
+    # --- GRAPH_NB-row legs ----------------------------------------------------
+    xs, qs = xb[:GRAPH_NB], xq[:GRAPH_NQ]
+    flat, gt_s = _flat_truth(kt, xs, qs)
+    del flat
+    scale = np.float32(127.0 / np.abs(xs).max())
+    typed = {
+        "bf16": (lambda a: bf16_bits(a), lambda a: bf16_to_f32(bf16_bits(a))),
+        "int8": (lambda a: np.clip(np.round(a * scale), -127, 127).astype(np.int8),
+                 lambda a: np.clip(np.round(a * scale), -127, 127).astype(np.float32)),
+    }
+    for dt, (cast, values) in typed.items():
+        t0 = time.perf_counter()
+        flat, gt_t = _flat_truth(kt, values(xs), values(qs))
+        del flat
+        before = f32.launches
+        idx, out[f"{dt}_build_s"] = _graph_build(kt, "HNSW", cast(xs), HNSW_BUILD, dt)
+        out[f"{dt}_build_f32_scan_launches"] = f32.launches - before
+        out[f"{dt}_inline"] = idx.node._inline is not None
+        q = cast(qs)
+        ids, _ = _search(idx, kt, q, GRAPH_SEARCH)
+        out[f"{dt}_recall_at_10"] = recall_at(ids, gt_t)
+        _floor(out, f"{dt}_recall_at_10", TYPED_HNSW_FLOOR)
+        out[f"{dt}_roundtrip_ids_identical"], _ = _round_trip(
+            kt, idx, "HNSW", dt, lambda again: _search(again, kt, q, GRAPH_SEARCH)[0], ids)
+        del idx
+        torch.cuda.empty_cache()
+        out[f"{dt}_leg_s"] = time.perf_counter() - t0
+
+    # binary HNSW over 256-bit SimHash codes: the f32 build route ranks {0,1}
+    # rows by IP, held exactly (integer scores)
+    t0 = time.perf_counter()
+    proj = np.random.default_rng(7).standard_normal((xb.shape[1], BIN_BITS)).astype(np.float32)
+    cb, cq = simhash(xs, proj), simhash(qs, proj)
+
+    def bds(a):
+        return kt.GenDataSet(a.shape[0], BIN_BITS, a)
+
+    bflat, _ = _graph_build(kt, "BIN_FLAT", cb, {"metric_type": "HAMMING"}, "bin1", bds)
+    res = bflat.Search(bds(cq), {"metric_type": "HAMMING", "k": 10}, kt.BitsetView()).value()
+    kth = res.distance.reshape(len(cq), 10)[:, -1]
+    del bflat
+    before = f32.launches
+    (bidx, out["bin_build_s"]), held = _hold_launches(
+        lambda: _graph_build(kt, "HNSW", cb, dict(HNSW_BUILD, metric_type="HAMMING"), "bin1", bds),
+        ("ivf_f32_scan",), limit=1)
+    out["bin_build_f32_scan_launches"] = f32.launches - before
+    out["bin_build_f32_held"] = _held_summary(held)["ivf_f32_scan"]
+    if out["bin_build_f32_scan_launches"] == 0:
+        raise AssertionError("the binary HNSW build did not run the f32 scan kernel")
+    bres = bidx.Search(bds(cq), dict(GRAPH_SEARCH, metric_type="HAMMING"), kt.BitsetView()).value()
+    bids = bres.ids.reshape(len(cq), 10)
+    if not np.array_equal(bres.distance.reshape(len(cq), 10)[bids >= 0],
+                          _hamming(cb[bids], cq[:, None, :]).astype(np.float32)[bids >= 0]):
+        raise AssertionError("binary HNSW distances are not the popcount of the xor")
+    out["bin_recall_at_10_tie_aware"] = _tie_aware_recall(cq, cb, bids, kth)
+    _floor(out, "bin_recall_at_10_tie_aware", BIN_HNSW_FLOOR)
+    del bidx
+    jidx, out["bin_jaccard_build_s"] = _graph_build(kt, "HNSW", cb, dict(HNSW_BUILD, metric_type="JACCARD"), "bin1", bds)
+    jres = jidx.Search(bds(cq[:BIN_JACCARD_NQ]), dict(GRAPH_SEARCH, metric_type="JACCARD"), kt.BitsetView()).value()
+    jd = jres.distance[jres.ids >= 0]
+    if not ((jd >= 0) & (jd <= 1)).all():
+        raise AssertionError("binary HNSW JACCARD returned a distance outside [0, 1]")
+    out["bin_jaccard_full_rows"] = float((jres.ids.reshape(-1, 10) >= 0).all(1).mean())
+    del jidx
+    torch.cuda.empty_cache()
+    out["bin_leg_s"] = time.perf_counter() - t0
+
+    # SVS: LVQ (inline forced, then the same BinarySet lean), LeanVec
+    t0 = time.perf_counter()
+    os.environ["KNOWHERE_GRAPH_INLINE"] = "1"
+    try:
+        lvq, out["lvq_build_s"] = _graph_build(kt, "SVS_VAMANA_LVQ", xs, HNSW_BUILD)
+    finally:
+        del os.environ["KNOWHERE_GRAPH_INLINE"]
+    if lvq.node._inline is None or lvq.node._kind != "lvq":
+        raise AssertionError("SVS_VAMANA_LVQ did not take the inline walk over its LVQ store")
+    ids, _ = _search(lvq, kt, qs, GRAPH_SEARCH)
+    out["lvq_recall_at_10"] = recall_at(ids, gt_s)
+    _floor(out, "lvq_recall_at_10", LVQ_FLOOR)
+    out["lvq_device_gb"] = _store_gb(lvq, "codes", "refine")
+    bs = kt.BinarySet()
+    lvq.Serialize(bs)
+    del lvq
+    os.environ["KNOWHERE_GRAPH_INLINE"] = "0"
+    try:
+        lean = kt.IndexFactory.Instance().Create("SVS_VAMANA_LVQ").value()
+        if lean.Deserialize(bs) != kt.Status.success or lean.node._inline is not None:
+            raise RuntimeError("SVS_VAMANA_LVQ lean Deserialize failed or built the inline table")
+    finally:
+        del os.environ["KNOWHERE_GRAPH_INLINE"]
+    out["lvq_lean_recall_at_10"] = recall_at(_search(lean, kt, qs, GRAPH_SEARCH)[0], gt_s)
+    _floor(out, "lvq_lean_recall_at_10", LVQ_FLOOR)
+    del lean, bs
+    lv, out["leanvec_build_s"] = _graph_build(kt, "SVS_VAMANA_LEANVEC", xs, dict(HNSW_BUILD, svs_leanvec_dim=64))
+    if lv.node._lv_proj.shape != (xb.shape[1], 64):
+        raise AssertionError("SVS_VAMANA_LEANVEC's basis is not 128 x 64")
+    out["leanvec_recall_at_10"] = recall_at(_search(lv, kt, qs, GRAPH_SEARCH)[0], gt_s)
+    _floor(out, "leanvec_recall_at_10", LEANVEC_FLOOR)
+    del lv
+    torch.cuda.empty_cache()
+    out["svs_leg_s"] = time.perf_counter() - t0
+
+    # CAGRA and the cuVS IVF names
+    t0 = time.perf_counter()
+    cg, out["cagra_build_s"] = _graph_build(kt, "GPU_CUVS_CAGRA", xs, CAGRA_BUILD)
+    out["cagra_M_efConstruction"] = [cg.node._M, cg.node._efc]
+    out["cagra_recall_at_10"] = recall_at(_search(cg, kt, qs, CAGRA_SEARCH)[0], gt_s)
+    _floor(out, "cagra_recall_at_10", CAGRA_FLOOR)
+    del cg
+    cuvs_launches = {}
+    for name, kernel in (("GPU_CUVS_IVF_FLAT", ivf_cuda.int8_scan_tasks), ("GPU_CUVS_IVF_PQ", adc_cuda.adc_scan_tasks)):
+        ivf, out[f"{name}_build_s"] = _graph_build(kt, name, xs, CUVS_IVF_BUILD)
+        before = kernel.launches
+        ids, _ = _search(ivf, kt, qs, CUVS_IVF_SEARCH)
+        cuvs_launches[name] = kernel.launches - before
+        out[f"{name}_recall_at_10"] = recall_at(ids, gt_s)
+        _floor(out, f"{name}_recall_at_10", CUVS_IVF_FLOOR[name])
+        if name == "GPU_CUVS_IVF_FLAT":
+            meta = json.loads(ivf.GetIndexMeta({}).value().get("json_info"))
+            icfg = ivf.node.CreateConfig()
+            kt.Config.load(icfg, CUVS_IVF_SEARCH, kt.Stage.SEARCH)
+            traces = json.loads(ivf.node.GetFederVisit(kt.GenDataSetFromArray(qs[:3]), icfg).value().get("json_id_set"))
+            if sum(meta["list_sizes"]) != GRAPH_NB or any(len(t) != CUVS_IVF_SEARCH["nprobe"] for t in traces):
+                raise AssertionError("feder on GPU_CUVS_IVF_FLAT: list sizes or traces wrong")
+            out["feder_ivf_nlist"] = meta["nlist"]
+        del ivf
+        torch.cuda.empty_cache()
+    out["cuvs_kernel_launches"] = cuvs_launches
+    if not all(cuvs_launches.values()):
+        raise AssertionError(f"a cuVS IVF search launched no kernel: {cuvs_launches}")
+    out["cuvs_leg_s"] = time.perf_counter() - t0
+
+    # KMEANS: Train twice (bit-equal), Assign against FLAT's nearest centroid
+    t0 = time.perf_counter()
+    cents = []
+    for _ in range(2):
+        cl = kt.ClusterFactory.Instance().Create("KMEANS").value()
+        res, secs = _timed(lambda: cl.Train(kt.GenDataSetFromArray(xb), {"num_clusters": KMEANS_K}))
+        cents.append(np.asarray(res.value().tensor).reshape(KMEANS_K, -1))
+        out.setdefault("kmeans_train_s", []).append(secs)
+    out["kmeans_bit_equal"] = bool(np.array_equal(cents[0].view(np.uint32), cents[1].view(np.uint32)))
+    if not out["kmeans_bit_equal"]:
+        raise AssertionError("KMEANS Train on the same rows gave other centroids")
+    (assign, out["kmeans_assign_s"]) = _timed(lambda: np.asarray(cl.Assign(kt.GenDataSetFromArray(xs)).value().ids))
+    cflat, _ = _flat_truth(kt, cents[1], qs[:1])
+    nearest, nd = _search(cflat, kt, xs, {"metric_type": "L2", "k": 2})
+    agree = assign == nearest[:, 0]
+    near_tie = np.abs(nd[:, 1] - nd[:, 0]) <= 1e-3 * np.maximum(np.abs(nd[:, 0]), 1.0)
+    out["kmeans_assign_agree"] = float(agree.mean())
+    if not (agree | near_tie).all():
+        raise AssertionError(f"KMEANS Assign differs from FLAT's nearest centroid off near-ties: {agree.mean()}")
+    del cflat
+    torch.cuda.empty_cache()
+    out["kmeans_leg_s"] = time.perf_counter() - t0
+    out["graph_peak_device_gb"] = _peak_gb()
+    out["path_s"] = time.perf_counter() - t_path
+    if out.get("below_floor"):
+        raise AssertionError(f"graph families path: recall under its floor: {json.dumps(out)}")
     return out
 
 
@@ -2136,6 +2447,11 @@ def main() -> int:
         "cc path", wrappers, ("ivf_int8_scan",), lambda: cc_path(kt, xb, xq, gt, e2e["recall_at_10"])
     )
     print("cc path:", json.dumps(cc_out))
+    graph_out, _ = _run_path(
+        "graph families path", wrappers, ("ivf_f32_scan",),
+        lambda: graph_families_path(kt, xb, xq, hnsw_out["hnsw_recall_at_10"]),
+    )
+    print("graph families path:", json.dumps(graph_out))
     if "jax" in sys.modules or "ml_dtypes" in sys.modules:
         raise AssertionError("the port imported jax or ml_dtypes")
     profiles = late_profiles()

@@ -4,8 +4,9 @@ H100.
 The same public API as the JAX package (factory / Index / DataSet /
 BitsetView / BinarySet, Status codes, the KWTPU section format), with the
 TPU's Pallas kernels replaced by CUDA kernels written for Hopper
-(``csrc/``). It serves FLAT, the IVF family (IVF_FLAT, IVF_PQ, IVF_SQ8,
-IVF_RABITQ), the HNSW family and the dense BruteForce calls:
+(``csrc/``). It serves FLAT and BIN_FLAT, the IVF family, the HNSW family
+over every dense type and bin1, the SVS, CAGRA and cuVS names, BruteForce,
+feder's GetIndexMeta / GetFederVisit and the k-means Cluster API:
 
     import knowhere_tpu_torch as kt
     kt.set_device("cuda")          # the default; "cpu" runs the plain versions
@@ -39,5 +40,6 @@ from .status import KnowhereException, Status, StatusCategory, expected, status_
 # Importing models registers the index families with the factory.
 from . import models  # noqa: F401  isort: skip
 from .brute_force import BruteForce  # noqa: F401  isort: skip
+from .cluster import Cluster, ClusterFactory  # noqa: F401  isort: skip
 
 __version__ = "0.1.0"

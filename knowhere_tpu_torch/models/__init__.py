@@ -1,5 +1,7 @@
 """Index families of the port. Importing this package registers them with
-the factory: FLAT, the IVF family (IVF_FLAT, IVF_PQ, IVF_SQ8, IVF_RABITQ) and
-the HNSW family (HNSW, HNSW_SQ, HNSW_PQ, HNSW_PRQ)."""
+the factory: FLAT and BIN_FLAT, the IVF family, the HNSW family, the SVS
+names (SVS_FLAT, SVS_VAMANA with its LVQ and LeanVec stores,
+HNSW_DEPRECATED) and the CAGRA / cuVS names, whose registrations come after
+HNSW's and IVF's (models/cagra.py imports both first)."""
 
-from . import flat, hnsw, ivf  # noqa: F401
+from . import cagra, flat, hnsw, ivf, svs  # noqa: F401

@@ -1,6 +1,8 @@
-"""HNSW family: HNSW, HNSW_SQ, HNSW_PQ and HNSW_PRQ over fp32 rows
-(counterpart of knowhere_tpu/models/hnsw.py, VARIANT "flat", "sq", "pq" and
-"prq").
+"""HNSW family: HNSW, HNSW_SQ, HNSW_PQ and HNSW_PRQ over fp32, fp16, bf16
+and int8 rows, and HNSW over bin1 codes, plus the SVS LVQ and LeanVec stores
+(counterpart of knowhere_tpu/models/hnsw.py, VARIANT "flat", "sq", "pq",
+"prq", "lvq" and "leanvec"; models/svs.py and models/cagra.py register the
+SVS, CAGRA and cuVS names on these nodes).
 
 The level hierarchy and sequential inserts become a flat fixed-degree
 diversified graph built from a batched kNN graph (ops/graph.py); search is a
@@ -12,19 +14,31 @@ under KNOWHERE_GRAPH_INLINE=0 ("lean mode"), through the general walk
 (ops/graph.beam_search). Above KNN_EXACT_MAX_ROWS rows the build routes each
 query to its nearest k-means centroids' resident nodes.
 
+Typed corpora keep their width: a non-cosine fp16 / bf16 / int8 index
+stores its raw rows (no f32 copy; fp16 goes to the device as bf16, as in
+the reference), a cosine one its normalized rows in bf16; the walks widen
+the rows a gather at a time. Searches score the device rows; GetVectorByIds
+and CalcDistByIDs read the host rows. A bf16-held store takes the general
+walk: the reference's inline build fails on it (its norms stay bf16) and
+falls back there. Binary codes are unpacked to {0,1} f32 rows: HAMMING is
+L2 on them, JACCARD its own score, and they never take the inline walk.
+LVQ stores 1 byte a dim plus a per-row offset and scale; LeanVec walks a
+PCA-reduced raw store (svs_leanvec_dim, the basis from numpy's eigh in
+float64 on the host) and reranks the whole ef window at full width.
+
 A bitset filtering out >= 90% of the rows (or >= 50% with a clustered
 materialized-view hint) is answered by an exact scan, as the reference's
 conditional wrapper does; filtered queries a walk leaves short are filled
 the same way. Quantized variants keep a refine store (raw by default) and
 re-score k * refine_k walk candidates from it. Serialize/Deserialize write
-the reference's sections and meta, so BinarySets cross-load both ways; the
-inline table is rebuilt at load. GetIndexMeta and GetFederVisit (feder),
-binary and typed (fp16/bf16/int8) corpora, and the SVS (LVQ, LeanVec)
-variants come with later slices and report Status.not_implemented.
+the reference's sections and meta (data_type included), so BinarySets
+cross-load both ways; the inline table is rebuilt at load. GetIndexMeta and
+GetFederVisit give feder's overview and a host replay of the walk.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import threading
 from typing import Dict, List, Optional
@@ -57,6 +71,7 @@ BRUTE_FORCE_FALLBACK_RATIO = 0.9
 # the inline walk serves corpora of at least this many rows unless forced
 INLINE_MIN_ROWS = 100_000
 _BRUTE_QUERY_CHUNK = 4096  # queries per exact-scan step of the fallback
+_TYPED = ("fp16", "bf16", "int8")  # data types whose raw rows keep their width
 
 
 def _compact_ratio() -> float:
@@ -98,7 +113,14 @@ class HnswPrqConfig(BaseHnswConfig):
     nbits = Entry(int, default=8, range=(1, 16), stages=[Stage.TRAIN])
 
 
-_CONFIGS = {"flat": HnswConfig, "sq": HnswSqConfig, "pq": HnswPqConfig, "prq": HnswPrqConfig}
+_CONFIGS = {
+    "flat": HnswConfig,
+    "sq": HnswSqConfig,
+    "pq": HnswPqConfig,
+    "prq": HnswPrqConfig,
+    "lvq": HnswSqConfig,  # SVS nodes (models/svs.py) override CreateConfig
+    "leanvec": HnswConfig,
+}
 
 
 class HnswIndexNode(IndexNode):
@@ -132,19 +154,35 @@ class HnswIndexNode(IndexNode):
         self._kind = "raw"
         self._pending: List[np.ndarray] = []
         self._inline = None  # graph_inline.InlineGraphStore
+        # SVS LeanVec: the PCA basis of the reduced walk store (None otherwise)
+        self._lv_proj: Optional[np.ndarray] = None  # (d, r)
+        self._lv_mean: Optional[np.ndarray] = None  # (d,)
 
     # --- helpers ------------------------------------------------------------
+    def _is_binary(self) -> bool:
+        return self.data_type == "bin1"
+
     def _internal_metric(self) -> str:
         return M.IP if self._metric == M.COSINE else self._metric
 
     def _is_l2_like(self) -> bool:
-        return self._internal_metric() == M.L2
+        return self._internal_metric() in (M.L2, M.HAMMING)
 
     def _larger_is_closer(self) -> bool:
+        # L2, HAMMING and JACCARD (1 - similarity) are smaller-closer
         return self._internal_metric() == M.IP
 
+    def _native(self, x) -> np.ndarray:
+        """Input rows as the index holds them: a bf16 corpus's as bit patterns."""
+        x = np.asarray(x)
+        return bf16_bits(x) if self.data_type == "bf16" else x
+
     def _prep_rows(self, x: np.ndarray) -> np.ndarray:
-        x = np.asarray(x).astype(np.float32)
+        """Input rows -> f32 compute rows: {0,1} planes for bin1, else the
+        values (bf16 bit patterns widened), cosine-normalized."""
+        if self._is_binary():
+            return D.unpack_bits_host(np.asarray(x).view(np.uint8), self._dim).astype(np.float32)
+        x = as_f32(x)
         if self._metric == M.COSINE:
             n = np.linalg.norm(x, axis=1, keepdims=True)
             n[n == 0] = 1.0
@@ -154,7 +192,8 @@ class HnswIndexNode(IndexNode):
     # --- build --------------------------------------------------------------
     def Train(self, dataset: DataSet, cfg: Config) -> Status:
         self._metric = normalize_metric(cfg.metric_type)
-        if self._metric not in (M.L2, M.IP, M.COSINE):
+        ok_metrics = (M.HAMMING, M.JACCARD) if self._is_binary() else (M.L2, M.IP, M.COSINE)
+        if self._metric not in ok_metrics:
             raise KnowhereException(f"metric {self._metric} not supported by {self.Type()}", Status.invalid_metric_type)
         self._dim = dataset.dim
         self._M = int(cfg.M)
@@ -215,10 +254,41 @@ class HnswIndexNode(IndexNode):
             self._entry = G.pick_entry_points(x, n_entry=n_entry, base_dev=x_dev)
             self._entry_cents = None
         mark("entries")
-        self._raw_host = np.asarray(x_in)
+        if not self._is_binary():
+            self._raw_host = self._native(x_in)
         if self.VARIANT == "flat":
-            self._payload = {"data": x}
-            self._data_dev_prebuilt = x_dev
+            # typed rows keep their width: the non-cosine payload is the raw
+            # rows, the cosine one the normalized rows in bf16
+            typed = self.data_type in _TYPED
+            if typed and self._metric != M.COSINE:
+                self._payload = {"data": self._raw_host}
+            elif typed:
+                self._payload = {"data": bf16_bits(x)}
+            else:
+                self._payload = {"data": x}
+            if not typed and not self._is_binary():
+                self._data_dev_prebuilt = x_dev
+            if self._is_binary():
+                self._payload["bits_raw"] = np.asarray(x_in)
+        elif self.VARIANT == "lvq":
+            # SVS LVQ: a per-row 8-bit grid over the mean-centred residual
+            lvq = Q.lvq_train(x)
+            codes, off, scale = Q.lvq_encode(lvq, x)
+            self._payload = {"codes": codes, "lvq_mean": lvq.mean, "lvq_off": off, "lvq_scale": scale}
+        elif self.VARIANT == "leanvec":
+            # SVS LeanVec: the walk scores in a PCA-reduced store of
+            # svs_leanvec_dim dims (default dim / 2); the graph is built at
+            # full width and the refine store reranks at full width
+            r = int((self._train_cfg.get("svs_leanvec_dim") if self._train_cfg else 0) or 0)
+            if r <= 0 or r >= self._dim:
+                r = max(1, self._dim // 2)
+            mean = x.mean(0).astype(np.float32)
+            xc = x - mean
+            cov = (xc.T.astype(np.float64) @ xc.astype(np.float64)) / max(1, nb)
+            _w, v = np.linalg.eigh(cov)
+            self._lv_proj = v[:, ::-1][:, :r].astype(np.float32)  # (d, r)
+            self._lv_mean = mean
+            self._payload = {"data_lv": (xc @ self._lv_proj).astype(np.float32)}
         elif self.VARIANT == "sq":
             self._sq = Q.sq_train(x, (self._train_cfg.get("sq_type") if self._train_cfg else None) or "SQ8")
             if self._sq.sq_type in ("FP16", "BF16"):  # cast rows, a bf16 raw store
@@ -288,9 +358,27 @@ class HnswIndexNode(IndexNode):
             if pre is not None and tuple(pre.shape) == p["data"].shape:
                 self._store = {"data": pre}  # corpus already resident (build)
             else:
-                self._store = {"data": to_device(np.asarray(p["data"], np.float32))}
+                # fp16 rows go up as bf16, as in the reference; bf16 and int8
+                # rows as they are (the walks widen them a gather at a time)
+                data = np.asarray(p["data"])
+                self._store = {"data": rows_to_device(bf16_bits(data) if data.dtype == np.float16 else data)}
             self._data_dev_prebuilt = None
             self._kind = "raw"
+        elif self.VARIANT == "lvq":
+            self._store = {
+                "codes": to_device(p["codes"]),
+                "off": to_device(np.asarray(p["lvq_off"], np.float32)),
+                "scale": to_device(np.asarray(p["lvq_scale"], np.float32)),
+                "mean": to_device(np.asarray(p["lvq_mean"], np.float32)),
+            }
+            self._kind = "lvq"
+        elif self.VARIANT == "leanvec":
+            # the reduced raw walk store; queries and routing centroids are
+            # projected into its frame
+            self._store = {"data": to_device(np.asarray(p["data_lv"], np.float32))}
+            self._kind = "raw"
+            if self._entry_cents is not None:
+                self._entry_cents_dev = to_device((self._entry_cents - self._lv_mean[None, :]) @ self._lv_proj)
         elif self.VARIANT == "sq":
             if "data" in p:  # FP16/BF16: bf16 raw store
                 self._store = {"data": rows_to_device(np.asarray(p["data"]))}
@@ -328,18 +416,23 @@ class HnswIndexNode(IndexNode):
         self._refresh_inline()
 
     def _refresh_inline(self) -> None:
-        """(Re)build the inline walk's table when eligible: a raw, SQ8, PQ or
-        PRQ store, routed entries, L2/IP, d % 4 == 0, a table within
-        KNOWHERE_INLINE_BUDGET_GB (default 6) and >= INLINE_MIN_ROWS rows.
-        KNOWHERE_GRAPH_INLINE=0 disables it, =1 forces it (no size floor).
-        Anything else that fails while building raises."""
+        """(Re)build the inline walk's table when eligible: a raw (f32 or
+        int8), SQ8, LVQ, PQ or PRQ store, routed entries, L2/IP, d % 4 == 0,
+        a table within KNOWHERE_INLINE_BUDGET_GB (default 6) and >=
+        INLINE_MIN_ROWS rows. KNOWHERE_GRAPH_INLINE=0 disables it, =1 forces
+        it (no size floor). Binary indexes, LeanVec (a reduced walk and a
+        full-width rerank) and bf16-held raw stores take the general walk, as
+        in the reference (whose inline build fails on bf16 rows and falls
+        back). Anything else that fails while building raises."""
         from ..ops.graph_inline import inline_row_words, make_inline_store
 
         self._inline = None
         mode = os.environ.get("KNOWHERE_GRAPH_INLINE", "auto")
-        if mode == "0" or self._graph is None:
+        if mode == "0" or self._graph is None or self._is_binary() or self.VARIANT == "leanvec":
             return
-        if self._kind not in ("raw", "sq", "pq", "prq") or self._entry_cents is None:
+        if self._kind not in ("raw", "sq", "lvq", "pq", "prq") or self._entry_cents is None:
+            return
+        if self._kind == "raw" and self._store["data"].dtype == torch.bfloat16:
             return
         if self._internal_metric() not in (M.L2, M.IP):
             return
@@ -365,11 +458,12 @@ class HnswIndexNode(IndexNode):
         new_rows = np.concatenate(self._pending, axis=0)
         self._pending = []
         nb_old = 0 if self._graph is None else self._graph.shape[0]
-        if self._graph is not None and nb_old >= 1024 and new_rows.shape[0] <= nb_old // 5:
+        if self._graph is not None and not self._is_binary() and nb_old >= 1024 and new_rows.shape[0] <= nb_old // 5:
             # small additions insert incrementally; > 20% growth rebuilds
             self._insert_batch(new_rows)
             return
-        merged = np.concatenate([self._raw_host, new_rows], axis=0)
+        old = self._payload["bits_raw"] if self._is_binary() else self._raw_host
+        merged = np.concatenate([old, self._native(new_rows)], axis=0)
         self._graph = None
         self._build_all(merged)
 
@@ -388,13 +482,17 @@ class HnswIndexNode(IndexNode):
         # 1. candidate pools from the existing graph
         efc = int(min(max(deg + 16, 64), 128, nb_old))
         n_seed = 0 if self._entry_cents_dev is None else int(min(max(8, efc // 8), 64))
+        # LeanVec walks its reduced store: the new rows are projected for
+        # the walk (the reference walks it with full-width rows and fails)
+        x_walk = x_new if self._lv_proj is None else ((x_new - self._lv_mean[None, :]) @ self._lv_proj).astype(np.float32)
         cand_l = []
         for s0 in range(0, n_new, 4096):
-            xc = x_new[s0 : s0 + 4096]
+            xc = x_walk[s0 : s0 + 4096]
             _, ic = G.beam_search(
                 to_device(pad_rows_ladder(xc)), self._store, self._graph_dev, self._entry_dev, None,
                 kind=self._kind, ef=efc, k=efc, deg=deg, max_iters=2 * efc + 32, is_l2=is_l2,
-                beam_width=max(1, min(8, efc // 16)), route_cents=self._entry_cents_dev, n_seed=n_seed,
+                is_jaccard=internal == M.JACCARD, beam_width=max(1, min(8, efc // 16)),
+                route_cents=self._entry_cents_dev, n_seed=n_seed,
             )
             cand_l.append(ic.cpu().numpy()[: xc.shape[0]])
         cand = np.concatenate(cand_l).astype(np.int32)
@@ -446,10 +544,19 @@ class HnswIndexNode(IndexNode):
         # 5. storage appends, encoded with the trained codecs (reference: Add
         # encodes with the codebooks from Train)
         p = self._payload
-        self._raw_host = np.concatenate([self._raw_host, np.asarray(x_new_in)])
-        if "data" in p:  # flat rows, or SQ's FP16/BF16 rows
+        self._raw_host = np.concatenate([self._raw_host, self._native(x_new_in)])
+        if "data" in p:  # flat rows (typed ones at their width), or SQ's FP16/BF16 rows
             app = bf16_bits(x_new) if p["data"].dtype == np.uint16 else x_new.astype(p["data"].dtype)
             p["data"] = np.concatenate([p["data"], app])
+        elif self.VARIANT == "lvq":  # encoded with the trained mean
+            codes_new, off_new, scale_new = Q.lvq_encode(Q.LVQCodec(mean=np.asarray(p["lvq_mean"])), x_new)
+            p["codes"] = np.concatenate([p["codes"], codes_new])
+            p["lvq_off"] = np.concatenate([p["lvq_off"], off_new])
+            p["lvq_scale"] = np.concatenate([p["lvq_scale"], scale_new])
+        elif self.VARIANT == "leanvec":  # projected on the trained basis
+            p["data_lv"] = np.concatenate(
+                [p["data_lv"], ((x_new - self._lv_mean[None, :]) @ self._lv_proj).astype(np.float32)]
+            )
         elif self.VARIANT == "sq":
             p["codes"] = np.concatenate([p["codes"], Q.sq_encode(self._sq, x_new)])
         elif self.VARIANT == "pq":
@@ -515,7 +622,7 @@ class HnswIndexNode(IndexNode):
                 return expected.Ok(GenResultDataSet(nq, k, ids, dists))
 
             q_pad_dev = dataset.cached_device(
-                f"hnsw_qpad:{self._metric}:{get_device()}", lambda: to_device(pad_rows_ladder(xq))
+                f"hnsw_qpad:{self._metric}:{self.data_type}:{get_device()}", lambda: to_device(pad_rows_ladder(xq))
             )
             dists, ids = self._graph_search(
                 xq, k, ef, bitset, refine_k=int(cfg.get("refine_k", 1) or 1), q_pad_dev=q_pad_dev
@@ -544,8 +651,9 @@ class HnswIndexNode(IndexNode):
 
     def _finish(self, xq, scores, ids, k: int, refine_k: int, is_l2: bool):
         """Walk scores / candidates -> (dists native convention, ids int64):
-        the refine store re-scores the k * refine_k candidates, else the
-        scores convert (|q|^2 - score for L2)."""
+        the refine store re-scores the k * refine_k candidates (at full width
+        for LeanVec: ``xq`` is always the full-width query), else the scores
+        convert (|q|^2 - score for L2 and HAMMING, 1 - score for JACCARD)."""
         if self._refine_store is not None:
             with torch.profiler.record_function("hnsw.refine"):
                 dd, ii = refine_topk_device(
@@ -554,7 +662,9 @@ class HnswIndexNode(IndexNode):
                 dists, ids = dd.cpu().numpy(), ii.cpu().numpy()
         else:
             scores, ids = scores[:, :k], ids[:, :k]
-            if is_l2:
+            if self._internal_metric() == M.JACCARD:
+                dists = 1.0 - scores
+            elif is_l2:
                 qsq = np.sum(xq.astype(np.float64) ** 2, axis=1).astype(np.float32)
                 dists = qsq[:, None] - scores
             else:
@@ -567,11 +677,17 @@ class HnswIndexNode(IndexNode):
             return self._graph_search_inline(xq, k, ef, bitset, refine_k, q_pad_dev=q_pad_dev)
         from ..comp import check_current_cancellation
 
+        xq_full = xq
+        if self._lv_proj is not None:
+            # LeanVec: the walk scores in the reduced frame; the refine
+            # reranks the whole window with the full-width queries
+            xq = ((xq - self._lv_mean[None, :]) @ self._lv_proj).astype(np.float32)
+            q_pad_dev = None  # the cached upload is full width
         nq, d = xq.shape
         is_l2 = self._is_l2_like()
         keep = bitset.device_mask(self.Count()) if not bitset.empty_view() else None
         k_out = k if self._refine_store is None else max(k, k * max(refine_k, 1))
-        k_out = min(k_out, ef)
+        k_out = ef if self._lv_proj is not None else min(k_out, ef)
         deg = self._graph.shape[1]
         # beam width W = ef // 8 (<= 8): fewer sequential steps, W times the
         # work per step
@@ -587,14 +703,15 @@ class HnswIndexNode(IndexNode):
             sc, ic = G.beam_search(
                 qc_dev, self._store, self._graph_dev, self._entry_dev, keep,
                 kind=self._kind, ef=ef, k=k_out, deg=deg, max_iters=max_iters, is_l2=is_l2,
-                has_mask=keep is not None, beam_width=W, route_cents=self._entry_cents_dev, n_seed=n_seed,
+                is_jaccard=self._internal_metric() == M.JACCARD, has_mask=keep is not None, beam_width=W,
+                route_cents=self._entry_cents_dev, n_seed=n_seed,
                 compact_ratio=_compact_ratio() if W > 1 else 1.0,
             )
             scores_l.append(sc[:n_real])
             ids_l.append(ic[:n_real])
         scores = torch.cat(scores_l).cpu().numpy()
         ids = torch.cat(ids_l).cpu().numpy()
-        return self._finish(xq, scores, ids, k, refine_k, is_l2)
+        return self._finish(xq_full, scores, ids, k, refine_k, is_l2)
 
     def _graph_search_inline(self, xq, k, ef, bitset: BitsetView, refine_k: int = 1, q_pad_dev=None):
         """The inline walk; its scores are exact under the stored values (the
@@ -608,7 +725,8 @@ class HnswIndexNode(IndexNode):
         k_out = k if self._refine_store is None else max(k, k * max(refine_k, 1))
         k_out = min(k_out, ef)
         deg = inline.deg
-        W = max(1, min(8, ef // 8))
+        # KNOWHERE_INLINE_W sets the beam width (the reference's knob for A/Bs)
+        W = int(os.environ.get("KNOWHERE_INLINE_W", "0")) or max(1, min(8, ef // 8))
         n_steps = ef // W + 6
         n_seed = int(min(max(8, ef // 8), 64, ef))
         ring_slots = max(1, 256 // (W * deg))
@@ -633,9 +751,13 @@ class HnswIndexNode(IndexNode):
 
     def _brute_force(self, xq, k, bitset: BitsetView):
         """Exact scan of the stored rows (raw store, else the raw refine
-        store, else the decoded codes), honouring the bitset."""
+        store, else the decoded codes; LeanVec's raw store is reduced, so its
+        refine store), honouring the bitset. HAMMING scans as L2 over the
+        {0,1} rows, as in the reference."""
         metric = self._internal_metric()
-        if self._kind == "raw":
+        if metric == M.HAMMING:
+            metric = M.L2
+        if self._kind == "raw" and self._lv_proj is None:
             data = self._store["data"]
         elif self._refine_store is not None and self._refine_store.kind == "raw":
             data = self._refine_store.data
@@ -655,7 +777,7 @@ class HnswIndexNode(IndexNode):
         """Every stored row as f32 on the host (full width)."""
         p = self._payload
         if self.VARIANT == "flat":
-            return np.asarray(p["data"], dtype=np.float32)
+            return as_f32(p["data"])
         if "refine" in p:  # every refine kind is full width and decodable
             ref = np.asarray(p["refine"])
             if self._refine_cfg == "sq8":
@@ -670,6 +792,9 @@ class HnswIndexNode(IndexNode):
                                torch.from_numpy(sq.vdiff), sq.levels, sq.sq_type == "SQ4", self._dim).numpy()
         if self.VARIANT == "pq":
             return Q.pq_decode(self._pq, np.asarray(p["codes"]))
+        if self.VARIANT == "lvq":
+            return Q.lvq_decode(np.asarray(p["codes"]), np.asarray(p["lvq_off"]), np.asarray(p["lvq_scale"]),
+                                np.asarray(p["lvq_mean"]))
         raise KnowhereException("cannot decode", Status.internal_error)
 
     # --- full-coverage scan (iterator / range-search completion) --------------
@@ -686,7 +811,10 @@ class HnswIndexNode(IndexNode):
         for s in range(0, nb, 65536):
             blk = data[s : s + 65536]
             dots = q64 @ blk.T
-            if self._is_l2_like():
+            if self._internal_metric() == M.JACCARD:
+                union = q64.sum(1)[:, None] + blk.sum(1)[None, :] - dots
+                dd = 1.0 - dots / np.maximum(union, 1e-12)
+            elif self._is_l2_like():
                 dd = (q64**2).sum(1)[:, None] - 2 * dots + (blk**2).sum(1)[None, :]
             else:
                 dd = dots
@@ -806,7 +934,8 @@ class HnswIndexNode(IndexNode):
             ids = np.asarray(dataset.ids, dtype=np.int64)
             if ids.min(initial=0) < 0 or ids.max(initial=-1) >= self.Count():
                 return expected.Err(Status.invalid_args, "id out of range")
-            return expected.Ok(GenTensorDataSet(np.asarray(self._raw_host[ids]), len(ids), self._dim))
+            rows = self._payload["bits_raw"] if self._is_binary() else self._raw_host
+            return expected.Ok(GenTensorDataSet(np.asarray(rows[ids]), len(ids), self._dim))
 
     def IsAdditionalScalarSupported(self, is_mv_only: bool = False) -> bool:
         return True  # consumes materialized_view_search_info (earlier fallback)
@@ -822,6 +951,34 @@ class HnswIndexNode(IndexNode):
     def HasRawData(self, metric_type: str = "L2") -> bool:
         # flat HNSW keeps raw rows; quantized variants only through a raw refine
         return self.VARIANT == "flat" or self._refine_cfg == "raw"
+
+    # --- feder -----------------------------------------------------------------
+    def GetIndexMeta(self, cfg: Config) -> "expected[DataSet]":
+        """feder's overview of the graph (reference feder/HNSW.h HNSWMeta)."""
+        from ..feder import hnsw_overview
+
+        if self._graph is None:
+            return expected.Err(Status.empty_index, "index not built")
+        overview = hnsw_overview(self._graph, self._entry, int(cfg.get("overview_levels", 3) or 3))
+        overview.update({"metric_type": self._metric, "M": self._M, "dim": self._dim, "count": self.Count()})
+        ds = DataSet()
+        ds.set("json_info", json.dumps(overview))
+        return expected.Ok(ds)
+
+    def GetFederVisit(self, dataset: DataSet, cfg: Config) -> "expected[DataSet]":
+        """trace_visit: each query's walk replayed on the host over the
+        stored rows, its visits in order (reference feder FederResult)."""
+        from ..feder import instrumented_walk
+
+        if self._graph is None:
+            return expected.Err(Status.empty_index, "index not built")
+        xq = self._prep_rows(np.asarray(dataset.tensor))
+        ef = self._effective_ef(cfg, cfg.get("k", 10) or 10)
+        x_host = self._decode_all()
+        traces = [instrumented_walk(x_host, self._graph, self._entry, q, ef, is_l2=self._is_l2_like()) for q in xq]
+        ds = DataSet()
+        ds.set("json_id_set", json.dumps(traces))
+        return expected.Ok(ds)
 
     # --- serialization -----------------------------------------------------------
     def Serialize(self, binset: BinarySet) -> Status:
@@ -858,6 +1015,9 @@ class HnswIndexNode(IndexNode):
                 meta["pq_nbits"] = self._pq.nbits
             if self._prq_books is not None:
                 arrays["prq_codebooks"] = self._prq_books
+            if self._lv_proj is not None:
+                arrays["lv_proj"] = self._lv_proj
+                arrays["lv_mean"] = self._lv_mean
             bf16 = tuple(k_ for k_, v in arrays.items() if v.dtype == np.uint16)
             binset.Append(self.Type(), write_sections(arrays, meta=meta, bf16=bf16))
             return Status.success
@@ -869,9 +1029,8 @@ class HnswIndexNode(IndexNode):
         arrays, meta = read_sections(binary.data)
         if meta.get("variant") != self.VARIANT:
             return Status.invalid_serialized_index_type
-        if meta.get("data_type", "fp32") != "fp32":
-            raise NotImplementedError("typed and binary HNSW corpora are not ported yet")
         with self._lock:
+            self.data_type = meta.get("data_type", "fp32")
             self._metric = meta["metric"]
             self._dim = int(meta["dim"])
             self._M = int(meta["M"])
@@ -895,6 +1054,9 @@ class HnswIndexNode(IndexNode):
                 self._pq = Q.PQCodec(books, books.shape[0], int(meta.get("pq_nbits", 8)))
             if "prq_codebooks" in arrays:
                 self._prq_books = np.asarray(arrays["prq_codebooks"], np.float32)
+            if "lv_proj" in arrays:
+                self._lv_proj = np.asarray(arrays["lv_proj"], np.float32)
+                self._lv_mean = np.asarray(arrays["lv_mean"], np.float32)
             self._upload()
         return Status.success
 
@@ -934,9 +1096,13 @@ class HnswPrqNode(HnswIndexNode):
     VARIANT = "prq"
 
 
+_F = feature
+_DENSE = ("fp32",) + _TYPED
+# the reference's feature bits, EMB_LIST aside (the emb_list facade is not
+# ported)
 register_index(
-    IndexEnum.INDEX_HNSW, ("fp32",), feature.FLOAT32 | feature.KNN | feature.MMAP | feature.MV,
+    IndexEnum.INDEX_HNSW, _DENSE + ("bin1",), _F.ALL_DENSE_TYPE | _F.BINARY | _F.KNN | _F.MMAP | _F.MV,
 )(HnswFlatNode)
-register_index(IndexEnum.INDEX_HNSW_SQ, ("fp32",), feature.FLOAT32 | feature.KNN | feature.MMAP)(HnswSqNode)
-register_index(IndexEnum.INDEX_HNSW_PQ, ("fp32",), feature.FLOAT32 | feature.KNN | feature.MMAP)(HnswPqNode)
-register_index(IndexEnum.INDEX_HNSW_PRQ, ("fp32",), feature.FLOAT32 | feature.KNN | feature.MMAP)(HnswPrqNode)
+register_index(IndexEnum.INDEX_HNSW_SQ, _DENSE, _F.ALL_DENSE_TYPE | _F.KNN | _F.MMAP)(HnswSqNode)
+register_index(IndexEnum.INDEX_HNSW_PQ, _DENSE, _F.ALL_DENSE_TYPE | _F.KNN | _F.MMAP)(HnswPqNode)
+register_index(IndexEnum.INDEX_HNSW_PRQ, _DENSE, _F.ALL_DENSE_TYPE | _F.KNN | _F.MMAP)(HnswPrqNode)

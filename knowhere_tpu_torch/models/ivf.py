@@ -358,7 +358,12 @@ class IvfIndexNode(IndexNode):
         self._dim = dataset.dim
         x = self._prep_rows(np.asarray(dataset.tensor))
         self._nlist = match_nlist(rows, int(cfg.nlist))
-        centroids, assign_full = kmeans(x, self._nlist, n_iters=12, seed=1234)
+        # the cuVS configs' trainer knobs (models/cagra.py); the plain IVF
+        # configs leave them unset: 12 iterations, 256 points a centroid
+        n_iters = int(cfg.get("kmeans_n_iters", 12) or 12)
+        frac = float(cfg.get("kmeans_trainset_fraction", 0.0) or 0.0)
+        mppc = max(1, int(rows * frac) // max(self._nlist, 1)) if frac > 0.0 else 256
+        centroids, assign_full = kmeans(x, self._nlist, n_iters=n_iters, seed=1234, max_points_per_centroid=mppc)
         if self._is_binary():
             # binary IVF: centroids snap to {0,1} planes (majority vote); the
             # snapped centroids invalidate the assignment
@@ -1341,6 +1346,41 @@ class IvfIndexNode(IndexNode):
         if self._kind == "raw":
             return True
         return self.VARIANT == "scann" and self._refine_cfg == "raw"
+
+    # --- feder -----------------------------------------------------------------------
+    def GetIndexMeta(self, cfg: Config) -> "expected[DataSet]":
+        """feder's IVF overview (reference feder/IVFFlat.h): the lists' true
+        sizes beside the index's shape."""
+        import json
+
+        if self._offsets is None:
+            return expected.Err(Status.empty_index, "index not built")
+        meta = {
+            "index_type": self.Type(),
+            "metric_type": self._metric,
+            "nlist": self._nlist,
+            "dim": self._dim,
+            "count": self.Count(),
+            "list_sizes": (self._lengths if self._lengths is not None else np.diff(self._offsets)).tolist(),
+        }
+        ds = DataSet()
+        ds.set("json_info", json.dumps(meta))
+        return expected.Ok(ds)
+
+    def GetFederVisit(self, dataset: DataSet, cfg: Config) -> "expected[DataSet]":
+        """trace_visit: each query's probed lists and their sizes, by the
+        host coarse probe (reference feder/IVFFlat.h FederResult)."""
+        import json
+
+        if self._offsets is None:
+            return expected.Err(Status.empty_index, "index not built")
+        xq = self._prep_rows(np.asarray(dataset.tensor))
+        probes = coarse_probe_host(xq, self._centroids, int(cfg.get("nprobe", 8) or 8), self._is_l2_like())
+        lens = self._lengths if self._lengths is not None else np.diff(self._offsets)
+        traces = [[{"list_id": int(lst), "size": int(lens[lst])} for lst in row.tolist() if lst >= 0] for row in probes]
+        ds = DataSet()
+        ds.set("json_id_set", json.dumps(traces))
+        return expected.Ok(ds)
 
     # --- serialization ------------------------------------------------------------------
     def Serialize(self, binset: BinarySet) -> Status:

@@ -12,11 +12,17 @@ chunks; the keep loop over candidate ranks is a Python loop of tensor ops.
 Reverse edges backfill spare slots (numpy), and a few random long edges
 (numpy ``default_rng(97)``) keep multi-modal corpora connected.
 
+Binary corpora arrive as {0,1} f32 rows under HAMMING or JACCARD. The exact
+scan ranks them under that metric; the IVF route ranks every metric but L2
+by IP (``is_l2 = metric == "L2"``) and the prune takes the L2 rule for every
+metric but IP, as the reference does.
+
 SEARCH is a batched best-first beam search: per query a beam of ef
 candidates; each step expands the W best unexpanded nodes, gathers their
 neighbors, drops those already in the visited ring or the beam (and, for
-W > 1, repeats within the step), scores the rest and merges them into the
-beam with one stable sort on (-score, payload). Filtered-out nodes are
+W > 1, repeats within the step), scores the rest (L2, IP, or Jaccard over
+{0,1} rows) and merges them into the beam with one stable sort on
+(-score, payload). Filtered-out nodes are
 walked but never surface (a second, masked result set). The reference's
 ``lax.while_loop`` stops once every query's beam holds no unexpanded node;
 here the loop tests that every 8 steps (one device sync each): a finished
@@ -360,13 +366,16 @@ def pick_entry_points(
 
 
 def decode_rows(kind: str, store: Dict[str, torch.Tensor], ids_flat: torch.Tensor) -> torch.Tensor:
-    """(N,) node ids -> (N, d) f32 stored values: raw rows, SQ8/SQ6 byte grids,
-    SQ4 nibbles (low nibble first), PQ codewords or PRQ stage sums."""
-    from .quant import sq_decode
+    """(N,) node ids -> (N, d) f32 stored values: raw rows (f32, or bf16 /
+    int8 rows widened a gather at a time), SQ8/SQ6 byte grids, SQ4 nibbles
+    (low nibble first), LVQ's per-row grids, PQ codewords or PRQ stage sums."""
+    from .quant import lvq_decode, sq_decode
 
     safe = ids_flat.clamp(min=0).long()
     if kind == "raw":
         return store["data"][safe].float()
+    if kind == "lvq":
+        return lvq_decode(store["codes"][safe], store["off"][safe], store["scale"][safe], store["mean"])
     if kind in ("sq", "sq6", "sq4"):
         levels = {"sq": 256, "sq6": 64, "sq4": 16}[kind]
         return sq_decode(store["codes"][safe], store["vmin"], store["vdiff"], levels, kind == "sq4",
@@ -402,6 +411,7 @@ def beam_search(
     deg: int,
     max_iters: int,
     is_l2: bool,
+    is_jaccard: bool = False,
     has_mask: bool = False,
     beam_width: int = 1,
     route_cents: Optional[torch.Tensor] = None,  # (E, d) k-means centroids
@@ -410,7 +420,8 @@ def beam_search(
     ring_cap: int = 256,  # visited-ring slots
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (scores (nq,k) larger-is-better, ids (nq,k) int32, -1 pad);
-    requires k <= ef."""
+    requires k <= ef. ``is_jaccard`` scores {0,1} rows by their Jaccard
+    similarity inter / max(|q| + |v| - inter, 1e-9)."""
     nq, d = q.shape
     dev = q.device
     E = entry.shape[0]
@@ -427,6 +438,9 @@ def beam_search(
         C = ids.shape[1]
         vecs = decode(ids.reshape(-1)).reshape(nq, C, -1)
         dots = torch.bmm(vecs, q[:, :, None])[:, :, 0]
+        if is_jaccard:
+            union = torch.clamp(q.sum(1, keepdim=True) + vecs.sum(2) - dots, min=1e-9)
+            return dots / union
         if is_l2:
             return 2.0 * dots - (vecs * vecs).sum(2)  # dist = |q|^2 - score
         return dots

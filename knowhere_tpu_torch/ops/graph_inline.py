@@ -9,7 +9,8 @@ scores the candidates in "code space": q . v = q . vmin + (q * scale) . codes
 + 0.5 * sum(q * scale), with scale = vdiff / 2^bits, q * scale rounded to
 bf16 (round to nearest even) as the reference rounds it, the exact products
 summed in f32, and the stored norms exact. One exact rerank of the final beam
-(raw f32 rows, SQ8 decode, PQ or PRQ decode) gives the returned scores.
+(raw f32, bf16 or int8 rows, SQ8 decode, LVQ decode, PQ or PRQ decode)
+gives the returned scores.
 
 The table is derived state: rebuilt from the graph and the stored values at
 build and load, never serialized, bit for bit the reference's (codes are
@@ -29,6 +30,7 @@ import torch
 
 from ..device import to_device
 from .graph import DONE_CHECK_STEPS, decode_rows, sort_desc
+from .quant import lvq_decode
 from .topk import topk_leftmost
 
 NEG = -float("inf")
@@ -82,11 +84,17 @@ def sq4_unpack_planes(words: torch.Tensor) -> torch.Tensor:
 
 def _decoded_scores(kind, q, r0, r1, r2, ids2d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(nq, C) ids -> (dots with q, squared norms) of the exactly decoded
-    stored values: raw rows, the SQ8 decode in the reference's rounding
-    order (vmin + (c + 0.5) * (vdiff / 256)), PQ or PRQ codewords."""
+    stored values: raw rows (f32, bf16 or int8, widened), the SQ8 decode in
+    the reference's rounding order (vmin + (c + 0.5) * (vdiff / 256)), the
+    LVQ decode (r1 the mean, r2 the rows' [offset, scale]), PQ or PRQ
+    codewords."""
     nq, C = ids2d.shape
     if kind == "sq":
         vv = r1[None, None, :] + (r0[ids2d.clamp(min=0).long()].float() + 0.5) * (r2[None, None, :] / 256.0)
+    elif kind == "lvq":
+        safe = ids2d.reshape(-1).clamp(min=0).long()
+        os_ = r2[safe]
+        vv = lvq_decode(r0[safe], os_[:, 0], os_[:, 1], r1).reshape(nq, C, -1)
     else:
         store = {"data": r0} if kind == "raw" else {"codes": r0, "codebooks": r1}
         vv = decode_rows(kind, store, ids2d.reshape(-1)).reshape(nq, C, -1)
@@ -96,9 +104,9 @@ def _decoded_scores(kind, q, r0, r1, r2, ids2d: torch.Tensor) -> Tuple[torch.Ten
 def beam_search_inline(
     table: torch.Tensor,  # (nb, row_words) int32
     q: torch.Tensor,  # (nq, d) f32 (cosine pre-normalized)
-    rerank0: torch.Tensor,  # raw (nb, d) f32 | sq / pq / prq codes (nb, .) uint8
-    rerank1: Optional[torch.Tensor],  # sq vmin (d,) | pq / prq codebooks | None
-    rerank2: Optional[torch.Tensor],  # sq vdiff (d,) | None
+    rerank0: torch.Tensor,  # raw (nb, d) f32 / bf16 / int8 | sq / lvq / pq / prq codes (nb, .) uint8
+    rerank1: Optional[torch.Tensor],  # sq vmin (d,) | lvq mean (d,) | pq / prq codebooks | None
+    rerank2: Optional[torch.Tensor],  # sq vdiff (d,) | lvq [off, scale] (nb, 2) | None
     entry: torch.Tensor,  # (E,) int32 per-centroid resident nodes
     cents: torch.Tensor,  # (E, d) f32 routing centroids
     vmin: torch.Tensor,  # (d,) f32 walk codec
@@ -114,7 +122,7 @@ def beam_search_inline(
     k: int,
     is_l2: bool,
     has_mask: bool,
-    rerank_kind: str,  # "raw" | "sq" | "pq" | "prq"
+    rerank_kind: str,  # "raw" | "sq" | "lvq" | "pq" | "prq"
     bits: int = 8,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (scores (nq,k) larger-is-better, exact under the stored values,
@@ -265,9 +273,21 @@ def _encode_chunks(nb: int, rows_fn, vmin, vdiff, bits: int):
     return torch.cat(packs), torch.cat(nrms)
 
 
+def _decoded_range(nb: int, rows_fn):
+    """Per-dim (vmin, vdiff) of nb rows decoded chunk by chunk by
+    rows_fn(s, e): vdiff = max(vmax - vmin, 1e-20)."""
+    vmin = vmax = None
+    for s in range(0, nb, _TABLE_CHUNK):
+        x = rows_fn(s, min(s + _TABLE_CHUNK, nb))
+        lo, hi = x.min(0).values, x.max(0).values
+        vmin = lo if vmin is None else torch.minimum(vmin, lo)
+        vmax = hi if vmax is None else torch.maximum(vmax, hi)
+    return vmin, torch.clamp(vmax - vmin, min=1e-20)
+
+
 def make_inline_store(
     graph_np: np.ndarray,
-    kind: str,  # "raw" | "sq" | "pq" | "prq"
+    kind: str,  # "raw" | "sq" | "lvq" | "pq" | "prq"
     store: Dict[str, torch.Tensor],
     x_host: Optional[np.ndarray] = None,
     bits: Optional[int] = None,
@@ -275,7 +295,9 @@ def make_inline_store(
     """The inline table of a graph index, or None where the kind or the width
     does not fit. bits=4 (the default, KNOWHERE_INLINE_BITS) packs nibble-plane
     walk codes: half the table and half the walk's gather bytes; widths not
-    divisible by 8 fall back to 8-bit codes."""
+    divisible by 8 fall back to 8-bit codes. A raw store may hold f32, bf16 or
+    int8 rows: codes and norms come from their f32 values."""
+    from ..utils.bf16 import as_f32
     from .quant import sq_train
 
     if bits is None:
@@ -295,7 +317,7 @@ def make_inline_store(
         if bits is None:
             return None
         if x_host is not None:
-            codec = sq_train(np.asarray(x_host), "SQ8")
+            codec = sq_train(as_f32(x_host) if np.asarray(x_host).dtype == np.uint16 else np.asarray(x_host), "SQ8")
             vmin, vdiff = to_device(codec.vmin), to_device(codec.vdiff)
         else:
             vmin = data.min(0).values.float()
@@ -316,6 +338,23 @@ def make_inline_store(
         codes_w, norms = _encode_chunks(nb, sq_rows, vmin, vdiff, bits)
         table = build_inline_table(graph_np, codes_w, norms)
         return InlineGraphStore(table, vmin, vdiff, "sq", codes, vmin, vdiff, deg, bits)
+    if kind == "lvq":
+        # walk codes re-quantize the LVQ-decoded rows on one shared grid (the
+        # table needs one grid so the query can be pre-scaled); the rerank
+        # decodes each row's own grid exactly
+        codes = store["codes"]  # (nb, d) uint8
+        bits = fit_bits(int(codes.shape[1]))
+        if bits is None:
+            return None
+
+        def dec_lvq(s, e):
+            return decode_rows("lvq", store, torch.arange(s, e, device=codes.device))
+
+        vmin, vdiff = _decoded_range(nb, dec_lvq)
+        codes_w, norms = _encode_chunks(nb, dec_lvq, vmin, vdiff, bits)
+        table = build_inline_table(graph_np, codes_w, norms)
+        offscale = torch.stack([store["off"], store["scale"]], dim=1)  # (nb, 2) rerank operand
+        return InlineGraphStore(table, vmin, vdiff, "lvq", codes, store["mean"], offscale, deg, bits)
     if kind in ("pq", "prq"):
         # walk codes re-quantize the decoded rows on one shared grid; the
         # rerank decodes PQ / PRQ exactly
@@ -327,13 +366,7 @@ def make_inline_store(
         def dec(s, e):
             return decode_rows(kind, store, torch.arange(s, e, device=codes.device))
 
-        vmin = vmax = None
-        for s in range(0, nb, _TABLE_CHUNK):  # per-dim min / max of the decoded rows
-            x = dec(s, min(s + _TABLE_CHUNK, nb))
-            lo, hi = x.min(0).values, x.max(0).values
-            vmin = lo if vmin is None else torch.minimum(vmin, lo)
-            vmax = hi if vmax is None else torch.maximum(vmax, hi)
-        vdiff = torch.clamp(vmax - vmin, min=1e-20)
+        vmin, vdiff = _decoded_range(nb, dec)
         bits = fit_bits(d)
         if bits is None:
             return None

@@ -1,7 +1,8 @@
 """Quantizers in PyTorch (counterpart of knowhere_tpu/ops/quant.py): the
 product quantizer (per-subspace codebooks trained on IVF residuals, faiss
 by_residual=true, nearest-codeword encode, decode, and OPQ), the scalar
-quantizers (SQ8/SQ6/SQ4 affine grids, FP16/BF16 rows) and RaBitQ (1-bit
+quantizers (SQ8/SQ6/SQ4 affine grids, FP16/BF16 rows), SVS's LVQ (a
+per-vector 8-bit grid over the mean-centred residual) and RaBitQ (1-bit
 signs of the rotated residual plus two per-row corrections).
 
 The host RNG is numpy ``default_rng(seed)`` drawn in the reference's order,
@@ -203,6 +204,51 @@ def sq_decode(codes: torch.Tensor, vmin: Optional[torch.Tensor], vdiff: Optional
         return codes.float()
     c = unpack_sq4(codes, d) if packed4 else codes.float()
     return vmin + (c + 0.5) / levels * vdiff
+
+
+# ---------------------------------------------------------------------------
+# LVQ (locally-adaptive vector quantization, Intel SVS semantics): each row is
+# quantized on its own range after the dataset mean is subtracted; 1 byte a
+# dim, an f32 offset and scale a row, one (d,) mean. Host numpy, the
+# reference's arithmetic step for step, so codes, offsets and scales are its
+# bits.
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class LVQCodec:
+    mean: np.ndarray  # (d,) f32 dataset mean
+    bits: int = 8
+
+    @property
+    def levels(self) -> int:
+        return 1 << self.bits
+
+
+def lvq_train(x: np.ndarray, bits: int = 8) -> LVQCodec:
+    return LVQCodec(mean=x.mean(axis=0).astype(np.float32), bits=bits)
+
+
+def lvq_encode(codec: LVQCodec, x: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Returns (codes uint8 (n, d), off f32 (n,), scale f32 (n,)): a uniform
+    grid over [min(r), max(r)] of each row's residual r = x - mean, scale =
+    span / levels in f32, code = floor((r - off) / scale) (a true division)
+    clipped to the grid."""
+    r = x.astype(np.float32) - codec.mean[None, :]
+    off = r.min(axis=1)
+    span = np.maximum(r.max(axis=1) - off, 1e-20)
+    scale = (span / codec.levels).astype(np.float32)
+    q = np.clip(np.floor((r - off[:, None]) / scale[:, None]), 0, codec.levels - 1).astype(np.uint8)
+    return q, off.astype(np.float32), scale
+
+
+def lvq_decode(codes, off, scale, mean):
+    """Codes -> f32 rows at the bins' centres, mean + off + (code + 0.5) *
+    scale, added in that order; torch tensors or numpy arrays (the result
+    is of the inputs' kind)."""
+    if isinstance(codes, torch.Tensor):
+        return mean[None, :] + off[:, None] + (codes.float() + 0.5) * scale[:, None]
+    return mean[None, :] + off[:, None] + (codes.astype(np.float32) + 0.5) * scale[:, None]
 
 
 # ---------------------------------------------------------------------------

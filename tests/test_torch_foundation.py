@@ -34,13 +34,18 @@ def test_status_enum_matches_reference():
 
 
 def test_only_flat_and_ivf_flat_registered():
-    """The names the port registers: the FLAT and IVF families and HNSW."""
+    """The names the port registers: the FLAT and IVF families, the HNSW
+    family, the SVS names and the CAGRA / cuVS names (named when FLAT and
+    IVF_FLAT were all)."""
     names = {name for name, _ in ktt.IndexFactory.Instance()._registry}
     assert names == {
         "FLAT", "BIN_FLAT", "BINFLAT", "TPU_BRUTE_FORCE", "GPU_CUVS_BRUTE_FORCE", "GPU_BRUTE_FORCE",
         "GPU_FAISS_FLAT", "IVF_FLAT", "IVF_FLAT_CC", "GPU_FAISS_IVF_FLAT", "IVF_PQ", "GPU_FAISS_IVF_PQ",
         "SCANN", "IVF_SQ8", "IVF_SQ_CC", "GPU_FAISS_IVF_SQ8", "IVF_RABITQ", "IVF_RABITQ_FASTSCAN",
         "BIN_IVF_FLAT", "IVFBIN", "HNSW", "HNSW_SQ", "HNSW_PQ", "HNSW_PRQ",
+        "SVS_FLAT", "SVS_VAMANA", "SVS_VAMANA_LVQ", "SVS_VAMANA_LEANVEC", "HNSWLIB_DEPRECATED", "HNSW_DEPRECATED",
+        "GPU_CUVS_CAGRA", "GPU_CAGRA", "TPU_CAGRA", "GPU_CUVS_IVF_FLAT", "GPU_IVF_FLAT", "TPU_IVF_FLAT",
+        "GPU_CUVS_IVF_PQ", "GPU_IVF_PQ", "TPU_IVF_PQ",
     }
 
 

@@ -172,7 +172,12 @@ def test_get_vector_and_calc_dist(base, hnsw_l2):
 
 
 def test_index_meta_not_ported(hnsw_l2):
-    assert hnsw_l2.GetIndexMeta({}).error() == ktt.Status.not_implemented
+    """GetIndexMeta (named when the port had none): the overview JSON equals
+    the JAX package's for the same BinarySet."""
+    meta = hnsw_l2.GetIndexMeta({"overview_levels": 2})
+    assert meta.has_value(), meta.what()
+    want = cross_load(hnsw_l2, kt).GetIndexMeta({"overview_levels": 2}).value().get("json_info")
+    assert meta.value().get("json_info") == want
 
 
 def _gt_all(xall, q):
