@@ -104,7 +104,19 @@ Run from the root of a checkout on a machine with one CUDA GPU. In order:
    of GPU_CUVS_IVF_FLAT (the int8 scan; feder's IVF overview and probes)
    and GPU_CUVS_IVF_PQ (the ADC scan), and KMEANS Train on 1M x 128 at
    1,024 clusters twice (bit-equal) with its Assign held to FLAT's nearest
-   centroid;
+   centroid; the diskann path: DISKANN at bench.py's knobs (max_degree 56,
+   search_list_size 128, 32 PQ bytes a row) built off a bin file of the 1M
+   x 128 corpus in a temporary directory (its kNN graph through the f32
+   scan, the first launch held against its plain version), loaded with no
+   node cache, a BFS cache of a tenth of the rows and every row cached,
+   each searched over the search_list_size ladder 16-256 (recall@10
+   against the FLAT truth, QPS; the BFS cache's ids equal to no cache's), a
+   50% bitset, a 0.96 bitset (the exact disk scan), RangeSearch on 100
+   queries, AnnIterator (100 queries x 100 items), GetVectorByIds,
+   GetIndexMeta and one profiled no-cache search (the walk, the rerank's
+   host time, the idle share); the sharded build at 200,000 rows under a
+   0.25 GB budget (4 shards, each through the f32 scan); AISAQ at 250,000
+   rows with its inline records (their bytes, recall, QPS);
 12. one torch-profiler pass over one search each of IVF_FLAT (the int8
    scan), IVF_PQ (the ADC scan at its real shape) and IVF_SQ8 FAST (the
    int8 scan over u8 codes), and over one IVF_FLAT RangeSearch of step 6
@@ -263,6 +275,26 @@ CUVS_IVF_SEARCH = {"metric_type": "L2", "k": 10, "nprobe": 16}
 CAGRA_BUILD = {"metric_type": "L2", "graph_degree": 32}
 CAGRA_SEARCH = {"metric_type": "L2", "k": 10, "itopk_size": 64, "refine_ratio": 2}
 KMEANS_K = 1024
+# diskann path: DISKANN at bench.py:1429-1435's knobs (max_degree 56,
+# search_list_size 128, 32 PQ bytes a row, a 16 GB build budget) on the 1M x
+# 128 corpus, loaded without a node cache, with a BFS cache of
+# DISKANN_CACHE_SHARE of the rows and with every row cached, searched over
+# bench.py:1462's search_list_size ladder; the sharded build at SHARD_NB
+# rows under SHARD_BUDGET_GB (rows_in_budget 130,208: 4 shards, each above
+# 65,536 rows); AISAQ at AISAQ_NB rows (bench.py's DISKANN_NB). Legs 2-3 and
+# the 0.96-bitset, range and iterator calls use DISKANN_SMALL_NQ queries.
+# Floors sit just under the first measured value at search_list_size 64 (the
+# JAX package's TPU anchor is 0.9688 at 250,000 rows).
+DISKANN_BUILD = {"metric_type": "L2", "max_degree": 56, "search_list_size": 128, "build_dram_budget_gb": 16.0}
+DISKANN_LADDER = (16, 32, 64, 128, 256)
+DISKANN_L = 64
+DISKANN_CACHE_SHARE = 0.1
+DISKANN_SMALL_NQ = 1000
+DISKANN_FLOOR = 0.955  # 0.95719 (no cache, any cache: the same ids)
+DISKANN_BITSET_FLOOR = 0.96  # 0.96324 under the 50% bitset
+SHARD_NB, SHARD_BUDGET_GB, SHARD_FLOOR = 200_000, 0.25, 0.83  # 0.8362
+AISAQ_NB, AISAQ_FLOOR = 250_000, 0.61  # 0.6197: one entry row, a 4-wide beam
+SMALL_LADDER = (64, 128)  # legs 2-3
 # Published H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W): device
 # memory bytes/s, and operations/s by operand type.
 HBM_BYTES_PER_S = 3.35e12
@@ -2104,6 +2136,258 @@ def graph_families_path(kt, xb, xq, fp32_hnsw_recall):
     return out
 
 
+def _write_diskann_bin(path: str, x: np.ndarray) -> int:
+    """DiskANN's bin format ([npts int32][dim int32][rows]); returns bytes."""
+    with open(path, "wb") as f:
+        np.asarray(x.shape, dtype=np.int32).tofile(f)
+        np.ascontiguousarray(x, dtype=np.float32).tofile(f)
+    return os.path.getsize(path)
+
+
+def _diskann_build(kt, name, data_path, prefix, n, extra=None):
+    """Build ``name`` off data_path into prefix at DISKANN_BUILD (32 PQ bytes
+    a row); (the index, build seconds, f32-scan launches in the build)."""
+    from knowhere_tpu_torch.ops import ivf_cuda
+
+    f32 = ivf_cuda.f32_scan_tasks
+    before = f32.launches
+    idx = kt.IndexFactory.Instance().Create(name).value()
+    cfg = dict(DISKANN_BUILD, index_prefix=prefix, data_path=data_path, pq_code_budget_gb=32 * n / 1e9, **(extra or {}))
+    st, secs = _timed(lambda: idx.Build(kt.DataSet(), cfg))
+    if st != kt.Status.success:
+        raise RuntimeError(f"{name} Build: {st.name}")
+    return idx, secs, f32.launches - before
+
+
+def _diskann_load(kt, name, prefix, extra=None):
+    idx = kt.IndexFactory.Instance().Create(name).value()
+    st, secs = _timed(lambda: idx.Deserialize(kt.BinarySet(), {"metric_type": "L2", "index_prefix": prefix,
+                                                                **(extra or {})}))
+    if st != kt.Status.success:
+        raise RuntimeError(f"{name} Deserialize: {st.name}")
+    return idx, secs
+
+
+def _small_ladder(kt, idx, q, gt) -> dict:
+    """recall@10 and QPS of one search a rung of SMALL_LADDER."""
+    rungs = {}
+    for L in SMALL_LADDER:
+        (ids, _), secs = _timed(lambda: _search(idx, kt, q, {"metric_type": "L2", "k": 10, "search_list_size": L}))
+        rungs[L] = {"recall_at_10": recall_at(ids, gt), "qps": len(q) / secs}
+    return rungs
+
+
+def diskann_path(kt, xb, xq, gt):
+    """DISKANN (whose node DISKANN_DEPRECATED shares) and AISAQ through the
+    public API (the module docstring, step 11): (1) DISKANN at 1M x 128, its
+    build's first f32-scan launch held against f32_scan_plain; three loads
+    (no node cache, a BFS cache of a tenth of the rows, every row cached), each
+    searched over the search_list_size ladder (recall@10 against the FLAT
+    truth, QPS), the BFS cache's ids equal to no cache's; a 50% bitset, a
+    0.96 bitset (the exact disk scan), RangeSearch, AnnIterator,
+    GetVectorByIds, GetIndexMeta and a profiled no-cache search; (2) the
+    sharded build at SHARD_NB rows; (3) AISAQ at AISAQ_NB rows with its
+    inline records. The files live in a temporary directory that is removed
+    at the end."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    n, d = xb.shape
+    nq, k = len(xq), 10
+    out = {"nb": n, "nq": nq, "floors": {"recall_at_10": DISKANN_FLOOR, "bitset_50_recall_at_10": DISKANN_BITSET_FLOOR,
+                                         "sharded_recall_at_10": SHARD_FLOOR, "aisaq_recall_at_10": AISAQ_FLOOR}}
+    t_path = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_diskann_")
+    try:
+        # --- 1. DISKANN at 1M x 128 -------------------------------------------
+        data_path = os.path.join(tmp, "base.bin")
+        out["data_file_bytes"] = _write_diskann_bin(data_path, xb)
+        prefix = os.path.join(tmp, "diskann")
+        (_, out["build_s"], out["build_f32_scan_launches"]), held = _hold_launches(
+            lambda: _diskann_build(kt, "DISKANN", data_path, prefix, n), ("ivf_f32_scan",),
+            limit=1, tol=(F32_RTOL, F32_ATOL, F32_POS_AGREE))
+        out["build_f32_held"] = _held_summary(held)["ivf_f32_scan"]
+        out["file_bytes"] = {sfx: os.path.getsize(prefix + sfx) for sfx in ("_kwtpu_mem.bin", "_kwtpu_disk.bin")}
+        print("diskann build:", json.dumps({key: out[key] for key in (
+            "build_s", "build_f32_scan_launches", "data_file_bytes", "file_bytes")}), flush=True)
+
+        row_gb = d * 4 / 1e9
+        loads = {
+            "no_cache": {},
+            "bfs_cache": {"search_cache_budget_gb": row_gb * int(DISKANN_CACHE_SHARE * n), "use_bfs_cache": True},
+            "full_cache": {"search_cache_budget_gb": row_gb * n * 1.01},
+        }
+        ladder_ids = {}
+        for tag, extra in loads.items():
+            idx, out[f"{tag}_load_s"] = _diskann_load(kt, "DISKANN", prefix, extra)
+            node = idx.node
+            if tag == "bfs_cache":
+                out["bfs_cache_rows"] = int(node._cache_rows.shape[0])
+            if (node._refine_store is not None) != (tag == "full_cache"):
+                raise AssertionError(f"diskann {tag}: the node cache is not what the budget asks for")
+            if tag == "no_cache":  # the process's first walk: warm-up
+                _search(idx, kt, xq, {"metric_type": "L2", "k": k, "search_list_size": DISKANN_L})
+            rungs = {}
+            for L in DISKANN_LADDER:
+                (ids, dists), secs = _timed(lambda: _search(idx, kt, xq, {"metric_type": "L2", "k": k,
+                                                                            "search_list_size": L}))
+                if not np.isfinite(dists[ids >= 0]).all() or (ids < 0).any():
+                    raise AssertionError(f"diskann {tag} L={L}: an empty slot or a distance not finite")
+                rungs[L] = {"recall_at_10": recall_at(ids, gt), "qps": nq / secs, "ms": secs * 1e3}
+                ladder_ids[(tag, L)] = ids
+            out[f"{tag}_ladder"] = rungs
+            print(f"diskann {tag}:", json.dumps(rungs), flush=True)
+            if tag == "no_cache":
+                nc_idx = idx
+            else:
+                del idx, node
+                torch.cuda.empty_cache()
+        out["bfs_cache_ids_equal_no_cache"] = all(
+            np.array_equal(ladder_ids[("bfs_cache", L)], ladder_ids[("no_cache", L)]) for L in DISKANN_LADDER)
+        if not out["bfs_cache_ids_equal_no_cache"]:
+            raise AssertionError("diskann: the BFS node cache changed the result ids")
+        out["full_cache_id_agreement"] = {
+            L: float((ladder_ids[("full_cache", L)] == ladder_ids[("no_cache", L)]).mean()) for L in DISKANN_LADDER}
+        out["recall_at_10"] = out["no_cache_ladder"][DISKANN_L]["recall_at_10"]
+        _floor(out, "recall_at_10", DISKANN_FLOOR)
+
+        # filtered: 50% (the walk under a mask) and 0.96 (the exact disk scan)
+        scfg = {"metric_type": "L2", "k": k, "search_list_size": DISKANN_L}
+        flat = kt.IndexFactory.Instance().Create("FLAT").value()
+        if flat.Build(kt.GenDataSetFromArray(xb), {"metric_type": "L2"}) != kt.Status.success:
+            raise RuntimeError("FLAT Build failed")
+        node = nc_idx.node
+        for tag, ratio, q in (("bitset_50", 0.5, xq), ("bitset_96", 0.96, xq[:DISKANN_SMALL_NQ])):
+            drop = np.random.default_rng(12).random(n) < ratio
+            bs = kt.BitsetView.from_bool_array(drop)
+            fgt, _ = _search(flat, kt, q, {"metric_type": "L2", "k": k}, bs)
+            calls = []
+            real = node._brute_force_disk
+            node._brute_force_disk = lambda *a, **kw: calls.append(1) or real(*a, **kw)
+            try:
+                (fids, _), secs = _timed(lambda: _search(nc_idx, kt, q, scfg, bs))
+            finally:
+                del node._brute_force_disk
+            if drop[fids[fids >= 0]].any() or (fids < 0).any():
+                raise AssertionError(f"diskann {tag}: a filtered or empty id")
+            out[f"{tag}_recall_at_10"] = recall_at(fids, fgt)
+            out[f"{tag}_ms"] = secs * 1e3
+            out[f"{tag}_exact_disk_scan_calls"] = len(calls)
+        if out["bitset_96_exact_disk_scan_calls"] != 1 or out["bitset_96_recall_at_10"] < 0.99:
+            raise AssertionError("diskann: the 0.96 bitset did not take the exact disk scan, or missed it")
+        _floor(out, "bitset_50_recall_at_10", DISKANN_BITSET_FLOOR)
+
+        # RangeSearch at the median 10th-NN distance, against the exact sets
+        rq = xq[:100]
+        dq = torch.cdist(torch.from_numpy(rq).cuda(), torch.from_numpy(xb).cuda()).pow(2).cpu().numpy()
+        radius = float(np.median(np.sort(dq, 1)[:, 9]))
+        res, out["range_ms"] = _timed(lambda: nc_idx.RangeSearch(
+            kt.GenDataSetFromArray(rq), {"metric_type": "L2", "radius": radius}, kt.BitsetView()))
+        out["range_ms"] *= 1e3
+        if not res.has_value():
+            raise RuntimeError(f"diskann RangeSearch: {res.what()}")
+        r = res.value()
+        if not (r.distance < radius).all():
+            raise AssertionError("diskann RangeSearch returned a distance outside the radius")
+        want = [set(np.nonzero(dq[i] < radius)[0].tolist()) for i in range(len(rq))]
+        hits = sum(len(set(r.ids[r.lims[i]:r.lims[i + 1]].tolist()) & want[i]) for i in range(len(rq)))
+        out["range_recall"] = hits / max(sum(len(w) for w in want), 1)
+        out["range_rows"] = int(r.lims[-1])
+
+        # AnnIterator: 100 queries x 100 items, distances non-decreasing
+        items, secs = _timed(lambda: [[it.Next() for _ in range(100)] for it in nc_idx.AnnIterator(
+            kt.GenDataSetFromArray(rq), {"metric_type": "L2"}, kt.BitsetView()).value()])
+        out["iterator_ms"] = secs * 1e3
+        dist_seq = np.array([[v for _, v in row] for row in items])
+        if (np.diff(dist_seq, axis=1) < -1e-3).any():
+            raise AssertionError("diskann AnnIterator: distances go down")
+        out["iterator_recall_at_10"] = recall_at(np.array([[i for i, _ in row[:10]] for row in items]), gt[:100])
+
+        sel = np.random.default_rng(4).choice(n, 1000, replace=False)
+        got = np.asarray(nc_idx.GetVectorByIds(kt.GenIdsDataSet(sel)).value().tensor)
+        out["get_vector_bit_equal"] = bool(np.array_equal(got, xb[sel]))
+        meta = json.loads(nc_idx.GetIndexMeta({"metric_type": "L2"}).value().get("json_info"))
+        out["meta"] = {key: meta[key] for key in ("count", "max_degree", "avg_degree")}
+        if not out["get_vector_bit_equal"] or meta["count"] != n or meta["max_degree"] != DISKANN_BUILD["max_degree"]:
+            raise AssertionError("diskann GetVectorByIds or GetIndexMeta disagree with the corpus")
+
+        # one profiled no-cache search: the walk, the rerank's host time, idle
+        rerank_s = []
+        real = node._rerank_from_disk
+
+        def timed_rerank(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = real(*a, **kw)
+            rerank_s.append(time.perf_counter() - t0)
+            return res
+
+        node._rerank_from_disk = timed_rerank
+        try:
+            prof = _profile_search(lambda: _search(nc_idx, kt, xq, scfg))
+        finally:
+            del node._rerank_from_disk
+        prof["rerank_ms"] = rerank_s[0] * 1e3
+        prof.pop("top_ops")
+        out["profile"] = prof
+        del nc_idx, node, flat
+        torch.cuda.empty_cache()
+        out["leg1_s"] = time.perf_counter() - t_path
+
+        # --- 2. the sharded build ----------------------------------------------
+        t0 = time.perf_counter()
+        xs, qs = xb[:SHARD_NB], xq[:DISKANN_SMALL_NQ]
+        sflat, sgt = _flat_truth(kt, xs, qs)
+        del sflat
+        s_path = os.path.join(tmp, "shard.bin")
+        _write_diskann_bin(s_path, xs)
+        sprefix = os.path.join(tmp, "sharded")
+        sidx, out["sharded_build_s"], out["sharded_f32_scan_launches"] = _diskann_build(
+            kt, "DISKANN", s_path, sprefix, SHARD_NB, {"build_dram_budget_gb": SHARD_BUDGET_GB})
+        stats = dict(sidx.node._build_stats)
+        if sidx.Deserialize(kt.BinarySet(), {"metric_type": "L2", "index_prefix": sprefix}) != kt.Status.success:
+            raise RuntimeError("DISKANN (sharded) Deserialize failed")
+        out["sharded_build_stats"] = stats
+        if not stats["sharded"] or out["sharded_f32_scan_launches"] < stats["n_shards"]:
+            raise AssertionError(f"diskann sharded build: {stats}, {out['sharded_f32_scan_launches']} f32 launches")
+        out["sharded_ladder"] = _small_ladder(kt, sidx, qs, sgt)
+        out["sharded_recall_at_10"] = out["sharded_ladder"][DISKANN_L]["recall_at_10"]
+        _floor(out, "sharded_recall_at_10", SHARD_FLOOR)
+        del sidx
+        out["leg2_s"] = time.perf_counter() - t0
+
+        # --- 3. AISAQ and its inline records -----------------------------------
+        t0 = time.perf_counter()
+        xa = xb[:AISAQ_NB]
+        aflat, agt = _flat_truth(kt, xa, qs)
+        del aflat
+        a_path = os.path.join(tmp, "aisaq.bin")
+        _write_diskann_bin(a_path, xa)
+        aprefix = os.path.join(tmp, "aisaq")
+        _, out["aisaq_build_s"], _ = _diskann_build(kt, "AISAQ", a_path, aprefix, AISAQ_NB, {"inline_pq": True})
+        aidx, _ = _diskann_load(kt, "AISAQ", aprefix)
+        deg, m = aidx.node._inline_geom
+        out["aisaq_inline_bytes"] = int(aidx.node._inline_nodes.nbytes)
+        out["aisaq_inline_file_bytes"] = os.path.getsize(aprefix + "_aisaq_inline.bin")
+        out["aisaq_record_bytes_expected"] = AISAQ_NB * (4 * deg + m + deg * m)
+        if out["aisaq_inline_bytes"] != out["aisaq_record_bytes_expected"] or "codes" in aidx.node._store:
+            raise AssertionError("AISAQ: inline records of the wrong size, or PQ codes left on the device")
+        out["aisaq_ladder"] = _small_ladder(kt, aidx, qs, agt)
+        out["aisaq_recall_at_10"] = out["aisaq_ladder"][DISKANN_L]["recall_at_10"]
+        _floor(out, "aisaq_recall_at_10", AISAQ_FLOOR)
+        del aidx
+        out["leg3_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["tmp_removed"] = not os.path.exists(tmp)
+    out["path_s"] = time.perf_counter() - t_path
+    if out.get("below_floor"):
+        raise AssertionError(f"diskann path: recall under its floor: {json.dumps(out)}")
+    return out
+
+
 def fused_knn_path(xb, xq, gt, flat_search_s, k=10):
     """fused_knn (the single-pass scan) over every query against the 1M base."""
     import torch
@@ -2452,6 +2736,8 @@ def main() -> int:
         lambda: graph_families_path(kt, xb, xq, hnsw_out["hnsw_recall_at_10"]),
     )
     print("graph families path:", json.dumps(graph_out))
+    disk_out, _ = _run_path("diskann path", wrappers, ("ivf_f32_scan",), lambda: diskann_path(kt, xb, xq, gt))
+    print("diskann path:", json.dumps(disk_out))
     if "jax" in sys.modules or "ml_dtypes" in sys.modules:
         raise AssertionError("the port imported jax or ml_dtypes")
     profiles = late_profiles()

@@ -5,8 +5,9 @@ The same public API as the JAX package (factory / Index / DataSet /
 BitsetView / BinarySet, Status codes, the KWTPU section format), with the
 TPU's Pallas kernels replaced by CUDA kernels written for Hopper
 (``csrc/``). It serves FLAT and BIN_FLAT, the IVF family, the HNSW family
-over every dense type and bin1, the SVS, CAGRA and cuVS names, BruteForce,
-feder's GetIndexMeta / GetFederVisit and the k-means Cluster API:
+over every dense type and bin1, the SVS, CAGRA and cuVS names, DISKANN,
+DISKANN_DEPRECATED and AISAQ, BruteForce, feder's GetIndexMeta /
+GetFederVisit and the k-means Cluster API:
 
     import knowhere_tpu_torch as kt
     kt.set_device("cuda")          # the default; "cpu" runs the plain versions
@@ -26,14 +27,29 @@ from .dataset import (  # noqa: F401
     GenDataSet,
     GenDataSetFromArray,
     GenIdsDataSet,
+    GenRangeResultDataSet,
     GenResultDataSet,
+    GenSparseDataSet,
 )
 from .device import get_device, set_device  # noqa: F401
 from .factory import IndexFactory, IndexStaticFaced, register_index  # noqa: F401
-from .feature import KnowhereCheck, Version, feature  # noqa: F401
+from .feature import KnowhereCheck, UseDiskLoad, Version, feature  # noqa: F401
 from .index import Index, Interrupt  # noqa: F401
-from .index_node import IndexNode  # noqa: F401
-from .index_param import IndexEnum, indexparam, meta, metric  # noqa: F401
+from .index_node import (  # noqa: F401
+    BatchedDistanceIterator,
+    IndexIterator,
+    IndexNode,
+    PrecomputedDistanceIterator,
+)
+from .index_param import (  # noqa: F401
+    ClusterEnum,
+    IndexEnum,
+    RefineType,
+    VecType,
+    indexparam,
+    meta,
+    metric,
+)
 from .knowhere_config import KnowhereConfig  # noqa: F401
 from .status import KnowhereException, Status, StatusCategory, expected, status_category_of  # noqa: F401
 

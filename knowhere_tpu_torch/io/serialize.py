@@ -125,10 +125,13 @@ def write_sections_streaming(
     path: str,
     specs: Dict[str, Tuple[tuple, str]],
     meta: Optional[Dict[str, Any]] = None,
+    bf16: Tuple[str, ...] = (),
 ):
     """Open a section file for STREAMING writes: the payload arrays are not
     materialized in memory (disk-resident builds whose data exceeds the DRAM
-    budget write chunk-by-chunk). Same wire layout as write_sections.
+    budget write chunk-by-chunk). Same wire layout as write_sections; the
+    sections named in ``bf16`` take uint16 bit patterns and are written
+    under the dtype name "bfloat16", as write_sections writes them.
 
     specs: name -> (shape, dtype-string). Returns a writer object:
         w.write(name, row_start, array)  # rows into section `name`
@@ -149,7 +152,7 @@ def write_sections_streaming(
             sections[name] = {
                 "offset": off,
                 "nbytes": nbytes,
-                "dtype": str(np.dtype(dtype)),
+                "dtype": BF16_NAME if name in bf16 else str(np.dtype(dtype)),
                 "shape": list(shape),
             }
             off += nbytes

@@ -1,7 +1,8 @@
 """Index families of the port. Importing this package registers them with
 the factory: FLAT and BIN_FLAT, the IVF family, the HNSW family, the SVS
 names (SVS_FLAT, SVS_VAMANA with its LVQ and LeanVec stores,
-HNSW_DEPRECATED) and the CAGRA / cuVS names, whose registrations come after
-HNSW's and IVF's (models/cagra.py imports both first)."""
+HNSW_DEPRECATED), the CAGRA / cuVS names, whose registrations come after
+HNSW's and IVF's (models/cagra.py imports both first), and DISKANN,
+DISKANN_DEPRECATED and AISAQ."""
 
-from . import cagra, flat, hnsw, ivf, svs  # noqa: F401
+from . import cagra, diskann, flat, hnsw, ivf, svs  # noqa: F401

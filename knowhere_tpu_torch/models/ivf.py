@@ -72,7 +72,12 @@ GetVectorByIds returns the raw rows in their own dtype (IVF_FLAT, packed
 bits for BIN_IVF_FLAT, SCANN's raw rows); PQ, SQ and RaBitQ answer
 Status.not_implemented, as HasRawData says. CalcDistByIDs scores the stored
 raw or refine rows as the reference does (an SQ8 refine store's codes as
-their values). GetIndexMeta and GetFederVisit are not ported yet.
+their values). GetIndexMeta and GetFederVisit give feder's overview and the
+probed lists.
+
+Each upload demotes the host payloads to disk-backed memmaps
+(utils/spill.py, as the reference does); an epoch that a merge replaces
+deletes its files.
 """
 
 from __future__ import annotations
@@ -109,6 +114,7 @@ from ..ops.refine import RefineStore, refine_topk_device, sq8_encode
 from ..status import KnowhereException, Status, expected
 from ..utils.bf16 import as_f32, bf16_bits, bf16_to_f32, rows_to_device
 from ..utils.logging import log_warning
+from ..utils.spill import release_spill, spill_dict
 
 MIN_POINTS_PER_CENTROID = 39  # reference ivf.cc:478
 B_SLACK = 2048  # zero rows after the store: a block slice never runs off its end
@@ -252,6 +258,13 @@ def _pad_cols(a: np.ndarray, width: int, slack: int = 0) -> np.ndarray:
     for i0, i1 in _row_chunks(a.shape[0], a.shape[1] * a.dtype.itemsize):
         buf[i0:i1, : a.shape[1]] = a[i0:i1]
     return buf
+
+
+def _release_payload(payload: dict) -> None:
+    """Delete the spill files of an epoch's host payloads that a new epoch
+    replaced."""
+    for v in payload.values():
+        release_spill(v)
 
 
 def _concat_rows(parts: List[np.ndarray]) -> np.ndarray:
@@ -448,8 +461,10 @@ class IvfIndexNode(IndexNode):
         if not self._pending_rows:
             return
         merged = self._merged_rows()
+        old = self._sorted_payload
         self._pending_rows, self._pending_count, self._row_ids = [], 0, None
         self._build_storage(merged)
+        _release_payload(old)
 
     def _merge_pending_offlock(self) -> None:
         """The epoch merge off the read lock: the next epoch is built on a
@@ -465,7 +480,11 @@ class IvfIndexNode(IndexNode):
         shadow._build_storage(merged)
         new_state = {k: v for k, v in shadow.__dict__.items() if k not in ("_lock", "_writer_lock")}
         with self._lock:
+            old = self._sorted_payload
             self.__dict__.update(new_state)
+        # a search still scanning the old epoch keeps reading its maps: an
+        # unlinked file stays mapped until the last view goes
+        _release_payload(old)
 
     def _reconstruct_all(self) -> np.ndarray:
         """Rows in id order for a re-merge: the stored raw rows (packed bits
@@ -675,6 +694,10 @@ class IvfIndexNode(IndexNode):
                 )
             else:
                 self._refine_store = RefineStore("raw", rows)
+        # the device store is the search structure; the host payloads (read
+        # by Serialize, GetVectorByIds, CalcDistByIDs, the covering pass and
+        # the epoch merges) become disk-backed memmaps, as in the reference
+        spill_dict(self._sorted_payload)
 
     def _upload_raw(self) -> None:
         """Raw store: the rows at their width (f32; bf16 for bf16 and fp16

@@ -9,7 +9,8 @@ f32 scan kernel under FAST) over a LIST_ALIGN-padded store. Each node's list
 is then pruned with the HNSW / Vamana diversification rule
 (select_neighbors_heuristic / RobustPrune with alpha), vectorized over node
 chunks; the keep loop over candidate ranks is a Python loop of tensor ops.
-Reverse edges backfill spare slots (numpy), and a few random long edges
+Reverse edges backfill spare slots (on the device: a set membership and a
+stable sort, the reference's numpy steps), and a few random long edges
 (numpy ``default_rng(97)``) keep multi-modal corpora connected.
 
 Binary corpora arrive as {0,1} f32 rows under HAMMING or JACCARD. The exact
@@ -294,34 +295,7 @@ def build_graph(
     mark("prune")
 
     if add_reverse:
-        # backfill spare slots with reverse edges: group (src -> dst) pairs by
-        # dst, rank within the group, keep rank < free slots
-        slots_used = (graph >= 0).sum(axis=1)
-        src = np.repeat(np.arange(nb, dtype=np.int32), deg)
-        dst = graph.reshape(-1)
-        ok = (dst >= 0) & (src != dst)
-        src, dst = src[ok], dst[ok]
-        if dst.size:
-            # drop reverse edges that already exist as forward edges of dst
-            fwd_node = np.repeat(np.arange(nb, dtype=np.int64), deg)
-            fwd_nbr = graph.reshape(-1).astype(np.int64)
-            fwd_keys = fwd_node[fwd_nbr >= 0] * nb + fwd_nbr[fwd_nbr >= 0]
-            rev_keys = dst.astype(np.int64) * nb + src.astype(np.int64)
-            fresh = ~np.isin(rev_keys, fwd_keys, kind="sort")
-            src, dst = src[fresh], dst[fresh]
-        if dst.size:
-            order = np.argsort(dst, kind="stable")
-            src, dst = src[order], dst[order]
-            change = np.empty(dst.size, bool)
-            change[0] = True
-            change[1:] = dst[1:] != dst[:-1]
-            grp_start = np.nonzero(change)[0]
-            grp_id = np.cumsum(change) - 1
-            rank = np.arange(dst.size) - grp_start[grp_id]
-            free = deg - slots_used
-            keep = rank < free[dst]
-            s2, d2, r2 = src[keep], dst[keep], rank[keep]
-            graph[d2, slots_used[d2] + r2] = s2
+        graph = add_reverse_edges(graph, x_dev.device)
     mark("reverse-edges")
 
     if n_long_edges > 0 and nb > deg * 4:
@@ -333,6 +307,40 @@ def build_graph(
             graph[:, deg - j] = targets
     mark("long-edges")
     return graph
+
+
+def add_reverse_edges(graph: np.ndarray, device) -> np.ndarray:
+    """Backfill each node's spare slots with reverse edges: every (src ->
+    dst) edge whose reverse dst -> src is not already a forward edge of dst,
+    grouped by dst in src order (a stable sort), the first ``free`` of each
+    group kept. On ``device``: a set membership (torch.isin) and a stable
+    sort over nb * deg edges, the reference's numpy steps one for one, so
+    the graph is the same bit for bit. ``graph`` rows hold their edges
+    first, then -1."""
+    nb, deg = graph.shape
+    g = torch.from_numpy(np.ascontiguousarray(graph)).to(device, copy=True)
+    slots_used = (g >= 0).sum(dim=1)
+    node = torch.arange(nb, device=device, dtype=torch.int64).repeat_interleave(deg)
+    nbr = g.reshape(-1).long()
+    ok = (nbr >= 0) & (node != nbr)
+    src, dst = node[ok], nbr[ok]
+    if dst.numel():
+        # drop reverse edges that already exist as forward edges of dst
+        fwd = nbr >= 0
+        fresh = ~torch.isin(dst * nb + src, node[fwd] * nb + nbr[fwd])
+        src, dst = src[fresh], dst[fresh]
+    del node, nbr
+    if dst.numel():
+        dst, order = torch.sort(dst, stable=True)
+        src = src[order]
+        change = torch.ones_like(dst, dtype=torch.bool)
+        change[1:] = dst[1:] != dst[:-1]
+        grp_start = torch.nonzero(change).squeeze(1)
+        rank = torch.arange(dst.numel(), device=device) - grp_start[torch.cumsum(change.long(), 0) - 1]
+        keep = rank < (deg - slots_used)[dst]
+        d2 = dst[keep]
+        g[d2, slots_used[d2] + rank[keep]] = src[keep].int()
+    return g.cpu().numpy()
 
 
 def pick_entry_points(

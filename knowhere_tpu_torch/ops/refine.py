@@ -17,6 +17,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..device import to_device
 from .topk import topk_leftmost
 
 SQ8_LEVELS = 256
@@ -92,3 +93,19 @@ def _refine_step(q, store: RefineStore, cand, k: int, is_l2: bool) -> Tuple[torc
     best_i = torch.gather(cand, 1, sel)
     best_i = torch.where(best_s == -float("inf"), torch.full_like(best_i, -1), best_i)
     return (-best_s if is_l2 else best_s), best_i
+
+
+def refine_topk(
+    q,  # (nq, d) f32: a device tensor or a numpy array
+    store: RefineStore,
+    cand_ids: np.ndarray,  # (nq, R) positions into store.data, -1 padded
+    k: int,
+    is_l2: bool,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Host wrapper of refine_topk_device: numpy candidates in, numpy
+    (dists (nq,k) native convention, positions (nq,k) into the store, -1 pad)
+    out."""
+    dists, pos = refine_topk_device(
+        to_device(q), store, to_device(np.asarray(cand_ids, dtype=np.int32)), k, is_l2
+    )
+    return dists.cpu().numpy(), pos.cpu().numpy()

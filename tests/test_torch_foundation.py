@@ -35,8 +35,8 @@ def test_status_enum_matches_reference():
 
 def test_only_flat_and_ivf_flat_registered():
     """The names the port registers: the FLAT and IVF families, the HNSW
-    family, the SVS names and the CAGRA / cuVS names (named when FLAT and
-    IVF_FLAT were all)."""
+    family, the SVS names, the CAGRA / cuVS names and the DISKANN family
+    (named when FLAT and IVF_FLAT were all)."""
     names = {name for name, _ in ktt.IndexFactory.Instance()._registry}
     assert names == {
         "FLAT", "BIN_FLAT", "BINFLAT", "TPU_BRUTE_FORCE", "GPU_CUVS_BRUTE_FORCE", "GPU_BRUTE_FORCE",
@@ -45,7 +45,7 @@ def test_only_flat_and_ivf_flat_registered():
         "BIN_IVF_FLAT", "IVFBIN", "HNSW", "HNSW_SQ", "HNSW_PQ", "HNSW_PRQ",
         "SVS_FLAT", "SVS_VAMANA", "SVS_VAMANA_LVQ", "SVS_VAMANA_LEANVEC", "HNSWLIB_DEPRECATED", "HNSW_DEPRECATED",
         "GPU_CUVS_CAGRA", "GPU_CAGRA", "TPU_CAGRA", "GPU_CUVS_IVF_FLAT", "GPU_IVF_FLAT", "TPU_IVF_FLAT",
-        "GPU_CUVS_IVF_PQ", "GPU_IVF_PQ", "TPU_IVF_PQ",
+        "GPU_CUVS_IVF_PQ", "GPU_IVF_PQ", "TPU_IVF_PQ", "DISKANN", "DISKANN_DEPRECATED", "AISAQ",
     }
 
 
@@ -105,10 +105,33 @@ def test_misuse_status_matches_reference(name, action, want):
 
 
 def test_unported_family_gives_unknown_index_status():
-    assert kt.IndexFactory.Instance().Create("DISKANN").has_value()
-    got = ktt.IndexFactory.Instance().Create("DISKANN")
+    assert kt.IndexFactory.Instance().Create("SPARSE_INVERTED_INDEX", data_type="sparse").has_value()
+    got = ktt.IndexFactory.Instance().Create("SPARSE_INVERTED_INDEX", data_type="sparse")
     unknown = ktt.IndexFactory.Instance().Create("NO_SUCH_INDEX")
     assert got.error() == unknown.error() == ktt.Status.invalid_index_error
+
+
+# Public top-level names of the port that the JAX package lacks by design:
+# the port selects its device itself (the JAX package through JAX's own
+# platform setting).
+PORT_ONLY_NAMES = {
+    "device": "the port's device module (set_device / get_device)",
+    "set_device": "selects the device the port places its tensors on",
+    "get_device": "the device the port places its tensors on",
+}
+
+
+def test_public_namespace_matches_reference():
+    """Both packages' public top-level names, each imported fresh in its own
+    process, are the same but for PORT_ONLY_NAMES."""
+    code = "import sys, {0}\nprint(sorted(n for n in dir({0}) if not n.startswith('_')))"
+    names = {}
+    for pkg in ("knowhere_tpu", "knowhere_tpu_torch"):
+        res = subprocess.run([sys.executable, "-c", code.format(pkg)], capture_output=True, text=True, timeout=120)
+        assert res.returncode == 0, res.stderr
+        names[pkg] = set(eval(res.stdout.strip().splitlines()[-1]))
+    assert names["knowhere_tpu_torch"] - names["knowhere_tpu"] == set(PORT_ONLY_NAMES)
+    assert names["knowhere_tpu"] - names["knowhere_tpu_torch"] == set()
 
 
 @pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])

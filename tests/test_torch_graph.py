@@ -254,3 +254,52 @@ def test_beam_search_inline_matches_jax(corpus, built, kind, bits, W, masked):
         np.testing.assert_array_equal(st.numpy(), np.asarray(sj))
     else:
         assert _agree(it, ij) >= 0.99
+
+
+def _reverse_edges_numpy(graph):
+    """The JAX package's reverse-edge backfill (knowhere_tpu/ops/graph.py,
+    build_graph's add_reverse step), in numpy as it is there."""
+    graph = graph.copy()
+    nb, deg = graph.shape
+    slots_used = (graph >= 0).sum(axis=1)
+    src = np.repeat(np.arange(nb, dtype=np.int32), deg)
+    dst = graph.reshape(-1)
+    ok = (dst >= 0) & (src != dst)
+    src, dst = src[ok], dst[ok]
+    if dst.size:
+        fwd_node = np.repeat(np.arange(nb, dtype=np.int64), deg)
+        fwd_nbr = graph.reshape(-1).astype(np.int64)
+        fwd_keys = fwd_node[fwd_nbr >= 0] * nb + fwd_nbr[fwd_nbr >= 0]
+        rev_keys = dst.astype(np.int64) * nb + src.astype(np.int64)
+        fresh = ~np.isin(rev_keys, fwd_keys, kind="sort")
+        src, dst = src[fresh], dst[fresh]
+    if dst.size:
+        order = np.argsort(dst, kind="stable")
+        src, dst = src[order], dst[order]
+        change = np.empty(dst.size, bool)
+        change[0] = True
+        change[1:] = dst[1:] != dst[:-1]
+        grp_start = np.nonzero(change)[0]
+        rank = np.arange(dst.size) - grp_start[np.cumsum(change) - 1]
+        keep = rank < (deg - slots_used)[dst]
+        graph[dst[keep], slots_used[dst[keep]] + rank[keep]] = src[keep]
+    return graph
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_add_reverse_edges_matches_numpy(seed):
+    """The device reverse-edge backfill against the JAX package's numpy
+    steps, on compact rows (edges first, then -1) with self edges, repeated
+    edges, rows full and rows empty."""
+    rng = np.random.default_rng(seed)
+    nb, deg = 3000, 12
+    graph = rng.integers(0, 400, (nb, deg)).astype(np.int32)  # few targets: big groups
+    fill = rng.integers(0, deg + 1, nb)
+    graph[np.arange(deg)[None, :] >= fill[:, None]] = -1
+    graph[:50, 0] = np.arange(50)  # self edges
+    graph[100:110] = -1
+    want = _reverse_edges_numpy(graph)
+    got = tgraph.add_reverse_edges(graph, torch.device("cpu"))
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+    assert (want != graph).any()
