@@ -116,7 +116,21 @@ Run from the root of a checkout on a machine with one CUDA GPU. In order:
    GetIndexMeta and one profiled no-cache search (the walk, the rerank's
    host time, the idle share); the sharded build at 200,000 rows under a
    0.25 GB budget (4 shards, each through the f32 scan); AISAQ at 250,000
-   rows with its inline records (their bytes, recall, QPS);
+   rows with its inline records (their bytes, recall, QPS); the sparse
+   path at bench.py's sparse leg (200,000 SPLADE-like rows over 30,000
+   dims, 2,000 queries, seed 7): for IP and BM25 the truth from
+   BruteForce.SearchSparse, SPARSE_INVERTED_INDEX over the drop ladder
+   0.6 / 0.4 / 0.2 / 0.0 (refine_factor 4 when drop > 0) to recall@10 >=
+   0.95, the engine each rung took and the engine probe's seconds, warm QPS
+   (repeated searches bit-equal), the device MB of the head slab, the
+   packed tail ids and the tail values, the host rescore's ms, recall at
+   drop 0 (floors: IP 0.95 at the chosen rung, BM25 0.999 at drop 0); for
+   IP also a 50% bitset, a round trip (ids and engine choice kept),
+   TAAT_NAIVE and the windowed pruner (sindi_window_size 32768, 256
+   queries) against the exact answer, the tail ids decoded on the device
+   against the host decode, and SPARSE_INVERTED_INDEX_CC taking 50,000
+   rows while a reader searches (every acknowledged row read back); the
+   native host library must have built;
 12. one torch-profiler pass over one search each of IVF_FLAT (the int8
    scan), IVF_PQ (the ADC scan at its real shape) and IVF_SQ8 FAST (the
    int8 scan over u8 codes), and over one IVF_FLAT RangeSearch of step 6
@@ -295,6 +309,25 @@ DISKANN_BITSET_FLOOR = 0.96  # 0.96324 under the 50% bitset
 SHARD_NB, SHARD_BUDGET_GB, SHARD_FLOOR = 200_000, 0.25, 0.83  # 0.8362
 AISAQ_NB, AISAQ_FLOOR = 250_000, 0.61  # 0.6197: one entry row, a 4-wide beam
 SMALL_LADDER = (64, 128)  # legs 2-3
+# The sparse path (sparse_path): bench.py's sparse leg (bench.py:1265-1383),
+# nothing cut: gen_sparse_corpus(200,000, 2,000, 30,000, seed=7), k = 10, IP
+# then BM25 (k1 1.2, b 0.75, avgdl 40), the truth from the port's
+# BruteForce.SearchSparse, the drop ladder with refine_factor 4 when drop >
+# 0, stopping at recall@10 >= SPARSE_TARGET. Floors sit just under the JAX
+# package's TPU anchors (docs/BENCHMARKS.md:24-25): IP 0.9522 at the chosen
+# rung, BM25 1.0 at drop 0. The pruned leg is bench's pruned row
+# (sindi_window_size 32768, 256 queries); the cc leg builds
+# SPARSE_INVERTED_INDEX_CC on SPARSE_CC_N0 rows and adds the rest in
+# SPARSE_CC_BATCHES batches while a reader searches SPARSE_CC_NQ queries.
+SPARSE_NB, SPARSE_NQ, SPARSE_VOCAB, SPARSE_K = 200_000, 2_000, 30_000, 10
+SPARSE_BM25 = {"bm25_k1": 1.2, "bm25_b": 0.75, "bm25_avgdl": 40.0}
+SPARSE_DROPS = (0.6, 0.4, 0.2, 0.0)
+SPARSE_TARGET = 0.95  # bench.py's RECALL_TARGET
+SPARSE_IP_FLOOR = 0.95  # the TPU anchor is 0.9522 at drop 0.6
+SPARSE_BM25_FLOOR = 0.999  # the TPU anchor is 1.0 at drop 0
+SPARSE_PRUNED_NQ, SPARSE_WINDOW = 256, 32768
+SPARSE_CC_N0, SPARSE_CC_BATCHES, SPARSE_CC_NQ = 150_000, 10, 256
+SPARSE_TIE_RTOL = 1e-5  # two exact engines' ids may differ only between scores this close
 # Published H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W): device
 # memory bytes/s, and operations/s by operand type.
 HBM_BYTES_PER_S = 3.35e12
@@ -316,6 +349,27 @@ def gen_corpus(nb, nq, dim, n_clusters=500, intrinsic_dim=48, seed=0, center_sca
     xb = centers[rng.integers(0, n_clusters, size=nb)] + noise(nb)
     xq = centers[rng.integers(0, n_clusters, size=nq)] + noise(nq)
     return xb, xq
+
+
+def gen_sparse_corpus(nb, nq, vocab, seed=7):
+    """Zipf-distributed term ids with lognormal weights, SPLADE-like (the
+    reference benchmark's sparse generator, bench.py:546-562): rows of about
+    40 terms, queries of about 20."""
+    rng = np.random.default_rng(seed)
+
+    def rows(n, avg_nnz):
+        lens = rng.poisson(avg_nnz, size=n).clip(4, 4 * avg_nnz)
+        total = int(lens.sum())
+        terms = (rng.zipf(1.3, size=total).clip(1, vocab) - 1).astype(np.int64)
+        vals = rng.lognormal(0.0, 0.6, size=total).astype(np.float32)
+        bounds = np.concatenate([[0], np.cumsum(lens)])
+        out = []
+        for i in range(n):
+            s, e = bounds[i], bounds[i + 1]
+            out.append({int(t): float(v) for t, v in zip(terms[s:e], vals[s:e])})
+        return out
+
+    return rows(nb, 40), rows(nq, 20)
 
 
 def card_line() -> str:
@@ -2388,6 +2442,263 @@ def diskann_path(kt, xb, xq, gt):
     return out
 
 
+def _sparse_search(idx, kt, rows, cfg, bitset=None):
+    res = idx.Search(kt.GenSparseDataSet(rows, SPARSE_VOCAB), cfg, bitset or kt.BitsetView())
+    if not res.has_value():
+        raise RuntimeError(f"sparse Search failed: {res.error().name}: {res.what()}")
+    return res.value().ids.reshape(len(rows), cfg["k"]), res.value().distance.reshape(len(rows), cfg["k"])
+
+
+def _tie_check(ids_a, d_a, ids_b, d_b, rtol=SPARSE_TIE_RTOL) -> dict:
+    """Two exact answers side by side: the share of equal ids, the largest
+    relative score difference slot by slot, and the slots whose ids differ
+    where the first answer's score has no tie within rtol (a neighbour in
+    its row, or the row's last filled slot, whose tie may lie past k)."""
+    diff = ids_a != ids_b
+    scale = np.maximum(np.abs(d_a), 1e-30)
+    gap = np.abs(np.diff(d_a, axis=1))
+    near = np.zeros_like(diff)
+    near[:, 1:] |= gap <= rtol * scale[:, 1:]
+    near[:, :-1] |= gap <= rtol * scale[:, :-1]
+    last = (ids_a >= 0).sum(axis=1) - 1
+    rows = np.nonzero(last >= 0)[0]
+    near[rows, last[rows]] = True
+    return {"ids_equal": float((~diff).mean()), "max_rel_score_diff": float((np.abs(d_b - d_a) / scale).max()),
+            "untied_mismatches": int((diff & ~near).sum())}
+
+
+def _tie_ok(check: dict) -> bool:
+    return check["untied_mismatches"] == 0 and check["max_rel_score_diff"] <= SPARSE_TIE_RTOL
+
+
+def _mb(t) -> float:
+    return t.numel() * t.element_size() / 1e6
+
+
+def _sparse_cc_leg(kt, xb, xq, ids0, d0) -> dict:
+    """SPARSE_INVERTED_INDEX_CC built on SPARSE_CC_N0 rows; the rest added
+    in SPARSE_CC_BATCHES batches while a reader searches SPARSE_CC_NQ
+    queries in a loop; every read full, every acknowledged row read back by
+    GetVectorByIds, and the final answer equal to the one-shot index's (the
+    exact drop-0 answer, ids0 / d0) but ties."""
+    import threading
+
+    out = {}
+    t0 = time.perf_counter()
+    cc = kt.IndexFactory.Instance().Create("SPARSE_INVERTED_INDEX_CC", data_type="sparse").value()
+    if cc.Build(kt.GenSparseDataSet(xb[:SPARSE_CC_N0], SPARSE_VOCAB), {"metric_type": "IP"}) != kt.Status.success:
+        raise RuntimeError("sparse cc: Build failed")
+    out["build_s"] = time.perf_counter() - t0
+    qs, cfg = xq[:SPARSE_CC_NQ], {"metric_type": "IP", "k": SPARSE_K}
+    stop, errors, reads = threading.Event(), [], []
+
+    def reader():
+        while not stop.is_set():
+            t = time.perf_counter()
+            res = cc.Search(kt.GenSparseDataSet(qs, SPARSE_VOCAB), cfg, kt.BitsetView())
+            if not res.has_value():
+                errors.append(res.what())
+                return
+            if (res.value().ids < 0).any():
+                errors.append("a reader's result has an empty slot")
+                return
+            reads.append((time.perf_counter() - t) * 1e3)
+
+    th = threading.Thread(target=reader)
+    th.start()
+    rest = xb[SPARSE_CC_N0:]
+    step = -(-len(rest) // SPARSE_CC_BATCHES)
+    add_ms = []
+    try:
+        for s0 in range(0, len(rest), step):
+            seen, t = len(reads), time.perf_counter()
+            if cc.Add(kt.GenSparseDataSet(rest[s0 : s0 + step], SPARSE_VOCAB), {"metric_type": "IP"}) != kt.Status.success:
+                raise RuntimeError("sparse cc: Add failed")
+            add_ms.append((time.perf_counter() - t) * 1e3)
+            while len(reads) == seen and th.is_alive():  # a read of each epoch before the next Add
+                time.sleep(0.005)
+    finally:
+        stop.set()
+        th.join(timeout=600)
+    if th.is_alive():
+        raise AssertionError("sparse cc: the reader did not stop")
+    out.update(reads=len(reads), reader_ms_median=float(np.median(reads)) if reads else None,
+               add_ms=add_ms, reader_errors=errors, count=cc.Count())
+    got = cc.GetVectorByIds(kt.GenIdsDataSet(np.arange(SPARSE_CC_N0, len(xb)))).value().tensor
+    out["acknowledged_rows"] = len(rest)
+    out["read_back_equal"] = got == list(rest)
+    ids, d = _sparse_search(cc, kt, qs, dict(cfg, drop_ratio_search=0.0))
+    out["final_vs_one_shot"] = _tie_check(ids0[:SPARSE_CC_NQ], d0[:SPARSE_CC_NQ], ids, d)
+    out["leg_s"] = time.perf_counter() - t0
+    return out
+
+
+def sparse_path(kt):
+    """The sparse family through the public API at bench.py's sparse leg
+    (the module docstring, step 11): for IP and then BM25, the truth from
+    BruteForce.SearchSparse, SPARSE_INVERTED_INDEX built and searched over
+    the drop ladder (the engine each rung took, the probe's seconds), warm
+    QPS at the chosen rung (repeats bit-equal), the structures' device MB,
+    the host rescore's ms, and the exact drop-0 answer; for IP also a 50%
+    bitset, a Serialize / Deserialize round trip (the same ids, the engine
+    choices kept), TAAT_NAIVE (the padded engine) and the windowed pruner
+    (sindi_window_size 32768, 256 queries) against the drop-0 answer, the
+    raw hybrid engine twice on 512 queries (bit-equal), the packed tail ids
+    decoded on the device against the host decode, and the cc leg. Raises after the last leg if any check failed."""
+    import torch
+
+    from knowhere_tpu_torch import native
+    from knowhere_tpu_torch.ops import bitpack, sparse_ops
+
+    t_path = time.perf_counter()
+    k = SPARSE_K
+    # numpy's generators differ across its versions: the corpus is the
+    # reference's only under the same numpy
+    out = {"nb": SPARSE_NB, "nq": SPARSE_NQ, "vocab": SPARSE_VOCAB, "numpy": np.__version__,
+           "native_available": native.available(),
+           "floors": {"ip_recall_at_10": SPARSE_IP_FLOOR, "bm25_recall_at_10_drop0": SPARSE_BM25_FLOOR}}
+    failed = [] if out["native_available"] else ["native library not built"]
+    t0 = time.perf_counter()
+    xb, xq = gen_sparse_corpus(SPARSE_NB, SPARSE_NQ, SPARSE_VOCAB)
+    out["gen_s"] = time.perf_counter() - t0
+    base, queries = kt.GenSparseDataSet(xb, SPARSE_VOCAB), kt.GenSparseDataSet(xq, SPARSE_VOCAB)
+    for metric, mcfg in (("IP", {}), ("BM25", SPARSE_BM25)):
+        m = out[metric] = {}
+        t0 = time.perf_counter()
+        bf = kt.BruteForce.SearchSparse(base, queries, {"metric_type": metric, "k": k, **mcfg})
+        if not bf.has_value():
+            raise RuntimeError(f"sparse BruteForce failed: {bf.what()}")
+        gt = bf.value().ids.reshape(SPARSE_NQ, k)
+        m["truth_s"] = time.perf_counter() - t0
+        idx = kt.IndexFactory.Instance().Create("SPARSE_INVERTED_INDEX", data_type="sparse").value()
+        st, m["build_s"] = _timed(lambda: idx.Build(base, {"metric_type": metric, **mcfg}))
+        if st != kt.Status.success:
+            raise RuntimeError(f"sparse {metric}: Build failed: {st}")
+        node = idx.node
+
+        def cfg_at(drop, **extra):
+            return {"metric_type": metric, "k": k, "drop_ratio_search": drop, **mcfg,
+                    **({"refine_factor": 4} if drop > 0 else {}), **extra}
+
+        ladder, chosen = {}, None
+        for drop in SPARSE_DROPS:
+            node._last_probe = {}
+            (ids, _), secs = _timed(lambda: _sparse_search(idx, kt, xq, cfg_at(drop)))
+            ladder[str(drop)] = {"recall_at_10": recall_at(ids, gt), "s": secs,
+                                 "engine": node._last_search_stats["engine"], "probe": dict(node._last_probe)}
+            chosen = drop
+            if ladder[str(drop)]["recall_at_10"] >= SPARSE_TARGET:
+                break
+        m["ladder"], m["chosen_drop"] = ladder, chosen
+        runs = [_timed(lambda: _sparse_search(idx, kt, xq, cfg_at(chosen))) for _ in range(4)]  # a warm-up, 3 timed
+        (ids_c, d_c), times = runs[0][0], [dt for _, dt in runs[1:]]
+        m["warm_ms"] = [t * 1e3 for t in times]
+        m["qps"] = SPARSE_NQ / float(np.median(times))
+        m["recall_at_10"] = recall_at(ids_c, gt)
+        m["repeats_bit_equal"] = all(np.array_equal(o[0], ids_c) and np.array_equal(o[1], d_c) for o, _ in runs)
+        m["engine"] = node._last_search_stats["engine"]
+        m["rescore_host_ms"] = node._last_search_stats.get("rescore_ms")
+        h, tail_ids_dev = node._caches["hybrid"]
+        slab_dev, tail_vals_dev = node._caches[("hvals", metric.lower())][-2:]
+        m.update(nnz=h.total_nnz, F=h.F, head_share_of_nnz=h.head_nnz / h.total_nnz, tail_bits=h.tail_bits,
+                 device_mb={"slab": _mb(slab_dev), "tail_ids_packed": _mb(tail_ids_dev), "tail_vals": _mb(tail_vals_dev)})
+        if chosen == 0.0:
+            ids0, d0 = ids_c, d_c
+        else:
+            (ids0, d0), m["drop0_s"] = _timed(lambda: _sparse_search(idx, kt, xq, cfg_at(0.0)))
+        m["recall_at_10_drop0"] = recall_at(ids0, gt)
+        print(f"sparse {metric}:", json.dumps(m), flush=True)
+        if not m["repeats_bit_equal"]:
+            failed.append(f"{metric}: repeated searches differ")
+        if metric == "IP" and m["recall_at_10"] < SPARSE_IP_FLOOR:
+            failed.append(f"IP recall {m['recall_at_10']} under {SPARSE_IP_FLOOR}")
+        if metric == "BM25" and m["recall_at_10_drop0"] < SPARSE_BM25_FLOOR:
+            failed.append(f"BM25 drop-0 recall {m['recall_at_10_drop0']} under {SPARSE_BM25_FLOOR}")
+        if metric == "BM25":
+            del idx, node, h, tail_ids_dev, slab_dev, tail_vals_dev
+            torch.cuda.empty_cache()
+            continue
+
+        # --- IP only: bitset, round trip, padded, pruned, bitpack, cc -------
+        legs = out["legs"] = {}
+        filtered = np.arange(SPARSE_NB) % 2 == 0
+        (ids_b, _), secs = _timed(lambda: _sparse_search(idx, kt, xq, cfg_at(chosen), kt.BitsetView.from_bool_array(filtered)))
+        legs["bitset_50"] = {"s": secs, "filtered_ids_returned": int(filtered[ids_b[ids_b >= 0]].sum()),
+                             "empty_slots": int((ids_b < 0).sum())}
+        if legs["bitset_50"]["filtered_ids_returned"]:
+            failed.append("bitset: a filtered id came back")
+
+        t0 = time.perf_counter()
+        bs = kt.BinarySet()
+        if idx.Serialize(bs) != kt.Status.success:
+            raise RuntimeError("sparse: Serialize failed")
+        idx2 = kt.IndexFactory.Instance().Create("SPARSE_INVERTED_INDEX", data_type="sparse").value()
+        if idx2.Deserialize(bs) != kt.Status.success:
+            raise RuntimeError("sparse: Deserialize failed")
+        load_s = time.perf_counter() - t0
+        choices = {key: v for key, v in node._caches.items() if key[0] == "engine_choice"}
+        choices2 = {key: v for key, v in idx2.node._caches.items() if key[0] == "engine_choice"}
+        ids_r, _ = _sparse_search(idx2, kt, xq, cfg_at(chosen))
+        legs["round_trip"] = {"s": load_s, "bytes": len(bs.GetByName("SPARSE_INVERTED_INDEX").tobytes()),
+                              "ids_equal": bool(np.array_equal(ids_r, ids_c)), "engine_choices": {str(key): v for key, v in choices.items()},
+                              "engine_choices_kept": choices2 == choices, "engine_after_load": idx2.node._last_search_stats["engine"],
+                              "probed_after_load": bool(idx2.node._last_probe)}
+        if not (legs["round_trip"]["ids_equal"] and legs["round_trip"]["engine_choices_kept"]) or legs["round_trip"]["probed_after_load"]:
+            failed.append("round trip: ids or the engine choice changed")
+        del idx2, bs
+
+        (ids_p, d_p), secs = _timed(lambda: _sparse_search(idx, kt, xq, cfg_at(0.0, search_algo="TAAT_NAIVE")))
+        legs["taat_naive"] = {"s": secs, "qps": SPARSE_NQ / secs, "engine": node._last_search_stats["engine"],
+                              "vs_hybrid_drop0": _tie_check(ids0, d0, ids_p, d_p)}
+        if not _tie_ok(legs["taat_naive"]["vs_hybrid_drop0"]) or legs["taat_naive"]["engine"] != "padded_exhaustive":
+            failed.append("TAAT_NAIVE: ids differ from the hybrid engine's at drop 0")
+
+        q256 = xq[:SPARSE_PRUNED_NQ]
+        pruned = {}
+        for tag, cfg_p in (("exact_drop0", cfg_at(0.0, sindi_window_size=SPARSE_WINDOW)),
+                           ("bench_row", cfg_at(chosen, sindi_window_size=SPARSE_WINDOW))):
+            _sparse_search(idx, kt, q256, cfg_p)  # warm: the window maxima
+            (ids_w, d_w), secs = _timed(lambda: _sparse_search(idx, kt, q256, cfg_p))
+            pruned[tag] = {"s": secs, "qps": SPARSE_PRUNED_NQ / secs, "stats": dict(node._last_search_stats)}
+            if tag == "exact_drop0":
+                pruned[tag]["vs_exact"] = _tie_check(ids0[:SPARSE_PRUNED_NQ], d0[:SPARSE_PRUNED_NQ], ids_w, d_w)
+                if not _tie_ok(pruned[tag]["vs_exact"]) or pruned[tag]["stats"]["engine"] != "pruned":
+                    failed.append("pruned: ids differ from the exact answer at dim_max_score_ratio 1.05")
+            else:
+                pruned[tag]["recall_at_10"] = recall_at(ids_w, gt[:SPARSE_PRUNED_NQ])
+        legs["pruned_w32768"] = pruned
+
+        # the raw engine twice, without the host rescore: the device scatter
+        # (index_put_ with accumulate, sort-based on CUDA) repeats its bits
+        q512 = xq[:512]
+        raw = [sparse_ops.sparse_search_hybrid(h, slab_dev, tail_vals_dev, tail_ids_dev, q512, 2 * k,
+                                               tail_bits=h.tail_bits) for _ in range(2)]
+        legs["raw_engine_repeat_bit_equal"] = bool(np.array_equal(raw[0][0], raw[1][0]) and np.array_equal(raw[0][1], raw[1][1]))
+        if not legs["raw_engine_repeat_bit_equal"]:
+            failed.append("the hybrid engine's scores differ between two runs")
+
+        n_tail = len(h.tail.doc_ids)
+        dec, ms = _timed(lambda: bitpack.unpack_gather(tail_ids_dev, torch.arange(n_tail, device=tail_ids_dev.device), h.tail_bits).cpu().numpy())
+        host = bitpack.unpack_all(tail_ids_dev.cpu().numpy().view(np.uint32), n_tail, h.tail_bits)
+        legs["bitpack"] = {"entries": n_tail, "bits": h.tail_bits, "device_decode_s": ms,
+                           "equal_to_unpack_all": bool(np.array_equal(dec, host.astype(np.int64))),
+                           "equal_to_doc_ids": bool(np.array_equal(host, h.tail.doc_ids.astype(np.uint32)))}
+        if not (legs["bitpack"]["equal_to_unpack_all"] and legs["bitpack"]["equal_to_doc_ids"]):
+            failed.append("bitpack: the device decode differs")
+        del idx, node, h, tail_ids_dev, slab_dev, tail_vals_dev
+        torch.cuda.empty_cache()
+        legs["cc"] = _sparse_cc_leg(kt, xb, xq, ids0, d0)
+        cc = legs["cc"]
+        if cc["reader_errors"] or not cc["read_back_equal"] or cc["count"] != SPARSE_NB or not cc["reads"] \
+                or not _tie_ok(cc["final_vs_one_shot"]):
+            failed.append("cc: a read failed or an acknowledged row did not come back")
+        print("sparse IP legs:", json.dumps(legs), flush=True)
+    out["path_s"] = time.perf_counter() - t_path
+    if failed:
+        raise AssertionError(f"sparse path: {failed}: {json.dumps(out)}")
+    return out
+
+
 def fused_knn_path(xb, xq, gt, flat_search_s, k=10):
     """fused_knn (the single-pass scan) over every query against the 1M base."""
     import torch
@@ -2738,6 +3049,9 @@ def main() -> int:
     print("graph families path:", json.dumps(graph_out))
     disk_out, _ = _run_path("diskann path", wrappers, ("ivf_f32_scan",), lambda: diskann_path(kt, xb, xq, gt))
     print("diskann path:", json.dumps(disk_out))
+    # the sparse engines are torch ops: the path launches none of the kernels
+    sparse_out, _ = _run_path("sparse path", wrappers, (), lambda: sparse_path(kt))
+    print("sparse path:", json.dumps(sparse_out))
     if "jax" in sys.modules or "ml_dtypes" in sys.modules:
         raise AssertionError("the port imported jax or ml_dtypes")
     profiles = late_profiles()

@@ -6,8 +6,10 @@ BitsetView / BinarySet, Status codes, the KWTPU section format), with the
 TPU's Pallas kernels replaced by CUDA kernels written for Hopper
 (``csrc/``). It serves FLAT and BIN_FLAT, the IVF family, the HNSW family
 over every dense type and bin1, the SVS, CAGRA and cuVS names, DISKANN,
-DISKANN_DEPRECATED and AISAQ, BruteForce, feder's GetIndexMeta /
-GetFederVisit and the k-means Cluster API:
+DISKANN_DEPRECATED and AISAQ, the sparse family (SPARSE_INVERTED_INDEX,
+SPARSE_WAND and their _CC names, IP and BM25), BruteForce (dense, binary
+and sparse), feder's GetIndexMeta / GetFederVisit and the k-means Cluster
+API:
 
     import knowhere_tpu_torch as kt
     kt.set_device("cuda")          # the default; "cpu" runs the plain versions

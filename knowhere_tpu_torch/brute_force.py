@@ -1,5 +1,5 @@
 """BruteForce — index-free exact search, the recall oracle (counterpart of
-knowhere_tpu/brute_force.py without its sparse part).
+knowhere_tpu/brute_force.py).
 
 The reference's static API (include/knowhere/comp/brute_force.h:29-66):
 Search / SearchWithBuf / RangeSearch / AnnIterator and the multi-chunk
@@ -10,8 +10,11 @@ the device once a call (binary rows and queries unpacked to {0,1} planes)
 and is streamed through the tiled kNN scan (ops/topk.py) or the tiled range
 scan (ops/range.py); the iterators score full distance rows on the device.
 
-Sparse bases (SearchSparse, BM25) are not ported yet: they answer
-Status.not_implemented.
+Sparse bases (IP and BM25) go to models/sparse.py, through SearchSparse or
+Search / RangeSearch / AnnIterator on a sparse dataset: host scipy
+products, as in the reference. The multi-chunk calls take dense chunks only
+and answer not_implemented for a sparse one (the reference raises a
+TypeError there, an internal_error).
 """
 
 from __future__ import annotations
@@ -27,11 +30,16 @@ from .device import to_device
 from .index_node import PrecomputedDistanceIterator
 from .index_param import BINARY_METRICS, DENSE_FLOAT_METRICS, normalize_metric
 from .models.flat import precomputed_iterators, range_result
+from .models.sparse import (
+    brute_force_ann_iterator_sparse,
+    brute_force_range_search_sparse,
+    brute_force_search_sparse,
+)
 from .ops import distances as D
 from .ops import topk as T
 from .status import KnowhereException, Status, expected, guarded_call, guarded_expected
 
-_NO_SPARSE = "sparse brute force (SearchSparse, BM25) is not ported to knowhere_tpu_torch yet"
+_NO_SPARSE = "the multi-chunk BruteForce calls take dense chunks, not sparse ones"
 
 
 def _check(base_ds: DataSet, metric: str) -> Optional[KnowhereException]:
@@ -82,6 +90,8 @@ class BruteForce:
         bitset: Optional[BitsetView] = None,
     ) -> "expected[DataSet]":
         def impl():
+            if base_dataset.is_sparse:
+                return brute_force_search_sparse(base_dataset, query_dataset, json_cfg or {}, bitset)
             cfg, metric = _load(json_cfg, Stage.SEARCH, base_dataset)
             xq, b_dev = _prep(base_dataset, query_dataset, metric)
             mask = bitset.device_mask(base_dataset.rows) if bitset and not bitset.empty_view() else None
@@ -114,6 +124,8 @@ class BruteForce:
         bitset: Optional[BitsetView] = None,
     ) -> "expected[DataSet]":
         def impl():
+            if base_dataset.is_sparse:
+                return brute_force_range_search_sparse(base_dataset, query_dataset, json_cfg or {}, bitset)
             cfg, metric = _load(json_cfg, Stage.RANGE_SEARCH, base_dataset)
             xq, b_dev = _prep(base_dataset, query_dataset, metric)
             mask = bitset.device_mask(base_dataset.rows) if bitset and not bitset.empty_view() else None
@@ -132,11 +144,46 @@ class BruteForce:
         each holds its query's nb-float distance row on the host."""
 
         def impl():
+            if base_dataset.is_sparse:
+                return brute_force_ann_iterator_sparse(base_dataset, query_dataset, json_cfg or {}, bitset)
             _, metric = _load(json_cfg, Stage.ITERATOR, base_dataset)
             keep = bitset.host_mask(base_dataset.rows) if bitset and not bitset.empty_view() else None
             return expected.Ok(precomputed_iterators(*_prep(base_dataset, query_dataset, metric), metric, keep))
 
         return guarded_expected(impl)
+
+    @staticmethod
+    def SearchSparse(
+        base_dataset: DataSet,
+        query_dataset: DataSet,
+        json_cfg: Optional[dict] = None,
+        bitset: Optional[BitsetView] = None,
+    ) -> "expected[DataSet]":
+        """The named sparse entry point (reference brute_force.h:50-57);
+        Search routes a sparse base to the same implementation."""
+
+        def impl():
+            if not base_dataset.is_sparse:
+                return expected.Err(Status.invalid_args, "SearchSparse requires a sparse dataset")
+            return brute_force_search_sparse(base_dataset, query_dataset, json_cfg or {}, bitset)
+
+        return guarded_expected(impl)
+
+    @staticmethod
+    def SearchSparseWithBuf(
+        base_dataset: DataSet,
+        query_dataset: DataSet,
+        ids_buf: np.ndarray,
+        dist_buf: np.ndarray,
+        json_cfg: Optional[dict] = None,
+        bitset: Optional[BitsetView] = None,
+    ) -> Status:
+        res = BruteForce.SearchSparse(base_dataset, query_dataset, json_cfg, bitset)
+        if not res.has_value():
+            return res.error()
+        np.copyto(np.asarray(ids_buf).reshape(-1), res.value().ids)
+        np.copyto(np.asarray(dist_buf).reshape(-1), res.value().distance)
+        return Status.success
 
     @staticmethod
     def SearchOnChunkWithBuf(

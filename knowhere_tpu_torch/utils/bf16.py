@@ -29,7 +29,10 @@ def bf16_bits(x) -> np.ndarray:
         return x
     if x.dtype.name == BF16_NAME:
         return x.view(np.uint16)
-    t = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32))
+    x = np.ascontiguousarray(x, dtype=np.float32)
+    if not x.flags.writeable:  # a read-only view (a spilled memmap): torch wants its own copy
+        x = x.copy()
+    t = torch.from_numpy(x)
     return t.to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
 
 

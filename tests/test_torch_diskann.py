@@ -487,15 +487,14 @@ def test_registry_matches_jax_for_diskann_names():
 
 def test_registry_lacks_only_the_unported_pairs():
     """The (name, data type) pairs of the JAX package that the port does
-    not register: the sparse names, SCANN_DVR, the SHARDED_* nodes,
-    MINHASH_LSH and FAISS; 19 pairs, and none the other way."""
+    not register: SCANN_DVR, the SHARDED_* nodes, MINHASH_LSH and FAISS;
+    11 pairs, and none the other way."""
     want = set(JFactory.Instance()._registry)
     got = set(ktt.IndexFactory.Instance()._registry)
     missing = want - got
     assert got - want == set()
-    assert len(missing) == 19, sorted(missing)
+    assert len(missing) == 11, sorted(missing)
     assert {n for n, _ in missing} == {
-        "SPARSE_INVERTED_INDEX", "SPARSE_WAND", "SPARSE_INVERTED_INDEX_CC", "SPARSE_WAND_CC", "SCANN_DVR",
-        "SHARDED_FLAT", "SHARDED_IVF_FLAT", "SHARDED_IVF_PQ", "SHARDED_HNSW", "SHARDED_IVF_SQ8",
+        "SCANN_DVR", "SHARDED_FLAT", "SHARDED_IVF_FLAT", "SHARDED_IVF_PQ", "SHARDED_HNSW", "SHARDED_IVF_SQ8",
         "MINHASH_LSH", "FAISS",
     }

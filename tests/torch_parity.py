@@ -100,3 +100,49 @@ def assert_same_topk(s_j, p_j, s_t, p_t, rtol, atol):
         near[..., 1:] |= gap <= atol + rtol * np.abs(s_j[..., 1:])
         near[..., :-1] |= gap <= atol + rtol * np.abs(s_j[..., :-1])
         assert (~diff | near).all()
+
+
+# ---------------------------------------------------------------------------
+# Sparse (tests/test_torch_sparse_*.py)
+# ---------------------------------------------------------------------------
+
+SPARSE_RTOL = 1e-5  # scores: f32 sums of the same products in other orders
+SPARSE_ATOL = 1e-6
+
+
+def sparse_ds(pkg, rows, dim):
+    """The same {dim: value} rows as a sparse DataSet of ``pkg``."""
+    return pkg.GenSparseDataSet(list(rows), dim)
+
+
+def sparse_index(pkg, name, rows, dim, cfg, data_type="sparse"):
+    idx = pkg.IndexFactory.Instance().Create(name, data_type=data_type).value()
+    assert idx.Build(sparse_ds(pkg, rows, dim), cfg) == pkg.Status.success
+    return idx
+
+
+def sparse_search(pkg, idx, rows, dim, cfg, bitset=None):
+    """(ids, distances) of a sparse Search, each (nq, k)."""
+    res = idx.Search(sparse_ds(pkg, rows, dim), cfg, bitset or pkg.BitsetView())
+    assert res.has_value(), res.what()
+    k = cfg["k"]
+    return res.value().ids.reshape(-1, k), res.value().distance.reshape(-1, k)
+
+
+def assert_sparse_parity(ids_j, d_j, ids_t, d_t, rtol=SPARSE_RTOL, atol=SPARSE_ATOL):
+    """Sparse top-k of the port against the JAX package: scores within
+    rtol; ids equal except where the JAX scores tie within that tolerance
+    (a neighbour in the row, or the row's last filled slot, whose tie may lie
+    just past k)."""
+    np.testing.assert_allclose(d_t, d_j, rtol=rtol, atol=atol)
+    diff = ids_t != ids_j
+    if not diff.any():
+        return
+    gap = np.abs(np.diff(d_j, axis=-1))
+    near = np.zeros_like(diff)
+    near[..., 1:] |= gap <= atol + rtol * np.abs(d_j[..., 1:])
+    near[..., :-1] |= gap <= atol + rtol * np.abs(d_j[..., :-1])
+    last = (ids_j >= 0).sum(axis=-1) - 1
+    rows_ = np.arange(ids_j.shape[0])
+    near[rows_[last >= 0], last[last >= 0]] = True
+    assert (~diff | near).all(), np.argwhere(diff & ~near)[:5]
