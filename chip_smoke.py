@@ -130,7 +130,29 @@ Run from the root of a checkout on a machine with one CUDA GPU. In order:
    queries) against the exact answer, the tail ids decoded on the device
    against the host decode, and SPARSE_INVERTED_INDEX_CC taking 50,000
    rows while a reader searches (every acknowledged row read back); the
-   native host library must have built;
+   native host library must have built; then the api and emb_list path:
+   a ColBERT-style corpus made on the device (20,000 documents of 32-128
+   tokens x 128 drawn from 200 topics' concepts, 1,000 queries of 32
+   tokens) with the exact MAX_SIM_COSINE truth, tokenann over HNSW (M 16,
+   efConstruction 200; its first f32-scan build launch held against its
+   plain version), over IVF_FLAT (nlist 1024; its first int8-scan launch
+   held) and over FLAT, MUVERA (5 projections, 20 repeats) and LEMUR (the
+   defaults) over FLAT, DTW_COSINE on 256 queries, a 50% document bitset, a
+   round trip and GetEmbListByIds (recall@10, build s, warm QPS, device
+   GB); MINHASH_LSH over 1M 128 x 32-bit signatures in families of 5
+   near-duplicates (per-band and shared Bloom filters, batch and one-by-one
+   ids equal, tie-aware recall@1 and @10 against the device brute force,
+   every planted duplicate of agreement >= 0.8 at rank 1, a round trip
+   that rebuilds no table); SCANN_DVR over a view of the 1M corpus' host
+   rows (nprobe 12, reorder_k 256; its first ADC launch held) and its
+   UINT8 / FP16 / BF16 refine copies at 100,000 rows, a 50% bitset with the
+   materialized-view hint; FAISS's "Flat", "IVF256,Flat", "IVF256,PQ16",
+   "IVF256,SQ8" and "HNSW16" at 100,000 rows, each with the ids of the
+   native node of the same parameters; compat's SWIG-style flow over
+   IVF_FLAT with fp32, fp16 and bf16 type objects (Dump / Load,
+   BruteForceSearch, BitSet.SetBit after GetBitSetView), the mock wrapper
+   over fp16 rows against an fp32 FLAT on the widened rows, and 4 threads
+   through the thread-pool wrapper against the serial ids;
 12. one torch-profiler pass over one search each of IVF_FLAT (the int8
    scan), IVF_PQ (the ADC scan at its real shape) and IVF_SQ8 FAST (the
    int8 scan over u8 codes), and over one IVF_FLAT RangeSearch of step 6
@@ -153,7 +175,7 @@ right after it; every kernel must have launched on its path. Each path
 prints its wall time, and the script its own before the kernel summary.
 
 Every phase raises on failure; the script then exits non-zero and prints no
-result. JAX is not imported.
+result. Neither JAX, ml_dtypes nor optax is imported.
 """
 
 from __future__ import annotations
@@ -2699,6 +2721,600 @@ def sparse_path(kt):
     return out
 
 
+# --- the api and emb_list path: SCANN_DVR, MINHASH_LSH, FAISS, compat, emb_list ---------
+
+EMB_DOCS = 20_000  # ColBERT-style corpus: documents of 32-128 tokens
+EMB_TOK = (32, 128)
+EMB_DIM = 128  # ColBERTv2's token width
+EMB_NQ = 1_000
+EMB_QTOK = 32  # ColBERT's query length
+EMB_CONCEPTS = 8192  # token-level concepts (a ColBERT centroid's worth each)
+EMB_TOPICS = 200  # a document's tokens come from its topic's concepts
+EMB_TOPIC_CONCEPTS = 48
+EMB_NOISE = 0.35  # token = concept + EMB_NOISE * N(0, I)
+EMB_DTW_NQ = 256
+EMB_K = 10
+EMB_HNSW = {"M": 16, "efConstruction": 200}
+EMB_IVF = {"nlist": 1024}
+EMB_MUVERA = {"emb_list_strategy": "muvera", "muvera_num_projections": 5, "muvera_num_repeats": 20}
+MH_FAMILIES = 200_000  # 1,000,000 signatures in families of 5 near-duplicates
+MH_FAMILY = 5
+MH_ELEMS = 128  # 32-bit MinHash values: 4,096 bits a signature
+MH_NQ = 1_000
+MH_AGREE = (0.6, 0.95)  # element agreement of a near-duplicate with its source
+MH_PLANTED = 0.8  # planted duplicates at or above this agreement must rank first
+DVR_NQ = 1_000
+DVR_SMALL = 100_000  # the quantized refine legs, FAISS and compat
+DVR_SEARCH = {"metric_type": "L2", "k": 10, "nprobe": 12, "reorder_k": 256}  # SCANN_SEARCH's reorder
+DVR_SMALL_SEARCH = dict(DVR_SEARCH, nprobe=32)  # nlist 256 at 100,000 rows: GIST_PQ_SEARCH's share of lists
+# recall floors of the api and emb_list path, just under the first measured
+# values (H100 80GB HBM3, 700 W, the path's first run): tokenann HNSW 0.9361, IVF_FLAT 0.9998,
+# FLAT 0.9999, MUVERA 0.8646, LEMUR 0.3654; MinHash recall@1 1.0; SCANN_DVR
+# over the view 0.9535
+EMB_FLOORS = {"tokenann_hnsw": 0.93, "tokenann_ivf_flat": 0.99, "tokenann_flat": 0.99, "muvera_flat": 0.85,
+              "lemur_flat": 0.3}
+MH_RECALL1_FLOOR = 0.99
+DVR_FLOOR = 0.95
+FAISS_NPROBE = 16
+FAISS_DESCS = (
+    ("Flat", "FLAT", {}, {}),
+    ("IVF256,Flat", "IVF_FLAT", {"nlist": 256}, {"nprobe": FAISS_NPROBE}),
+    ("IVF256,PQ16", "IVF_PQ", {"nlist": 256, "m": 16}, {"nprobe": FAISS_NPROBE}),
+    ("IVF256,SQ8", "IVF_SQ8", {"nlist": 256, "sq_type": "SQ8"}, {"nprobe": FAISS_NPROBE}),
+    ("HNSW16", "HNSW", {"M": 16}, {"ef": 64}),
+)
+WRAP_THREADS = 4
+
+
+def _dev_gb() -> float:
+    """Device GB allocated, after the garbage of earlier legs is freed."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated() / 1e9
+
+
+def gen_emb_corpus(seed=11):
+    """ColBERT-style late-interaction corpus on the device: EMB_CONCEPTS
+    concept vectors, EMB_TOPICS topics of EMB_TOPIC_CONCEPTS concepts each;
+    EMB_DOCS documents of EMB_TOK tokens (uniform), each on one topic, each
+    token one of its topic's concepts plus noise; EMB_NQ queries of EMB_QTOK
+    tokens, each drawn from the concepts of one document's tokens. Returns
+    host (tokens, lims, q_tokens, q_lims, source documents)."""
+    import torch
+
+    from knowhere_tpu_torch.device import get_device
+
+    dev = get_device()
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def noisy(concept_ids):
+        return concepts[concept_ids] + EMB_NOISE * torch.randn(concept_ids.numel(), EMB_DIM, generator=g, device=dev)
+
+    concepts = torch.randn(EMB_CONCEPTS, EMB_DIM, generator=g, device=dev)
+    topic_concepts = torch.randint(0, EMB_CONCEPTS, (EMB_TOPICS, EMB_TOPIC_CONCEPTS), generator=g, device=dev)
+    lens = torch.randint(EMB_TOK[0], EMB_TOK[1] + 1, (EMB_DOCS,), generator=g, device=dev)
+    topic = torch.randint(0, EMB_TOPICS, (EMB_DOCS,), generator=g, device=dev)
+    doc = torch.repeat_interleave(torch.arange(EMB_DOCS, device=dev), lens)
+    pick = torch.randint(0, EMB_TOPIC_CONCEPTS, (doc.numel(),), generator=g, device=dev)
+    tok_concept = topic_concepts[topic[doc], pick]
+    tokens = noisy(tok_concept)
+    lims = torch.cat([torch.zeros(1, dtype=torch.long, device=dev), torch.cumsum(lens, 0)])
+    src = torch.randint(0, EMB_DOCS, (EMB_NQ,), generator=g, device=dev)
+    # each query token: the concept of a random token of its source document
+    offs = (torch.rand(EMB_NQ, EMB_QTOK, generator=g, device=dev) * lens[src][:, None]).long()
+    q_tokens = noisy(tok_concept[(lims[src][:, None] + offs).reshape(-1)])
+    q_lims = np.arange(0, (EMB_NQ + 1) * EMB_QTOK, EMB_QTOK, dtype=np.int64)
+    return tokens.cpu().numpy(), lims.cpu().numpy(), q_tokens.cpu().numpy(), q_lims, src.cpu().numpy()
+
+
+def maxsim_truth(tokens, lims, q_tokens, q_lims, k=EMB_K, q_block=32):
+    """The exact MAX_SIM_COSINE top-k over every document, by the port's
+    plain MaxSim on the device: a block of queries' normalized tokens against
+    every normalized corpus token (one f32 product, TF32 off), each
+    document's maximum by segment_reduce, summed over each query's tokens;
+    ties to the lower document id."""
+    import torch
+
+    from knowhere_tpu_torch.device import to_device
+    from knowhere_tpu_torch.ops.topk import topk_leftmost
+
+    t = to_device(tokens)
+    t = t / t.norm(dim=1, keepdim=True).clamp(min=1e-12)
+    q = to_device(q_tokens)
+    q = q / q.norm(dim=1, keepdim=True).clamp(min=1e-12)
+    doc_lens = to_device(np.diff(lims))
+    nq = len(q_lims) - 1
+    out = np.empty((nq, k), np.int64)
+    for s in range(0, nq, q_block):
+        e = min(nq, s + q_block)
+        sim_t = t @ q[q_lims[s] : q_lims[e]].T  # (tokens, block query tokens)
+        best = torch.segment_reduce(sim_t, "max", lengths=doc_lens)  # (docs, block query tokens)
+        seg = to_device(np.repeat(np.arange(e - s), np.diff(q_lims[s : e + 1])))
+        score = torch.zeros(e - s, best.shape[0], device=t.device).index_add_(0, seg, best.T)
+        out[s:e] = topk_leftmost(score, k)[1].cpu().numpy()
+    del t, q
+    torch.cuda.empty_cache()
+    return out
+
+
+def _emb_ds(kt, tokens, lims):
+    return kt.DataSet(tensor=tokens, lims=lims, rows=tokens.shape[0], dim=tokens.shape[1])
+
+
+def _emb_search(kt, idx, qds, cfg, bitset=None):
+    res = idx.Search(qds, cfg, bitset or kt.BitsetView())
+    if not res.has_value():
+        raise RuntimeError(f"emb_list Search failed: {res.error().name}: {res.what()}")
+    k = cfg["k"]
+    ids, d = res.value().ids.reshape(-1, k), res.value().distance.reshape(-1, k)
+    if not np.isfinite(d[ids >= 0]).all():
+        raise AssertionError("emb_list: non-finite score")
+    return ids, d
+
+
+def _emb_leg(kt, name, base, qds, gt, build, search):
+    """Build ``name`` over the emb_list corpus, search all queries (warm QPS,
+    the median of 3 after one untimed call), recall@10 against the truth,
+    the device GB the index holds after its searches (the stage-2 tokens
+    included). Returns (index, numbers, ids)."""
+    gb0 = _dev_gb()
+    idx = kt.IndexFactory.Instance().Create(name).value()
+    st, build_s = _timed(lambda: idx.Build(base, build))
+    if st != kt.Status.success:
+        raise RuntimeError(f"emb_list {name} {build}: Build {st.name}")
+    (ids, _), times, med = _warm(lambda: _emb_search(kt, idx, qds, search), reps=3)
+    gb = _dev_gb() - gb0
+    return idx, {"build_s": build_s, "recall_at_10": recall_at(ids, gt), "warm_ms": times,
+                 "qps": (qds.lims.size - 1) / med * 1e3, "device_gb": gb}, ids
+
+
+def emb_list_legs(kt):
+    """The emb_list family at a ColBERT-style size (the module docstring):
+    tokenann over HNSW (its kNN graph through the f32 scan, the first launch
+    held), IVF_FLAT (FAST: the int8 scan, the first launch held) and FLAT,
+    MUVERA and LEMUR over FLAT, DTW_COSINE on EMB_DTW_NQ queries, a 50%
+    document bitset, a round trip and GetEmbListByIds."""
+    import torch
+
+    t0 = time.perf_counter()
+    tokens, lims, q_tokens, q_lims, src = gen_emb_corpus()
+    out = {"docs": EMB_DOCS, "tokens": int(lims[-1]), "dim": EMB_DIM, "queries": EMB_NQ, "query_tokens": EMB_QTOK,
+           "gen_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    gt = maxsim_truth(tokens, lims, q_tokens, q_lims)
+    out["truth_s"] = time.perf_counter() - t0
+    out["truth_holds_source"] = float(np.mean(gt[:, 0] == src))
+    base, qds = _emb_ds(kt, tokens, lims), _emb_ds(kt, q_tokens, q_lims)
+    metric = {"metric_type": "MAX_SIM_COSINE"}
+    search = dict(metric, k=EMB_K)
+    held = {}
+    (hnsw, leg, _), held_f32 = _hold_launches(
+        lambda: _emb_leg(kt, "HNSW", base, qds, gt, dict(metric, **EMB_HNSW), search), ("ivf_f32_scan",), limit=1,
+        tol=(F32_RTOL, F32_ATOL, F32_POS_AGREE))
+    out["tokenann_hnsw"], held["ivf_f32_scan"] = leg, _held_summary(held_f32)["ivf_f32_scan"]
+    del hnsw
+    (ivf, leg, _), held_i8 = _hold_launches(
+        lambda: _emb_leg(kt, "IVF_FLAT", base, qds, gt, dict(metric, **EMB_IVF), search), ("ivf_int8_scan",), limit=1)
+    out["tokenann_ivf_flat"], held["ivf_int8_scan"] = leg, _held_summary(held_i8)["ivf_int8_scan"]
+    del ivf
+    flat, out["tokenann_flat"], ids_flat = _emb_leg(kt, "FLAT", base, qds, gt, metric, search)
+    failed = []
+    # a 50% document bitset, a round trip, GetEmbListByIds on the tokenann FLAT
+    keep = np.zeros(EMB_DOCS, bool)
+    keep[::2] = True
+    (ids_b, _), secs = _timed(lambda: _emb_search(kt, flat, qds, search, kt.BitsetView.from_bool_array(~keep)))
+    out["bitset_50"] = {"s": secs, "filtered_returned": int((~keep[ids_b[ids_b >= 0]]).sum())}
+    if out["bitset_50"]["filtered_returned"]:
+        failed.append("emb_list: a filtered document came back under the bitset")
+    bs = kt.BinarySet()
+    _, ser_s = _timed(lambda: flat.Serialize(bs))
+    again = kt.IndexFactory.Instance().Create("FLAT").value()
+    st, load_s = _timed(lambda: again.Deserialize(bs))
+    same = st == kt.Status.success and np.array_equal(_emb_search(kt, again, qds, search)[0], ids_flat)
+    out["round_trip"] = {"serialize_s": ser_s, "deserialize_s": load_s, "same_ids": bool(same)}
+    if not same:
+        failed.append("emb_list: the round trip changed the ids")
+    del again, bs
+    want = np.arange(0, EMB_DOCS, max(1, EMB_DOCS // 1000))
+    got, secs = _timed(lambda: flat.GetEmbListByIds(kt.GenIdsDataSet(want)))
+    ok = got.has_value() and np.array_equal(np.asarray(got.value().lims), np.concatenate(
+        [[0], np.cumsum(np.diff(lims)[want])])) and np.array_equal(
+        np.asarray(got.value().tensor), np.concatenate([tokens[lims[i] : lims[i + 1]] for i in want]))
+    out["get_emb_list_by_ids"] = {"ids": int(want.size), "s": secs, "ok": bool(ok)}
+    if not ok:
+        failed.append("emb_list: GetEmbListByIds rows differ")
+    del flat
+    _, out["muvera_flat"], _ = _emb_leg(kt, "FLAT", base, qds, gt, dict(metric, **EMB_MUVERA), search)
+    _, out["lemur_flat"], _ = _emb_leg(kt, "FLAT", base, qds, gt, dict(metric, emb_list_strategy="lemur"), search)
+    # DTW_COSINE over tokenann FLAT on the first EMB_DTW_NQ queries (no
+    # DTW truth: finite scores, a round of the same ids again)
+    q_small = _emb_ds(kt, q_tokens[: q_lims[EMB_DTW_NQ]], q_lims[: EMB_DTW_NQ + 1])
+    dtw = kt.IndexFactory.Instance().Create("FLAT").value()
+    st, build_s = _timed(lambda: dtw.Build(base, {"metric_type": "DTW_COSINE"}))
+    if st != kt.Status.success:
+        raise RuntimeError(f"emb_list DTW_COSINE: Build {st.name}")
+    dcfg = {"metric_type": "DTW_COSINE", "k": EMB_K}
+    (ids_d, _), times, med = _warm(lambda: _emb_search(kt, dtw, q_small, dcfg), reps=3)
+    out["dtw_flat"] = {"build_s": build_s, "warm_ms": times, "qps": EMB_DTW_NQ / med * 1e3,
+                       "top1_is_source": float(np.mean(ids_d[:, 0] == src[:EMB_DTW_NQ])),
+                       "repeat_same_ids": bool(np.array_equal(_emb_search(kt, dtw, q_small, dcfg)[0], ids_d))}
+    if not out["dtw_flat"]["repeat_same_ids"]:
+        failed.append("emb_list: DTW repeated search changed the ids")
+    del dtw
+    torch.cuda.empty_cache()
+    for leg, floor in EMB_FLOORS.items():
+        if out[leg]["recall_at_10"] < floor:
+            failed.append(f"emb_list {leg}: recall {out[leg]['recall_at_10']} under {floor}")
+    return out, held, failed
+
+
+def gen_minhash_corpus(seed=13):
+    """Near-duplicate signatures as an LLM-corpus dedup sees them, on the
+    device: MH_FAMILIES random 128 x 32-bit MinHash signatures, each with
+    MH_FAMILY members that keep an element of it with probability drawn from
+    MH_AGREE (the rest fresh values); MH_NQ queries, each a fresh
+    near-duplicate of a random row at an agreement drawn the same way.
+    Returns host (rows uint8 (n, 512), queries, source rows, agreements)."""
+    import torch
+
+    from knowhere_tpu_torch.device import get_device
+
+    dev = get_device()
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lo, hi = -(1 << 31), (1 << 31) - 1
+
+    def fresh(n):
+        return torch.randint(lo, hi, (n, MH_ELEMS), generator=g, device=dev, dtype=torch.int64).to(torch.int32)
+
+    def near(src):
+        agree = MH_AGREE[0] + (MH_AGREE[1] - MH_AGREE[0]) * torch.rand(src.shape[0], 1, generator=g, device=dev)
+        kept = torch.rand(src.shape, generator=g, device=dev) < agree
+        return torch.where(kept, src, fresh(src.shape[0])), agree[:, 0]
+
+    base = fresh(MH_FAMILIES)
+    rows, _ = near(base.repeat_interleave(MH_FAMILY, 0))
+    src = torch.randint(0, rows.shape[0], (MH_NQ,), generator=g, device=dev)
+    q, agree = near(rows[src])
+
+    def host(x):
+        return x.cpu().numpy().view(np.uint8).reshape(x.shape[0], -1)
+
+    return host(rows), host(q), src.cpu().numpy(), agree.cpu().numpy()
+
+
+def minhash_truth(rows, q, k=EMB_K, q_block=8):
+    """Exact MHJACCARD by device brute force: every row's equal-element
+    count against each query, a block of queries at a time. Returns the
+    top-k counts and ids (ascending ids among ties)."""
+    import torch
+
+    from knowhere_tpu_torch.device import to_device
+    from knowhere_tpu_torch.ops.topk import topk_leftmost
+
+    r = to_device(rows).view(torch.int32)
+    qq = to_device(q).view(torch.int32)
+    top_c, top_i = [], []
+    for s in range(0, qq.shape[0], q_block):
+        c = (r[None, :, :] == qq[s : s + q_block, None, :]).sum(2).float()
+        v, i = topk_leftmost(c, k)
+        top_c.append(v)
+        top_i.append(i)
+    return torch.cat(top_c).cpu().numpy().astype(np.int64), torch.cat(top_i).cpu().numpy()
+
+
+def _mh_recall(ids, sims, top_counts, k):
+    """Tie-aware recall@k against the exact MHJACCARD: a returned row counts
+    when its similarity reaches the k-th exact one; slots whose exact
+    similarity is 0 (no element shared) are left out of both sides."""
+    kth = top_counts[:, k - 1 : k] / MH_ELEMS
+    pos = (top_counts[:, :k] > 0).sum(1)
+    hit = ((ids[:, :k] >= 0) & (sims[:, :k] >= kth - 1e-7) & (sims[:, :k] > 0)).sum(1)
+    return float(np.minimum(hit, pos).sum() / max(pos.sum(), 1))
+
+
+def minhash_leg(kt):
+    """MINHASH_LSH at a near-duplicate-detection size (the module docstring):
+    per-band and shared Bloom filters, batch and one-by-one search (the same
+    ids), recall@1 and @10 against the device brute force, every planted
+    duplicate of agreement >= MH_PLANTED at rank 1, a round trip."""
+    t0 = time.perf_counter()
+    rows, q, src, agree = gen_minhash_corpus()
+    out = {"rows": rows.shape[0], "elements": MH_ELEMS, "queries": MH_NQ, "gen_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    top_counts, top_ids = minhash_truth(rows, q)
+    out["truth_s"] = time.perf_counter() - t0
+    dim = MH_ELEMS * 32
+    base, qds = kt.GenDataSet(rows.shape[0], dim, rows), kt.GenDataSet(MH_NQ, dim, q)
+    src_sim = (rows[src].view(np.int32) == q.view(np.int32)).mean(1).astype(np.float32)
+    failed = []
+    for shared in (False, True):
+        leg = out["shared_bloom" if shared else "per_band_bloom"] = {}
+        idx = kt.IndexFactory.Instance().Create("MINHASH_LSH", data_type="bin1").value()
+        gb0 = _dev_gb()
+        st, leg["build_s"] = _timed(lambda: idx.Build(base, {"metric_type": "MHJACCARD",
+                                                             "mh_lsh_shared_bloom_filter": shared}))
+        if st != kt.Status.success:
+            raise RuntimeError(f"MINHASH_LSH Build {st.name}")
+        (_, leg["tables_s"]) = _timed(idx.node._ensure_tables)
+        leg["device_gb"] = _dev_gb() - gb0
+        res = {}
+        for batch in (False, True):
+            cfg = {"metric_type": "MHJACCARD", "k": EMB_K, "mh_lsh_batch_search": batch}
+            (got, times, med) = _warm(lambda: _search_bin(kt, idx, qds, cfg), reps=3)
+            res[batch] = got
+            leg["batch" if batch else "one_by_one"] = {"warm_ms": times, "qps": MH_NQ / med * 1e3,
+                                                      **idx.node._last_search_stats}
+        (ids, sims), (ids_b, sims_b) = res[False], res[True]
+        leg["batch_equals_one_by_one"] = bool(np.array_equal(ids, ids_b) and np.array_equal(sims, sims_b))
+        leg["recall_at_1"] = _mh_recall(ids, sims, top_counts, 1)
+        leg["recall_at_10"] = _mh_recall(ids, sims, top_counts, EMB_K)
+        planted = agree >= MH_PLANTED
+        first = (ids[:, 0] == src) | (sims[:, 0] >= src_sim)
+        leg["planted"] = int(planted.sum())
+        leg["planted_at_rank_1"] = int((first & planted).sum())
+        if leg["recall_at_1"] < MH_RECALL1_FLOOR:
+            failed.append(f"minhash shared={shared}: recall@1 {leg['recall_at_1']} under {MH_RECALL1_FLOOR}")
+        if not leg["batch_equals_one_by_one"]:
+            failed.append(f"minhash shared={shared}: batch ids differ from one-by-one")
+        if leg["planted_at_rank_1"] != leg["planted"]:
+            failed.append(f"minhash shared={shared}: a planted duplicate missed rank 1")
+        if not shared:
+            bs = kt.BinarySet()
+            _, ser_s = _timed(lambda: idx.Serialize(bs))
+            again = kt.IndexFactory.Instance().Create("MINHASH_LSH", data_type="bin1").value()
+            st, load_s = _timed(lambda: again.Deserialize(bs))
+            same = st == kt.Status.success and np.array_equal(_search_bin(kt, again, qds, cfg)[0], ids)
+            leg["round_trip"] = {"serialize_s": ser_s, "deserialize_s": load_s, "same_ids": bool(same),
+                                 "tables_rebuilt": bool(again.node._tables_dirty)}
+            if not same or again.node._tables_dirty:
+                failed.append("minhash: the round trip changed the ids or rebuilt the tables")
+            del again, bs
+        del idx
+    return out, failed
+
+
+def _search_bin(kt, idx, qds, cfg):
+    res = idx.Search(qds, cfg, kt.BitsetView())
+    if not res.has_value():
+        raise RuntimeError(f"Search failed: {res.error().name}: {res.what()}")
+    return res.value().ids.reshape(-1, cfg["k"]), res.value().distance.reshape(-1, cfg["k"])
+
+
+class _RowView:
+    """A Milvus segment's view of its host rows, fetched by id."""
+
+    def __init__(self, rows):
+        self.rows = rows
+        self.fetched = 0
+
+    def view_data(self, ids):
+        self.fetched += len(ids)
+        return self.rows[ids]
+
+
+def dvr_leg(kt, xb, xq, gt):
+    """SCANN_DVR: DATA_VIEW refine over the 1M x 128 corpus through a view
+    of the host rows (the coarse SCANN stage's ADC launch held), then UINT8,
+    FP16 and BF16 refine copies at DVR_SMALL rows, recall@10 against FLAT's
+    truth, and a 50% bitset with the materialized-view hint."""
+    from knowhere_tpu_torch.utils.bf16 import bf16_bits
+
+    q = xq[:DVR_NQ]
+    out, failed = {}, []
+    view = _RowView(xb)
+    idx = kt.IndexFactory.Instance().Create("SCANN_DVR", object=view).value()
+    gb0 = _dev_gb()
+    st, build_s = _timed(lambda: idx.Build(kt.GenDataSetFromArray(xb), {"metric_type": "L2", "nlist": 1024,
+                                                                       "sub_dim": 2, "refine_type": 0}))
+    if st != kt.Status.success:
+        raise RuntimeError(f"SCANN_DVR Build {st.name}")
+    gb = _dev_gb() - gb0
+    (ids, _), held = _hold_launches(lambda: _search(idx, kt, q, DVR_SEARCH), ("ivf_adc_scan",), limit=1)
+    fetched = view.fetched
+    _, times, med = _warm(lambda: _search(idx, kt, q, DVR_SEARCH), reps=3)
+    out["data_view_1m"] = {"build_s": build_s, "device_gb": gb, "recall_at_10": recall_at(ids, gt[:DVR_NQ]),
+                           "warm_ms": times, "qps": DVR_NQ / med * 1e3, "rows_fetched_a_search": fetched}
+    if out["data_view_1m"]["recall_at_10"] < DVR_FLOOR:
+        failed.append(f"SCANN_DVR over the view: recall {out['data_view_1m']['recall_at_10']} under {DVR_FLOOR}")
+    del idx
+    xs, qs = xb[:DVR_SMALL], q
+    flat = kt.IndexFactory.Instance().Create("FLAT").value()
+    flat.Build(kt.GenDataSetFromArray(xs), {"metric_type": "L2"})
+    gt_s = _search(flat, kt, qs, {"metric_type": "L2", "k": 10})[0]
+    del flat
+    for rt, name in ((1, "uint8"), (2, "fp16"), (3, "bf16")):
+        for dt, rows, qrows in (("fp32", xs, qs),) + ((("bf16", bf16_bits(xs), bf16_bits(qs)),) if rt == 3 else ()):
+            idx = kt.IndexFactory.Instance().Create("SCANN_DVR", data_type=dt).value()
+            st, build_s = _timed(lambda: idx.Build(kt.GenDataSetFromArray(rows), {
+                "metric_type": "L2", "nlist": 256, "sub_dim": 2, "refine_type": rt}))
+            if st != kt.Status.success:
+                raise RuntimeError(f"SCANN_DVR refine {name} {dt}: Build {st.name}")
+            (ids, _), times, med = _warm(lambda: _search(idx, kt, qrows, DVR_SMALL_SEARCH), reps=3)
+            out[f"{name}_refine_{dt}"] = {"build_s": build_s, "recall_at_10": recall_at(ids, gt_s),
+                                          "warm_ms": times, "qps": DVR_NQ / med * 1e3,
+                                          "refine_gb": idx.node._refine_store.data.numel()
+                                          * idx.node._refine_store.data.element_size() / 1e9}
+            if rt == 2:
+                filtered = np.zeros(DVR_SMALL, bool)
+                filtered[::2] = True
+                mv = {"is_pure_and": True, "has_not": False, "field_id_to_touched_categories_cnt": {"101": 1}}
+                ids_f, secs = _timed(lambda: _search(idx, kt, qrows, dict(
+                    DVR_SMALL_SEARCH, materialized_view_search_info=mv), kt.BitsetView.from_bool_array(filtered))[0])
+                out["bitset_50_mv"] = {"s": secs, "filtered_returned": int(filtered[ids_f[ids_f >= 0]].sum())}
+                if out["bitset_50_mv"]["filtered_returned"]:
+                    failed.append("SCANN_DVR: a filtered id came back under the bitset")
+            del idx
+    return out, _held_summary(held)["ivf_adc_scan"], failed
+
+
+def faiss_leg(kt, xb, xq):
+    """FAISS: each description at DVR_SMALL rows against the native node of
+    the same parameters built on the same rows: the same ids."""
+    xs, q = xb[:DVR_SMALL], xq[:DVR_NQ]
+    out, failed = {}, []
+    for desc, native, params, scfg in FAISS_DESCS:
+        cfg = dict({"metric_type": "L2", "k": 10}, **scfg)
+        fa = kt.IndexFactory.Instance().Create("FAISS").value()
+        st, build_s = _timed(lambda: fa.Build(kt.GenDataSetFromArray(xs), {"metric_type": "L2",
+                                                                          "index_description": desc}))
+        nat = kt.IndexFactory.Instance().Create(native).value()
+        st2, nat_s = _timed(lambda: nat.Build(kt.GenDataSetFromArray(xs), dict({"metric_type": "L2"}, **params)))
+        if st != kt.Status.success or st2 != kt.Status.success:
+            raise RuntimeError(f"FAISS {desc}: Build {st.name} / native {native} {st2.name}")
+        (ids, _), times, med = _warm(lambda: _search(fa, kt, q, cfg), reps=3)
+        same = bool(np.array_equal(ids, _search(nat, kt, q, cfg)[0]))
+        out[desc] = {"build_s": build_s, "native_build_s": nat_s, "warm_ms": times, "qps": DVR_NQ / med * 1e3,
+                     "ids_equal_native": same}
+        if not same:
+            failed.append(f"FAISS {desc}: ids differ from the native {native}")
+        del fa, nat
+    return out, failed
+
+
+def compat_leg(kt, xb, xq):
+    """The SWIG-style flow over IVF_FLAT at DVR_SMALL rows with fp32, fp16 and
+    bf16 type objects, Dump / Load, BruteForceSearch, BitSet.SetBit after
+    GetBitSetView; the mock wrapper over fp16 rows against an fp32 FLAT on
+    the widened rows; WRAP_THREADS threads through the thread-pool wrapper
+    against the serial ids."""
+    import tempfile
+    import threading
+
+    import torch
+
+    import knowhere_tpu_torch.compat as knowhere
+    from knowhere_tpu_torch import wrappers
+    from knowhere_tpu_torch.config import Config, Stage
+    from knowhere_tpu_torch.models.flat import FlatIndexNode
+    from knowhere_tpu_torch.models.ivf import IvfFlatNode
+    from knowhere_tpu_torch.utils.bf16 import bf16_bits
+
+    xs, q = xb[:DVR_SMALL], xq[:DVR_NQ]
+    out, failed = {}, []
+    build, search = json.dumps({"metric_type": "L2", "nlist": 256}), json.dumps({"metric_type": "L2", "k": 10,
+                                                                                 "nprobe": 16})
+    for tname, t, rows, qrows in (("fp32", np.float32, xs, q), ("fp16", np.float16, xs.astype(np.float16),
+                                                                 q.astype(np.float16)),
+                                  ("bf16", torch.bfloat16, bf16_bits(xs), bf16_bits(q))):
+        idx = knowhere.CreateIndex("IVF_FLAT", knowhere.GetCurrentVersion(), t)
+        st, build_s = _timed(lambda: idx.Build(knowhere.ArrayToDataSet(rows), build))
+        res, st2 = idx.Search(knowhere.ArrayToDataSet(qrows), search)
+        if st != knowhere.Status.success or st2 != knowhere.Status.success:
+            raise RuntimeError(f"compat IVF_FLAT {tname}: {st.name} / {st2.name}")
+        ids = knowhere.DataSetToArray(res)[1]
+        leg = out[tname] = {"build_s": build_s, "type": idx.Type()}
+        with tempfile.TemporaryDirectory() as tmp:
+            bs = knowhere.GetBinarySet()
+            idx.Serialize(bs)
+            path = os.path.join(tmp, "dump.bin")
+            _, leg["dump_s"] = _timed(lambda: knowhere.Dump(bs, path))
+            bs2 = knowhere.GetBinarySet()
+            knowhere.Load(bs2, path)
+            again = knowhere.CreateIndex("IVF_FLAT", knowhere.GetCurrentVersion(), t)
+            st = again.Deserialize(bs2)
+            leg["dump_load_same_ids"] = bool(st == knowhere.Status.success and np.array_equal(
+                knowhere.DataSetToArray(again.Search(knowhere.ArrayToDataSet(qrows), search)[0])[1], ids))
+            del again, bs, bs2
+        if not leg["dump_load_same_ids"]:
+            failed.append(f"compat {tname}: Dump / Load changed the ids")
+        if tname == "fp32":
+            bitset = knowhere.BitSet(DVR_SMALL)
+            view = bitset.GetBitSetView()
+            for i in np.unique(ids[:, 0]):
+                bitset.SetBit(int(i))
+            res, _ = idx.Search(knowhere.ArrayToDataSet(qrows), search, view)
+            left = knowhere.DataSetToArray(res)[1]
+            leg["setbit_after_view_filtered_returned"] = int(np.isin(left, ids[:, 0]).sum())
+            if leg["setbit_after_view_filtered_returned"]:
+                failed.append("compat: a row set in the BitSet after its view came back")
+            bf, secs = _timed(lambda: knowhere.BruteForceSearch(
+                knowhere.ArrayToDataSet(xs), knowhere.ArrayToDataSet(q), json.dumps({"metric_type": "L2", "k": 10})))
+            leg["brute_force_s"] = secs
+            leg["brute_force_recall_of_ivf"] = recall_at(ids, knowhere.DataSetToArray(bf[0])[1])
+        del idx
+    # the mock wrapper over fp16 rows and an fp32 FLAT node on the widened rows
+    x16 = xs.astype(np.float16)
+    cfg, scfg = FlatIndexNode.CreateConfig(), FlatIndexNode.CreateConfig()
+    Config.load(cfg, {"metric_type": "L2"}, Stage.TRAIN)
+    Config.load(scfg, {"metric_type": "L2", "k": 10}, Stage.SEARCH)
+    mock = wrappers.IndexNodeDataMockWrapper(FlatIndexNode(version=8))
+    mock.Build(kt.GenDataSetFromArray(x16), cfg)
+    plain = FlatIndexNode(version=8)
+    plain.Build(kt.GenDataSetFromArray(x16.astype(np.float32)), cfg)
+    a = mock.Search(kt.GenDataSetFromArray(q.astype(np.float16)), scfg, kt.BitsetView()).value().ids
+    b = plain.Search(kt.GenDataSetFromArray(q.astype(np.float16).astype(np.float32)), scfg, kt.BitsetView()).value().ids
+    out["mock_wrapper_fp16_equals_fp32"] = bool(np.array_equal(a, b))
+    if not out["mock_wrapper_fp16_equals_fp32"]:
+        failed.append("mock wrapper: fp16 rows gave other ids than the fp32 node")
+    # WRAP_THREADS threads through one thread-pool wrapper over IVF_FLAT
+    icfg, iscfg = IvfFlatNode.CreateConfig(), IvfFlatNode.CreateConfig()
+    Config.load(icfg, {"metric_type": "L2", "nlist": 256}, Stage.TRAIN)
+    Config.load(iscfg, {"metric_type": "L2", "k": 10, "nprobe": 16}, Stage.SEARCH)
+    pool = wrappers.IndexNodeThreadPoolWrapper(IvfFlatNode(version=8))
+    pool.Build(kt.GenDataSetFromArray(xs), icfg)
+    parts = np.array_split(q, WRAP_THREADS)
+    serial = [pool.Search(kt.GenDataSetFromArray(p), iscfg, kt.BitsetView()).value().ids for p in parts]
+    got = [None] * WRAP_THREADS
+
+    def run(i):
+        got[i] = pool.Search(kt.GenDataSetFromArray(parts[i]), iscfg, kt.BitsetView()).value().ids
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(WRAP_THREADS)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    out["threads"] = {"n": WRAP_THREADS, "s": time.perf_counter() - t0,
+                      "serial_ids": all(np.array_equal(a, b) for a, b in zip(got, serial))}
+    if not out["threads"]["serial_ids"]:
+        failed.append("thread-pool wrapper: threaded ids differ from the serial ones")
+    return out, failed
+
+
+def api_emb_list_path(kt, xb, xq, gt):
+    """The last API modules through the public API (the module docstring): the
+    emb_list family, MINHASH_LSH, SCANN_DVR, FAISS, compat and the wrappers.
+    One launch each of ivf_f32_scan (the HNSW tokenann build), ivf_int8_scan
+    (the IVF_FLAT tokenann search) and ivf_adc_scan (SCANN_DVR's coarse
+    stage) is held against its plain version. Raises after the last leg if
+    any check failed."""
+    t_path = time.perf_counter()
+    out, failed = {}, []
+    t0 = time.perf_counter()
+    out["emb_list"], held, bad = emb_list_legs(kt)
+    out["emb_list"]["s"] = time.perf_counter() - t0
+    print("api and emb_list path, emb_list:", json.dumps(out["emb_list"]), flush=True)
+    failed += bad
+    t0 = time.perf_counter()
+    out["minhash"], bad = minhash_leg(kt)
+    out["minhash"]["s"] = time.perf_counter() - t0
+    print("api and emb_list path, minhash:", json.dumps(out["minhash"]), flush=True)
+    failed += bad
+    t0 = time.perf_counter()
+    out["scann_dvr"], held["ivf_adc_scan"], bad = dvr_leg(kt, xb, xq, gt)
+    out["scann_dvr"]["s"] = time.perf_counter() - t0
+    failed += bad
+    t0 = time.perf_counter()
+    out["faiss"], bad = faiss_leg(kt, xb, xq)
+    out["faiss"]["s"] = time.perf_counter() - t0
+    failed += bad
+    t0 = time.perf_counter()
+    out["compat"], bad = compat_leg(kt, xb, xq)
+    out["compat"]["s"] = time.perf_counter() - t0
+    failed += bad
+    out["held"] = held
+    out["phase_s"] = time.perf_counter() - t_path
+    if failed:
+        print("api and emb_list path:", json.dumps(out), flush=True)
+        raise AssertionError(f"api and emb_list path: {failed}")
+    return out
+
+
 def fused_knn_path(xb, xq, gt, flat_search_s, k=10):
     """fused_knn (the single-pass scan) over every query against the 1M base."""
     import torch
@@ -2942,6 +3558,12 @@ def _run_path(name, wrappers, must_launch, fn):
     return out, counts
 
 
+def _no_jax() -> None:
+    bad = [m for m in ("jax", "ml_dtypes", "optax") if m in sys.modules]
+    if bad:
+        raise AssertionError(f"the port imported {bad}")
+
+
 def main() -> int:
     import torch
 
@@ -2956,8 +3578,7 @@ def main() -> int:
     import knowhere_tpu_torch as kt
     from knowhere_tpu_torch.ops import adc_cuda, cuda_build, cuda_flat, fused_topk, ivf_cuda
 
-    if "jax" in sys.modules or "ml_dtypes" in sys.modules:
-        raise AssertionError("the port imported jax or ml_dtypes")
+    _no_jax()
     kt.set_device("cuda")
     dev = torch.device("cuda")
     card = card_line()
@@ -3052,8 +3673,12 @@ def main() -> int:
     # the sparse engines are torch ops: the path launches none of the kernels
     sparse_out, _ = _run_path("sparse path", wrappers, (), lambda: sparse_path(kt))
     print("sparse path:", json.dumps(sparse_out))
-    if "jax" in sys.modules or "ml_dtypes" in sys.modules:
-        raise AssertionError("the port imported jax or ml_dtypes")
+    api_out, _ = _run_path(
+        "api and emb_list path", wrappers, ("flat_group_scan", "ivf_int8_scan", "ivf_f32_scan", "ivf_adc_scan"),
+        lambda: api_emb_list_path(kt, xb, xq, gt),
+    )
+    print("api and emb_list path:", json.dumps(api_out))
+    _no_jax()
     profiles = late_profiles()
     print("late profiles:", json.dumps(profiles))
     # after every timed search: its steps' large blocks do not share a

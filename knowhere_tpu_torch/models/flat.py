@@ -270,7 +270,9 @@ _BINARY = feature.BINARY | feature.MMAP | feature.KNN | feature.NO_TRAIN
 _GPU = feature.ALL_DENSE_TYPE | feature.KNN | feature.NO_TRAIN | feature.GPU
 
 register_index(
-    IndexEnum.INDEX_FAISS_IDMAP, _DENSE_TYPES, feature.ALL_DENSE_TYPE | feature.MMAP | feature.KNN | feature.NO_TRAIN,
+    IndexEnum.INDEX_FAISS_IDMAP,
+    _DENSE_TYPES,
+    feature.ALL_DENSE_TYPE | feature.MMAP | feature.KNN | feature.NO_TRAIN | feature.EMB_LIST,
 )(FlatIndexNode)
 # BINFLAT: the legacy name the reference registers beside BIN_FLAT (flat.cc:418)
 for _name in (IndexEnum.INDEX_FAISS_BIN_IDMAP, "BINFLAT"):

@@ -1101,7 +1101,9 @@ _DENSE = ("fp32",) + _TYPED
 # the reference's feature bits, EMB_LIST aside (the emb_list facade is not
 # ported)
 register_index(
-    IndexEnum.INDEX_HNSW, _DENSE + ("bin1",), _F.ALL_DENSE_TYPE | _F.BINARY | _F.KNN | _F.MMAP | _F.MV,
+    IndexEnum.INDEX_HNSW,
+    _DENSE + ("bin1",),
+    _F.ALL_DENSE_TYPE | _F.BINARY | _F.KNN | _F.MMAP | _F.MV | _F.EMB_LIST,
 )(HnswFlatNode)
 register_index(IndexEnum.INDEX_HNSW_SQ, _DENSE, _F.ALL_DENSE_TYPE | _F.KNN | _F.MMAP)(HnswSqNode)
 register_index(IndexEnum.INDEX_HNSW_PQ, _DENSE, _F.ALL_DENSE_TYPE | _F.KNN | _F.MMAP)(HnswPqNode)

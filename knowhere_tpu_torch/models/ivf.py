@@ -1515,7 +1515,7 @@ class BinIvfFlatNode(IvfIndexNode):
 _DENSE_TYPES = ("fp32",) + _TYPED
 _F = feature
 for _name, _node, _extra in (
-    (IndexEnum.INDEX_FAISS_IVFFLAT, IvfFlatNode, _F.MMAP),
+    (IndexEnum.INDEX_FAISS_IVFFLAT, IvfFlatNode, _F.MMAP | _F.EMB_LIST),
     (IndexEnum.INDEX_FAISS_IVFFLAT_CC, IvfFlatCcNode, 0),
     (IndexEnum.INDEX_FAISS_IVFSQ8, IvfSqNode, _F.MMAP),
     (IndexEnum.INDEX_FAISS_IVFSQ_CC, IvfSqCcNode, 0),

@@ -169,14 +169,14 @@ def _table(reg, modules):
     for (name, dt), (ctor, feats) in reg.items():
         cls = next((c for c in ctor.__defaults__ or () if isinstance(c, type)), ctor)  # register_index's make
         if cls.__module__.rsplit(".", 1)[-1] in modules or name.startswith("SVS_"):
-            out.setdefault(name, [set(), feats & ~JF.EMB_LIST, type(cls(version=0).CreateConfig()).__name__])[0].add(dt)
+            out.setdefault(name, [set(), feats, type(cls(version=0).CreateConfig()).__name__])[0].add(dt)
     return out
 
 
 def test_registry_matches_jax_for_graph_and_cuvs_names():
     """Every HNSW, SVS, HNSW_DEPRECATED, CAGRA and cuVS name the JAX package
-    registers, with the same data types, feature bits (EMB_LIST aside: the
-    emb_list facade is not ported) and config class, and no other."""
+    registers, with the same data types, feature bits (EMB_LIST included)
+    and config class, and no other."""
     modules = ("hnsw", "svs", "cagra")
     want = _table(JFactory.Instance()._registry, modules)
     got = _table(ktt.IndexFactory.Instance()._registry, modules)

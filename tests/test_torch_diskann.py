@@ -487,14 +487,12 @@ def test_registry_matches_jax_for_diskann_names():
 
 def test_registry_lacks_only_the_unported_pairs():
     """The (name, data type) pairs of the JAX package that the port does
-    not register: SCANN_DVR, the SHARDED_* nodes, MINHASH_LSH and FAISS;
-    11 pairs, and none the other way."""
+    not register: the five SHARDED_* nodes at fp32, and none the other way."""
     want = set(JFactory.Instance()._registry)
     got = set(ktt.IndexFactory.Instance()._registry)
     missing = want - got
     assert got - want == set()
-    assert len(missing) == 11, sorted(missing)
-    assert {n for n, _ in missing} == {
-        "SCANN_DVR", "SHARDED_FLAT", "SHARDED_IVF_FLAT", "SHARDED_IVF_PQ", "SHARDED_HNSW", "SHARDED_IVF_SQ8",
-        "MINHASH_LSH", "FAISS",
-    }
+    assert missing == {
+        ("SHARDED_FLAT", "fp32"), ("SHARDED_IVF_FLAT", "fp32"), ("SHARDED_IVF_PQ", "fp32"),
+        ("SHARDED_HNSW", "fp32"), ("SHARDED_IVF_SQ8", "fp32"),
+    }, sorted(missing)

@@ -35,8 +35,9 @@ def test_status_enum_matches_reference():
 
 def test_only_flat_and_ivf_flat_registered():
     """The names the port registers: the FLAT and IVF families, the HNSW
-    family, the SVS names, the CAGRA / cuVS names, the DISKANN family and
-    the sparse family (named when FLAT and IVF_FLAT were all)."""
+    family, the SVS names, the CAGRA / cuVS names, the DISKANN family, the
+    sparse family, SCANN_DVR, MINHASH_LSH and FAISS (named when FLAT and
+    IVF_FLAT were all)."""
     names = {name for name, _ in ktt.IndexFactory.Instance()._registry}
     assert names == {
         "FLAT", "BIN_FLAT", "BINFLAT", "TPU_BRUTE_FORCE", "GPU_CUVS_BRUTE_FORCE", "GPU_BRUTE_FORCE",
@@ -47,6 +48,7 @@ def test_only_flat_and_ivf_flat_registered():
         "GPU_CUVS_CAGRA", "GPU_CAGRA", "TPU_CAGRA", "GPU_CUVS_IVF_FLAT", "GPU_IVF_FLAT", "TPU_IVF_FLAT",
         "GPU_CUVS_IVF_PQ", "GPU_IVF_PQ", "TPU_IVF_PQ", "DISKANN", "DISKANN_DEPRECATED", "AISAQ",
         "SPARSE_INVERTED_INDEX", "SPARSE_WAND", "SPARSE_INVERTED_INDEX_CC", "SPARSE_WAND_CC",
+        "SCANN_DVR", "MINHASH_LSH", "FAISS",
     }
 
 
@@ -106,8 +108,8 @@ def test_misuse_status_matches_reference(name, action, want):
 
 
 def test_unported_family_gives_unknown_index_status():
-    assert kt.IndexFactory.Instance().Create("MINHASH_LSH", data_type="bin1").has_value()
-    got = ktt.IndexFactory.Instance().Create("MINHASH_LSH", data_type="bin1")
+    assert kt.IndexFactory.Instance().Create("SHARDED_FLAT").has_value()
+    got = ktt.IndexFactory.Instance().Create("SHARDED_FLAT")
     unknown = ktt.IndexFactory.Instance().Create("NO_SUCH_INDEX")
     assert got.error() == unknown.error() == ktt.Status.invalid_index_error
 

@@ -253,16 +253,14 @@ def test_refine_store_calc_dist_by_ids_matches_jax(refine_type):
 
 def test_registry_matches_jax_for_flat_and_ivf_names():
     """Every name the JAX package's FLAT and IVF modules register, with the
-    same data types and feature bits (EMB_LIST aside: the emb_list facade is
-    not ported), and no other FLAT or IVF name."""
-    from knowhere_tpu.feature import feature as JF
-
+    same data types and feature bits (EMB_LIST included: FLAT and IVF_FLAT
+    carry it), and no other FLAT or IVF name."""
     def table(reg, modules):
         out = {}
         for (name, dt), (ctor, feats) in reg.items():
             cls = next((c for c in ctor.__defaults__ or () if isinstance(c, type)), ctor)  # register_index's make
             if cls.__module__ in modules:
-                out.setdefault(name, [set(), feats & ~JF.EMB_LIST])[0].add(dt)
+                out.setdefault(name, [set(), feats])[0].add(dt)
         return out
 
     want = table(JFactory.Instance()._registry, ("knowhere_tpu.models.flat", "knowhere_tpu.models.ivf"))
