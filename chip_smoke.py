@@ -152,7 +152,26 @@ Run from the root of a checkout on a machine with one CUDA GPU. In order:
    IVF_FLAT with fp32, fp16 and bf16 type objects (Dump / Load,
    BruteForceSearch, BitSet.SetBit after GetBitSetView), the mock wrapper
    over fp16 rows against an fp32 FLAT on the widened rows, and 4 threads
-   through the thread-pool wrapper against the serial ids;
+   through the thread-pool wrapper against the serial ids; then the sharded
+   path, every leg over four shards of the one card ([cuda:0] * 4):
+   bench.py's Deep10M-like leg (SHARDED_IVF_PQ over 10M x 96, nlist 4096,
+   m 16, FP16 refine, refine_k 8, 500 queries of bench's second generator
+   call) over the nprobe ladder 8, 16, ... to recall@10 >= 0.95 against
+   FLAT's truth over the 10M rows, warm QPS, build s, device and host GB,
+   a 50% bitset, a round trip onto the default device list (one shard:
+   its refine pool a subset of the four shards', so no slot's distance
+   better and >= 95% of slots the same); SHARDED_FLAT over the 1M corpus
+   (its ids FLAT's but near-ties, and each 1,000-query block against an
+   independent full-f32 answer), SHARDED_IVF_FLAT (nlist 1024, nprobe 12)
+   and SHARDED_IVF_SQ8 (nprobe 16) with recall, QPS, a 50% bitset and a
+   round trip of identical ids, SHARDED_HNSW (M 16, efConstruction 200, ef
+   48; the 250,000-row shards build through the f32 scan, the first launch
+   held, and walk 8-bit inline tables) with recall, QPS, a round trip and a
+   5% keep bitset that takes the exact scan (SHARDED_FLAT's filtered ids
+   but near-ties), and sharded k-means at k 1024 against the single-device
+   Lloyd from the same k-means++ init (the rows' clusters and the mean
+   squared distance); the sharded IVF scans take the plain scan, so the
+   path launches only the FLAT truths' and the HNSW builds' kernels;
 12. one torch-profiler pass over one search each of IVF_FLAT (the int8
    scan), IVF_PQ (the ADC scan at its real shape) and IVF_SQ8 FAST (the
    int8 scan over u8 codes), and over one IVF_FLAT RangeSearch of step 6
@@ -358,9 +377,14 @@ PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
 
 def gen_corpus(nb, nq, dim, n_clusters=500, intrinsic_dim=48, seed=0, center_scale=(0.9, 1.6)):
     """SIFT-like gaussian mixture with low intrinsic dimension (the same
-    generator as the reference benchmark's corpus)."""
+    generator as the reference benchmark's corpus, bench.py:516-543): each
+    cluster draws its center scale from U(center_scale), or takes a scalar
+    center_scale as it is."""
     rng = np.random.default_rng(seed)
-    scales = rng.uniform(*center_scale, size=n_clusters).astype(np.float32)
+    if np.isscalar(center_scale):
+        scales = np.full(n_clusters, float(center_scale), np.float32)
+    else:
+        scales = rng.uniform(*center_scale, size=n_clusters).astype(np.float32)
     centers = rng.standard_normal((n_clusters, dim)).astype(np.float32) * scales[:, None]
     W = rng.standard_normal((intrinsic_dim, dim)).astype(np.float32)
     W *= np.sqrt(dim / intrinsic_dim) / np.sqrt(intrinsic_dim)
@@ -3541,6 +3565,290 @@ def range_path(kt, xb, xq, flat, ivf, pq):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The sharded path: the SHARDED_* names over four shards of the one card
+# ---------------------------------------------------------------------------
+
+SHARDS = 4  # each sharded leg spreads over [cuda:0] * SHARDS
+DEEP_NB, DEEP_NQ, DEEP_DIM = 10_000_000, 500, 96  # bench.py's leg_deep (bench.py:1572-1638)
+DEEP_GEN = {"n_clusters": 2000, "seed": 11, "intrinsic_dim": 32, "center_scale": 2.0}
+DEEP_BUILD = {"metric_type": "L2", "nlist": 4096, "m": 16, "nbits": 8, "refine": True, "refine_type": "FP16"}
+DEEP_SEARCH = {"metric_type": "L2", "k": 10, "refine_k": 8}
+DEEP_LADDER = (8, 16, 32, 64, 128, 256, 512, 1024)  # bench.py's ladder
+DEEP_TARGET = 0.95
+DEEP_DIST_TOL = (1e-5, 1e-4)  # rtol, atol: the one-shard load's distances against the four shards'
+ROUND_TRIP_AGREE = 0.95  # and its slots holding the four shards' ids
+SHARDED_IVF = {  # (build, search, recall@10 floor)
+    "SHARDED_IVF_FLAT": ({"metric_type": "L2", "nlist": 1024}, {"metric_type": "L2", "k": 10, "nprobe": 12}, 0.95),
+    "SHARDED_IVF_SQ8": ({"metric_type": "L2", "nlist": 1024}, {"metric_type": "L2", "k": 10, "nprobe": 16}, 0.93),
+}
+# the reference's per-shard walk: 64 routing centroids a shard, ef 48 over
+# 250,000 rows; first measured 0.8413 on an H100 (the JAX package walks the same
+# graphs to the same ids, tests/test_torch_sharding.py)
+SHARDED_HNSW_FLOOR = 0.84
+SHARDED_HNSW_EFS = (96, 192)  # the ef ladder past GRAPH_SEARCH's 48
+SHARDED_KMEANS_K = 1024
+SHARDED_KMEANS_ITERS = 12
+# sharded k-means against the single-device Lloyd from the same init: the
+# shards add their row-order sums in shard order, the single device all rows
+# in row order, so one step's centroids differ in their last bits (and a
+# near-tie row may take the other cluster); over 12 steps the two runs then
+# drift apart (on the H100: 0.995 of the rows in the same cluster,
+# centroids up to 0.78 apart), so one step is held by its centroids and the
+# 12-step runs by the mean squared distance to the nearest centroid
+KMEANS_STEP_TOL = 1e-4  # rtol and atol of one step's centroids
+KMEANS_STEP_SHARE = 0.99  # the share of one step's centroids within it
+KMEANS_INERTIA_RTOL = 1e-4
+
+
+def _shards():
+    import torch
+
+    return [torch.device("cuda", 0)] * SHARDS
+
+
+def _sharded_gb(idx) -> dict:
+    """Device GB of a sharded index's store tensors (every shard, by key) and
+    host GB of its engine's arrays."""
+    import torch
+
+    eng = idx.node._engine
+    dev = {}
+    for sh in eng._shards:
+        for key, t in sh["store"].items():
+            dev[key] = dev.get(key, 0.0) + t.numel() * t.element_size() / 1e9
+    host = sum(a.nbytes for a in (getattr(eng, n, None) for n in ("_payload", "_refine_payload", "_assign", "_xb"))
+               if a is not None)
+    return {"store_device_gb": dev, "host_gb": host / 1e9}
+
+
+def _same_but_ties(xb, xq, ids_a, ids_b, tol=FLAT_EXACT_TIE) -> dict:
+    """Two top-k id lists of the same queries: a row may differ only where
+    its exact (f64) distance lists agree within tol slot for slot (another
+    order, or another id among equal distances)."""
+    rows = np.nonzero((ids_a != ids_b).any(1))[0]
+    bad = []
+    for r in rows:
+        q = xq[r].astype(np.float64)
+        da = ((xb[ids_a[r]].astype(np.float64) - q) ** 2).sum(1)
+        db = ((xb[ids_b[r]].astype(np.float64) - q) ** 2).sum(1)
+        if (ids_a[r] < 0).any() or (ids_b[r] < 0).any() or np.abs(np.sort(da) - np.sort(db)).max() > tol:
+            bad.append(int(r))
+    return {"rows_differing": int(len(rows)), "rows_not_near_tie": len(bad), "bad_rows": bad[:10]}
+
+
+def _reload(kt, idx, name, devices=None):
+    """Serialize, then Deserialize into a new node over ``devices`` (the
+    default list when None): (the node, serialize s, deserialize s)."""
+    bs = kt.BinarySet()
+    st, ser_s = _timed(lambda: idx.Serialize(bs))
+    if st != kt.Status.success:
+        raise RuntimeError(f"{name} Serialize {st.name}")
+    again = kt.IndexFactory.Instance().Create(name, object=devices).value()
+    st, des_s = _timed(lambda: again.Deserialize(bs))
+    if st != kt.Status.success:
+        raise RuntimeError(f"{name} Deserialize {st.name}")
+    return again, ser_s, des_s
+
+
+def _filtered(kt, idx, xq, search, n, seed, keep=0.5):
+    """A search under a bitset that keeps about ``keep`` of n rows: (ids,
+    dists, s, the filtered or empty ids that came back, the filtered mask)."""
+    drop = np.random.default_rng(seed).random(n) >= keep
+    (ids, dists), secs = _timed(lambda: _search(idx, kt, xq, search, kt.BitsetView.from_bool_array(drop)))
+    return ids, dists, secs, int(drop[ids[ids >= 0]].sum() + (ids < 0).sum()), drop
+
+
+def deep_leg(kt):
+    """bench.py's leg_deep, not cut: SHARDED_IVF_PQ over a Deep10M-like
+    10M x 96 corpus on four shards; the nprobe ladder to recall@10 >= 0.95
+    against FLAT's truth over the 10M rows, warm QPS, a 50% bitset, and a
+    round trip onto the default device list (one shard)."""
+    import torch
+
+    out, failed = {}, []
+    t0 = time.perf_counter()
+    xb, _ = gen_corpus(DEEP_NB, 1, DEEP_DIM, **DEEP_GEN)
+    _, xq = gen_corpus(2, DEEP_NQ, DEEP_DIM, **DEEP_GEN)  # bench's second generator call
+    out["gen_s"] = time.perf_counter() - t0
+    (flat, gt), out["truth_s"] = _timed(lambda: _flat_truth(kt, xb, xq))
+    del flat
+    gb0 = _dev_gb()
+    torch.cuda.reset_peak_memory_stats()
+    idx = kt.IndexFactory.Instance().Create("SHARDED_IVF_PQ", object=_shards()).value()
+    st, out["build_s"] = _timed(lambda: idx.Build(kt.GenDataSetFromArray(xb), DEEP_BUILD))
+    if st != kt.Status.success:
+        raise RuntimeError(f"SHARDED_IVF_PQ Build {st.name}")
+    out.update(_sharded_gb(idx), index_device_gb=_dev_gb() - gb0)
+    ladder, cfg = [], None
+    for nprobe in DEEP_LADDER:
+        (ids, _), secs = _timed(lambda: _search(idx, kt, xq, dict(DEEP_SEARCH, nprobe=nprobe)))
+        ladder.append({"nprobe": nprobe, "recall_at_10": recall_at(ids, gt), "first_s": secs})
+        if ladder[-1]["recall_at_10"] >= DEEP_TARGET:
+            cfg = dict(DEEP_SEARCH, nprobe=nprobe)
+            break
+    out["ladder"] = ladder
+    if cfg is None:
+        raise AssertionError(f"SHARDED_IVF_PQ: no nprobe of {DEEP_LADDER} reached recall {DEEP_TARGET}: {ladder}")
+    (ids, dists), times, med = _warm(lambda: _search(idx, kt, xq, cfg))
+    out.update(nprobe=cfg["nprobe"], recall_at_10=recall_at(ids, gt), warm_ms=times, qps=DEEP_NQ / med * 1e3,
+               peak_gb=_peak_gb())
+    if not np.isfinite(dists).all() or (ids < 0).any():
+        failed.append("SHARDED_IVF_PQ: a result not finite or short")
+    *_, out["bitset_50_s"], bad, _ = _filtered(kt, idx, xq, cfg, DEEP_NB, seed=2)
+    if bad:
+        failed.append(f"SHARDED_IVF_PQ: {bad} filtered or empty ids under a 50% bitset")
+    # the default list is one shard here: the refine pool is then one
+    # shard's 80 candidates instead of four shards' 80 each, a subset, so
+    # the loaded index's distances are no better slot for slot
+    one, out["serialize_s"], out["deserialize_s"] = _reload(kt, idx, "SHARDED_IVF_PQ")
+    del idx
+    torch.cuda.empty_cache()
+    if len(one.node._engine.devices) != 1:
+        raise AssertionError(f"the default device list holds {one.node._engine.devices}")
+    ids1, d1 = _search(one, kt, xq, cfg)
+    rtol, atol = DEEP_DIST_TOL
+    out["round_trip"] = {"shards": 1, "slots_agree": float((ids1 == ids).mean()), "recall_at_10": recall_at(ids1, gt),
+                         "slots_better_than_four": int((d1 < dists - (atol + rtol * np.abs(dists))).sum())}
+    if out["round_trip"]["slots_better_than_four"] or out["round_trip"]["slots_agree"] < ROUND_TRIP_AGREE:
+        failed.append(f"SHARDED_IVF_PQ round trip onto one shard: {out['round_trip']}")
+    del one
+    torch.cuda.empty_cache()
+    return out, failed
+
+
+def sharded_1m_legs(kt, xb, xq, gt):
+    """SHARDED_FLAT, SHARDED_IVF_FLAT, SHARDED_IVF_SQ8 and SHARDED_HNSW over
+    the 1M x 128 corpus on four shards, and sharded k-means. Returns (the
+    numbers, the HNSW build's first f32-scan launch held, failures)."""
+    import torch
+
+    from knowhere_tpu_torch.ops import kmeans as K
+    from knowhere_tpu_torch.parallel import sharding as S
+
+    nq, out, failed = len(xq), {}, []
+    flat_cfg = {"metric_type": "L2", "k": 10}
+    sflat = kt.IndexFactory.Instance().Create("SHARDED_FLAT", object=_shards()).value()
+    st, build_s = _timed(lambda: sflat.Build(kt.GenDataSetFromArray(xb), {"metric_type": "L2"}))
+    if st != kt.Status.success:
+        raise RuntimeError(f"SHARDED_FLAT Build {st.name}")
+    (ids, _), times, med = _warm(lambda: _search(sflat, kt, xq, flat_cfg), reps=3)
+    exact = [flat_vs_exact(xb, xq[s : s + 1000], ids[s : s + 1000], 10) for s in range(0, nq, 1000)]
+    out["sharded_flat"] = {"build_s": build_s, "warm_ms": times, "qps": nq / med * 1e3,
+                           "vs_flat": _same_but_ties(xb, xq, ids, gt),
+                           "vs_exact_rows_differing": sum(e["rows_differing"] for e in exact)}
+    if out["sharded_flat"]["vs_flat"]["rows_not_near_tie"]:
+        failed.append(f"SHARDED_FLAT ids differ from FLAT's beyond near-ties: {out['sharded_flat']['vs_flat']}")
+
+    for name, (build, search, floor) in SHARDED_IVF.items():
+        idx = kt.IndexFactory.Instance().Create(name, object=_shards()).value()
+        st, build_s = _timed(lambda: idx.Build(kt.GenDataSetFromArray(xb), build))
+        if st != kt.Status.success:
+            raise RuntimeError(f"{name} Build {st.name}")
+        (ids, dists), times, med = _warm(lambda: _search(idx, kt, xq, search))
+        leg = {"build_s": build_s, "recall_at_10": recall_at(ids, gt), "warm_ms": times, "qps": nq / med * 1e3,
+               **_sharded_gb(idx)}
+        *_, leg["bitset_50_s"], bad, _ = _filtered(kt, idx, xq, search, len(xb), seed=3)
+        again, leg["serialize_s"], leg["deserialize_s"] = _reload(kt, idx, name, _shards())
+        leg["round_trip_ids_identical"] = bool(np.array_equal(_search(again, kt, xq, search)[0], ids))
+        out[name.lower()] = leg
+        if leg["recall_at_10"] < floor or bad or not leg["round_trip_ids_identical"] or (ids < 0).any():
+            failed.append(f"{name}: recall {leg['recall_at_10']} (floor {floor}), {bad} filtered or empty ids "
+                          f"under a 50% bitset, round trip identical {leg['round_trip_ids_identical']}")
+        del idx, again
+        torch.cuda.empty_cache()
+
+    search = dict(GRAPH_SEARCH)
+    idx = kt.IndexFactory.Instance().Create("SHARDED_HNSW", object=_shards()).value()
+    (st, build_s), held = _hold_launches(
+        lambda: _timed(lambda: idx.Build(kt.GenDataSetFromArray(xb), HNSW_BUILD)), ("ivf_f32_scan",),
+        limit=1, tol=(F32_RTOL, F32_ATOL, F32_POS_AGREE))
+    if st != kt.Status.success:
+        raise RuntimeError(f"SHARDED_HNSW Build {st.name}")
+    shards = idx.node._engine._shards
+    if len(shards) != SHARDS or any(sh.get("inline") is None or sh["inline"].bits != 8 for sh in shards):
+        raise AssertionError("SHARDED_HNSW: every 250,000-row shard must walk its 8-bit inline table")
+    (ids, _), times, med = _warm(lambda: _search(idx, kt, xq, search))
+    leg = {"build_s": build_s, "recall_at_10": recall_at(ids, gt), "warm_ms": times, "qps": nq / med * 1e3,
+           **_sharded_gb(idx)}
+    leg["ef_ladder"] = []
+    for ef in SHARDED_HNSW_EFS:
+        (ids_e, _), times_e, med_e = _warm(lambda: _search(idx, kt, xq, dict(search, ef=ef)), reps=3)
+        leg["ef_ladder"].append({"ef": ef, "recall_at_10": recall_at(ids_e, gt), "qps": nq / med_e * 1e3})
+    again, leg["serialize_s"], leg["deserialize_s"] = _reload(kt, idx, "SHARDED_HNSW", _shards())
+    leg["round_trip_ids_identical"] = bool(np.array_equal(_search(again, kt, xq, search)[0], ids))
+    del again
+    # a 5% keep bitset goes to the exact scan: SHARDED_FLAT's filtered ids
+    ids_f, _, leg["bitset_95_s"], bad, drop = _filtered(kt, idx, xq, search, len(xb), seed=4, keep=0.05)
+    want = _search(sflat, kt, xq, flat_cfg, kt.BitsetView.from_bool_array(drop))[0]
+    leg["bitset_95_vs_exact"] = _same_but_ties(xb, xq, ids_f, want)
+    out["sharded_hnsw"] = leg
+    if (leg["recall_at_10"] < SHARDED_HNSW_FLOOR or not leg["round_trip_ids_identical"] or bad
+            or leg["bitset_95_vs_exact"]["rows_not_near_tie"]):
+        failed.append(f"SHARDED_HNSW: recall {leg['recall_at_10']} (floor {SHARDED_HNSW_FLOOR}), round trip "
+                      f"{leg['round_trip_ids_identical']}, 95% bitset {bad} bad ids, {leg['bitset_95_vs_exact']}")
+    del idx, sflat
+    torch.cuda.empty_cache()
+
+    # sharded k-means against the single-device Lloyd from the same init
+    inits, real_init = [], S._kmeanspp_init
+    S._kmeanspp_init = lambda *a: inits.append(real_init(*a)) or inits[-1]  # keep the init it draws
+    try:
+        cents, sharded_s = _timed(lambda: S.sharded_kmeans(_shards(), xb, SHARDED_KMEANS_K, SHARDED_KMEANS_ITERS))
+    finally:
+        S._kmeanspp_init = real_init
+    x_dev = torch.from_numpy(xb).cuda()
+    init = torch.from_numpy(inits[0]).cuda()
+    step_sh = S.sharded_kmeans_step(_shards(), S.shard_rows(_shards(), xb), init).cpu().numpy()
+    single, _ = K._lloyd_step(x_dev, init, k=SHARDED_KMEANS_K)
+    step_one = single.cpu().numpy()
+    for _ in range(SHARDED_KMEANS_ITERS - 1):
+        single, _ = K._lloyd_step(x_dev, single, k=SHARDED_KMEANS_K)
+    single = single.cpu().numpy()
+
+    def nearest(c):
+        """(each row's nearest centroid, the mean squared distance to it)"""
+        c_dev = torch.from_numpy(c).cuda()
+        a = K.assign_device(x_dev, c_dev)
+        return a, float(((x_dev - c_dev[a.long()]) ** 2).sum(1).double().mean())
+
+    (a_sh, inertia), (a_one, inertia_one) = nearest(cents), nearest(single)
+    km = {"k": SHARDED_KMEANS_K, "iters": SHARDED_KMEANS_ITERS, "s": sharded_s,
+          "step_max_abs_diff": float(np.abs(step_sh - step_one).max()),
+          "step_share_close": float(np.isclose(step_sh, step_one, rtol=KMEANS_STEP_TOL,
+                                               atol=KMEANS_STEP_TOL).all(1).mean()),
+          "inertia": inertia, "single_inertia": inertia_one, "assign_agree": float((a_sh == a_one).double().mean()),
+          "centroids_within_1e-4": float(np.isclose(cents, single, rtol=1e-4, atol=1e-4).all(1).mean()),
+          "max_abs_diff": float(np.abs(cents - single).max())}
+    out["sharded_kmeans"] = km
+    if km["step_share_close"] < KMEANS_STEP_SHARE or abs(inertia - inertia_one) > KMEANS_INERTIA_RTOL * inertia_one:
+        failed.append(f"sharded k-means against the single-device Lloyd: {km}")
+    del x_dev
+    torch.cuda.empty_cache()
+    return out, _held_summary(held)["ivf_f32_scan"], failed
+
+
+def sharded_path(kt, xb, xq, gt):
+    """The SHARDED_* names through the public API (the module docstring):
+    every leg over [cuda:0] * 4, the Deep leg's round trip onto the default
+    device list. Raises after the last leg if any check failed."""
+    t_path = time.perf_counter()
+    out = {}
+    t0 = time.perf_counter()
+    out["deep_sharded_ivf_pq"], failed = deep_leg(kt)
+    out["deep_sharded_ivf_pq"]["s"] = time.perf_counter() - t0
+    print("sharded path, deep:", json.dumps(out["deep_sharded_ivf_pq"]), flush=True)
+    t0 = time.perf_counter()
+    legs, out["held"], bad = sharded_1m_legs(kt, xb, xq, gt)
+    out.update(legs, legs_1m_s=time.perf_counter() - t0)
+    failed += bad
+    out["phase_s"] = time.perf_counter() - t_path
+    if failed:
+        print("sharded path:", json.dumps(out), flush=True)
+        raise AssertionError(f"sharded path: {failed}")
+    return out
+
+
 def _run_path(name, wrappers, must_launch, fn):
     """Drive one path with every launch counter zeroed just before it; the
     counts are read just after it, and each kernel of the path must have
@@ -3678,6 +3986,16 @@ def main() -> int:
         lambda: api_emb_list_path(kt, xb, xq, gt),
     )
     print("api and emb_list path:", json.dumps(api_out))
+    # the sharded IVF stores take the plain scan (unaligned per-shard lists,
+    # no kernel sidecars), as in the reference: only the FLAT truths and the
+    # SHARDED_HNSW build's kNN graphs launch kernels
+    sharded_out, counts = _run_path(
+        "sharded path", wrappers, ("ivf_f32_scan", "flat_group_scan"), lambda: sharded_path(kt, xb, xq, gt),
+    )
+    print("sharded path:", json.dumps(sharded_out))
+    stray = {n: c for n, c in counts.items() if c and n not in ("ivf_f32_scan", "flat_group_scan")}
+    if stray:
+        raise AssertionError(f"the sharded path launched {stray}: its IVF scans must take the plain scan")
     _no_jax()
     profiles = late_profiles()
     print("late profiles:", json.dumps(profiles))

@@ -8,6 +8,8 @@ its plain PyTorch version because its inputs lie on the CPU.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -28,6 +30,25 @@ def set_device(device) -> None:
 
 def get_device() -> torch.device:
     return _DEVICE
+
+
+@contextlib.contextmanager
+def scoped_device(device):
+    """Run a block with ``device`` as the port's device and, where it is a
+    CUDA device, as torch.cuda's current device; both are restored after.
+    The sharded indexes (parallel/sharding.py) build and search each shard
+    inside this scope, so every module that places tensors with
+    :func:`to_device` puts that shard's on its own device. The setting is
+    process-wide, as :func:`set_device` is."""
+    global _DEVICE
+    dev = torch.device(device)
+    saved = _DEVICE
+    _DEVICE = dev
+    try:
+        with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
+            yield dev
+    finally:
+        _DEVICE = saved
 
 
 def to_device(a) -> torch.Tensor:

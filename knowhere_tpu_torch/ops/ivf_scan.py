@@ -354,8 +354,11 @@ def _pad16(n: int) -> int:
 
 def _nib(store: Dict[str, torch.Tensor]) -> bool:
     """Whether a PQ store's codes are nibble-packed (two 4-bit codes a byte,
-    models/ivf.py): their rows are then m/2 bytes wide."""
-    return store["codes"].shape[1] != store["books"].shape[0]
+    models/ivf.py): their rows are then m/2 bytes wide. m comes from the
+    kernel's ``books`` where the store has them, else from ``codebooks``
+    (the sharded stores, parallel/sharding.py, carry only those)."""
+    books = store["books"] if "books" in store else store["codebooks"]
+    return store["codes"].shape[1] != books.shape[0]
 
 
 def store_kind(store: Dict[str, torch.Tensor]) -> str:

@@ -19,6 +19,9 @@ import torch
 from ..device import to_device
 
 ASSIGN_CHUNK = 131072
+# f32 scores of one assignment block of the device Lloyd step: a block's
+# (rows, k) scores, their compare and index temporaries stay near 5x this
+ASSIGN_BLOCK_BYTES = 1 << 31
 
 
 def _assign_block(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
@@ -32,8 +35,18 @@ def _assign_block(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
     # smallest index among the minima explicitly
     m = score.min(dim=1, keepdim=True).values
     idx = torch.arange(c.shape[0], device=x.device).expand_as(score)
-    big = torch.full_like(idx, c.shape[0])
-    return torch.where(score == m, idx, big).min(dim=1).values.int()
+    return torch.where(score == m, idx, c.shape[0]).min(dim=1).values.int()
+
+
+def assign_device(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
+    """_assign_block over blocks of rows whose (rows, k) f32 scores stay under
+    ASSIGN_BLOCK_BYTES (one block when they fit): at k = 4096 a training set
+    of 1M rows would otherwise hold 16 GB of scores and 32 GB of indices at
+    once. A row's assignment does not depend on its block."""
+    step = max(1, ASSIGN_BLOCK_BYTES // (4 * centroids.shape[0]))
+    if x.shape[0] <= step:
+        return _assign_block(x, centroids)
+    return torch.cat([_assign_block(x[s : s + step], centroids) for s in range(0, x.shape[0], step)])
 
 
 def cluster_sums(x: torch.Tensor, assign: torch.Tensor, k: int) -> torch.Tensor:
@@ -51,7 +64,7 @@ def cluster_sums(x: torch.Tensor, assign: torch.Tensor, k: int) -> torch.Tensor:
 
 def _lloyd_step(x: torch.Tensor, centroids: torch.Tensor, *, k: int):
     """One Lloyd iteration: returns (new_centroids, counts)."""
-    assign = _assign_block(x, centroids).long()
+    assign = assign_device(x, centroids).long()
     sums = cluster_sums(x, assign, k)
     counts = torch.bincount(assign, minlength=k).float()
     new_c = sums / torch.clamp(counts, min=1.0)[:, None]

@@ -20,7 +20,7 @@ ktt.set_device("cpu")
 def test_import_does_not_pull_in_jax():
     code = (
         "import sys, knowhere_tpu_torch, knowhere_tpu_torch.ops.ivf_scan, "
-        "knowhere_tpu_torch.ops.cuda_flat\n"
+        "knowhere_tpu_torch.ops.cuda_flat, knowhere_tpu_torch.parallel.sharding\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'knowhere_tpu' or m.startswith('knowhere_tpu.')]\n"
         "assert not bad, bad\n"
@@ -36,8 +36,8 @@ def test_status_enum_matches_reference():
 def test_only_flat_and_ivf_flat_registered():
     """The names the port registers: the FLAT and IVF families, the HNSW
     family, the SVS names, the CAGRA / cuVS names, the DISKANN family, the
-    sparse family, SCANN_DVR, MINHASH_LSH and FAISS (named when FLAT and
-    IVF_FLAT were all)."""
+    sparse family, SCANN_DVR, MINHASH_LSH, FAISS and the SHARDED_* names
+    (named when FLAT and IVF_FLAT were all)."""
     names = {name for name, _ in ktt.IndexFactory.Instance()._registry}
     assert names == {
         "FLAT", "BIN_FLAT", "BINFLAT", "TPU_BRUTE_FORCE", "GPU_CUVS_BRUTE_FORCE", "GPU_BRUTE_FORCE",
@@ -49,6 +49,7 @@ def test_only_flat_and_ivf_flat_registered():
         "GPU_CUVS_IVF_PQ", "GPU_IVF_PQ", "TPU_IVF_PQ", "DISKANN", "DISKANN_DEPRECATED", "AISAQ",
         "SPARSE_INVERTED_INDEX", "SPARSE_WAND", "SPARSE_INVERTED_INDEX_CC", "SPARSE_WAND_CC",
         "SCANN_DVR", "MINHASH_LSH", "FAISS",
+        "SHARDED_FLAT", "SHARDED_IVF_FLAT", "SHARDED_IVF_SQ8", "SHARDED_IVF_PQ", "SHARDED_HNSW",
     }
 
 
@@ -108,10 +109,13 @@ def test_misuse_status_matches_reference(name, action, want):
 
 
 def test_unported_family_gives_unknown_index_status():
+    """No family is left unported: SHARDED_FLAT, the last, creates in both
+    packages, and an unknown name gives invalid_index_error in both."""
     assert kt.IndexFactory.Instance().Create("SHARDED_FLAT").has_value()
-    got = ktt.IndexFactory.Instance().Create("SHARDED_FLAT")
+    assert ktt.IndexFactory.Instance().Create("SHARDED_FLAT").has_value()
     unknown = ktt.IndexFactory.Instance().Create("NO_SUCH_INDEX")
-    assert got.error() == unknown.error() == ktt.Status.invalid_index_error
+    assert unknown.error() == ktt.Status.invalid_index_error
+    assert kt.IndexFactory.Instance().Create("NO_SUCH_INDEX").error() == kt.Status.invalid_index_error
 
 
 # Public top-level names of the port that the JAX package lacks by design:
