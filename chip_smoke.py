@@ -3576,6 +3576,7 @@ DEEP_BUILD = {"metric_type": "L2", "nlist": 4096, "m": 16, "nbits": 8, "refine":
 DEEP_SEARCH = {"metric_type": "L2", "k": 10, "refine_k": 8}
 DEEP_LADDER = (8, 16, 32, 64, 128, 256, 512, 1024)  # bench.py's ladder
 DEEP_TARGET = 0.95
+DEEP_EXACT_BLOCK = 125  # queries a full-f32 check of the truth: 5 GB of scores over the 10M rows
 DEEP_DIST_TOL = (1e-5, 1e-4)  # rtol, atol: the one-shard load's distances against the four shards'
 ROUND_TRIP_AGREE = 0.95  # and its slots holding the four shards' ids
 SHARDED_IVF = {  # (build, search, recall@10 floor)
@@ -3584,7 +3585,9 @@ SHARDED_IVF = {  # (build, search, recall@10 floor)
 }
 # the reference's per-shard walk: 64 routing centroids a shard, ef 48 over
 # 250,000 rows; first measured 0.8413 on an H100 (the JAX package walks the same
-# graphs to the same ids, tests/test_torch_sharding.py)
+# graphs to the same ids, tests/test_torch_sharding.py). sharded_hnsw_walk.py
+# shows the gap is that routing: 512 centroids a shard give 0.96786, 1,024
+# give 0.98425; twice the steps 0.85158
 SHARDED_HNSW_FLOOR = 0.84
 SHARDED_HNSW_EFS = (96, 192)  # the ef ladder past GRAPH_SEARCH's 48
 SHARDED_KMEANS_K = 1024
@@ -3673,6 +3676,13 @@ def deep_leg(kt):
     out["gen_s"] = time.perf_counter() - t0
     (flat, gt), out["truth_s"] = _timed(lambda: _flat_truth(kt, xb, xq))
     del flat
+    torch.cuda.empty_cache()
+    # the truth's flat_group_scan launch, the path's only one, held by its
+    # answer: every query's ids against the full-f32 answer over the 10M rows
+    exact = [flat_vs_exact(xb, xq[s : s + DEEP_EXACT_BLOCK], gt[s : s + DEEP_EXACT_BLOCK], 10)
+             for s in range(0, DEEP_NQ, DEEP_EXACT_BLOCK)]
+    out["truth_vs_exact"] = {key: sum(e[key] for e in exact) for key in exact[0]}
+    torch.cuda.empty_cache()
     gb0 = _dev_gb()
     torch.cuda.reset_peak_memory_stats()
     idx = kt.IndexFactory.Instance().Create("SHARDED_IVF_PQ", object=_shards()).value()

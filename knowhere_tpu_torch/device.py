@@ -9,6 +9,7 @@ its plain PyTorch version because its inputs lie on the CPU.
 from __future__ import annotations
 
 import contextlib
+import threading
 
 import numpy as np
 import torch
@@ -20,6 +21,7 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 _DEVICE = torch.device("cuda")
+_SCOPE = threading.local()  # .device: this thread's scoped_device, if one is open
 
 
 def set_device(device) -> None:
@@ -29,7 +31,9 @@ def set_device(device) -> None:
 
 
 def get_device() -> torch.device:
-    return _DEVICE
+    """The calling thread's scoped device where it has one open, else the
+    device set_device selected."""
+    return getattr(_SCOPE, "device", None) or _DEVICE
 
 
 @contextlib.contextmanager
@@ -38,24 +42,25 @@ def scoped_device(device):
     CUDA device, as torch.cuda's current device; both are restored after.
     The sharded indexes (parallel/sharding.py) build and search each shard
     inside this scope, so every module that places tensors with
-    :func:`to_device` puts that shard's on its own device. The setting is
-    process-wide, as :func:`set_device` is."""
-    global _DEVICE
+    :func:`to_device` puts that shard's on its own device. The scope holds
+    for the calling thread only, as ``jax.default_device`` does: another
+    thread (a build pool's worker) keeps its own device."""
     dev = torch.device(device)
-    saved = _DEVICE
-    _DEVICE = dev
+    saved = getattr(_SCOPE, "device", None)
+    _SCOPE.device = dev
     try:
         with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
             yield dev
     finally:
-        _DEVICE = saved
+        _SCOPE.device = saved
 
 
 def to_device(a) -> torch.Tensor:
     """numpy array (or tensor) -> tensor on the port's device."""
+    dev = get_device()
     if isinstance(a, torch.Tensor):
-        return a.to(_DEVICE)
+        return a.to(dev)
     a = np.ascontiguousarray(a)
     if not a.flags.writeable:  # read-only views (memmaps, blobs) are copied
         a = a.copy()
-    return torch.from_numpy(a).to(_DEVICE)
+    return torch.from_numpy(a).to(dev)

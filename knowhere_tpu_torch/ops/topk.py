@@ -33,13 +33,39 @@ _NEG_INF = -float("inf")
 DEFAULT_TILE = 131072
 DEFAULT_QUERY_CHUNK = 1024
 GROUP = 64  # rows a group of the group-max selection
+# f32 rows this wide take topk_leftmost's packed key: on an H100 the stable
+# sort is faster up to 4,096 columns and slower from 8,192 (topk_ab.py)
+PACKED_MIN_COLS = 8192
 
 
 def topk_leftmost(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Row-wise top-k, larger first; among equal values the lower column
-    wins (``torch.topk`` does not promise an order for ties)."""
+    wins (``torch.topk`` does not promise an order for ties). f32 rows of
+    at least PACKED_MIN_COLS columns take the packed-key selection, others
+    the stable sort; both give the same values and columns."""
+    if scores.dtype == torch.float32 and scores.shape[1] >= PACKED_MIN_COLS:
+        return _topk_packed(scores, k)
+    return _topk_sorted(scores, k)
+
+
+def _topk_sorted(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     vals, idx = torch.sort(scores, dim=1, descending=True, stable=True)
     return vals[:, :k], idx[:, :k]
+
+
+def _topk_packed(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each f32 value and its column packed into one int64 key: the value's
+    bits made order-preserving in the high word (-0.0 as +0.0, every NaN as
+    the positive NaN the sort puts first), the column reversed in the low
+    word. The keys are distinct, so torch.topk's k largest are the sort's
+    first k, in its order, without sorting whole rows."""
+    s = torch.where(torch.isnan(scores), float("nan"), scores + 0.0)
+    bits = s.view(torch.int32)
+    ordered = bits ^ ((bits >> 31) & 0x7FFFFFFF)
+    col = torch.arange(scores.shape[1], device=scores.device, dtype=torch.int64)
+    key = (ordered.long() << 32) | (0xFFFFFFFF - col)[None, :]
+    idx = torch.topk(key, min(k, scores.shape[1]), dim=1).indices
+    return torch.gather(scores, 1, idx), idx
 
 
 def _tile_candidates(score: torch.Tensor, kk: int, groups: bool, off: int) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -95,20 +95,6 @@ def replicate(devices: List[torch.device], x) -> List[torch.Tensor]:
 # ---------------------------------------------------------------------------
 
 
-def _topk_rows(score: torch.Tensor, kk: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """topk_leftmost(score, kk) without sorting whole rows: each value and
-    its column pack into one int64 key (the value's bits made
-    order-preserving in the high word, the column reversed in the low
-    word), so the keys are distinct and torch.topk's kk largest are
-    topk_leftmost's, in its order. -0.0 counts as +0.0, as in a compare."""
-    bits = (score + 0.0).view(torch.int32)
-    ordered = bits ^ ((bits >> 31) & 0x7FFFFFFF)
-    col = torch.arange(score.shape[1], device=score.device, dtype=torch.int64)
-    key = (ordered.long() << 32) | (0xFFFFFFFF - col)[None, :]
-    idx = torch.topk(key, kk, dim=1).indices
-    return torch.gather(score, 1, idx), idx
-
-
 def sharded_search(
     devices: List[torch.device],
     queries,
@@ -143,7 +129,7 @@ def sharded_search(
                     score[:, max(valid_rows - row0, 0) :] = NEG_INF
                 if mask is not None:
                     score = score.masked_fill(~mask[si][None, :], NEG_INF)
-                s, idx = _topk_rows(score, kk)
+                s, idx = topk_leftmost(score, kk)
                 s_blocks.append(s)
                 i_blocks.append(idx + row0)
         parts_s.append(torch.cat(s_blocks).to(devices[0]))

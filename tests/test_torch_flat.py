@@ -115,3 +115,23 @@ def test_flat_spills_host_copy(monkeypatch):
     np.testing.assert_array_equal(np.asarray(idx.node._xb), np.concatenate([xb, more]))
     assert _search(idx, ktt, more[:4], "L2")[0][:, 0].tolist() == [20000, 20001, 20002, 20003]
     assert isinstance(idx.node._xb, np.memmap)
+
+
+@pytest.mark.parametrize("k", [1, 7, 64, 300, 400])
+def test_topk_packed_equals_sorted(k):
+    """topk_leftmost's two selections give the same values (bit for bit)
+    and columns: ties (repeated values, -0.0 beside +0.0, +-inf, NaN of
+    either sign) come back lowest column first; f32 rows of
+    PACKED_MIN_COLS columns take the packed key."""
+    from knowhere_tpu_torch.ops import topk as T
+
+    g = torch.Generator().manual_seed(0)
+    nan = float("nan")
+    vals = torch.tensor([3.0, -1.0, 0.0, -0.0, 2.5, float("-inf"), float("inf"), -7.25, 1e-30, -1e-30, nan, -nan])
+    for cols in (300, T.PACKED_MIN_COLS):
+        score = vals[torch.randint(0, len(vals), (16, cols), generator=g)]
+        score[5] = float("-inf")
+        want = T._topk_sorted(score, k)
+        for got in (T._topk_packed(score, k), T.topk_leftmost(score, k)):
+            assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+            assert torch.equal(got[1], want[1])

@@ -21,7 +21,6 @@ import jax
 import knowhere_tpu_torch as ktt
 from knowhere_tpu.parallel import sharding as JS
 from knowhere_tpu_torch import device as tdev
-from knowhere_tpu_torch.ops.topk import topk_leftmost
 from knowhere_tpu_torch.parallel import sharding as S
 
 from .utils import knn_recall
@@ -141,20 +140,6 @@ class TestShardedSearch:
         dists, ids = idx.search(xq, 10)
         assert sorted(ids[0, :6].tolist()) == list(range(6))
         assert (ids[:, 6:] == -1).all() and np.isinf(dists[:, 6:]).all()
-
-
-def test_topk_rows_equals_topk_leftmost():
-    """The packed-key selection against the sort: ties (repeated values,
-    -0.0 beside +0.0, -inf) come back lowest column first."""
-    g = torch.Generator().manual_seed(0)
-    vals = torch.tensor([3.0, -1.0, 0.0, -0.0, 2.5, float("-inf"), -7.25, 1e-30, -1e-30])
-    score = vals[torch.randint(0, len(vals), (64, 300), generator=g)]
-    score[5] = float("-inf")
-    for kk in (1, 7, 64, 300):
-        s_a, i_a = S._topk_rows(score, kk)
-        s_b, i_b = topk_leftmost(score, kk)
-        torch.testing.assert_close(s_a, s_b, rtol=0, atol=0)
-        assert torch.equal(i_a, i_b)
 
 
 class TestShardedKmeans:
@@ -360,6 +345,30 @@ class TestDevices:
             with tdev.scoped_device("meta"):
                 raise RuntimeError("inside the scope")
         assert ktt.get_device() == before
+
+    def test_scoped_device_holds_for_its_thread_only(self):
+        """A scope open on one thread leaves another thread's placement on
+        the port's device, as jax.default_device does."""
+        import threading
+
+        opened, done, seen = threading.Event(), threading.Event(), {}
+
+        def scoped():
+            with tdev.scoped_device("meta"):
+                seen["inside"] = tdev.to_device(np.zeros(3, np.float32)).device
+                opened.set()
+                done.wait(10)
+
+        t = threading.Thread(target=scoped)
+        t.start()
+        try:
+            assert opened.wait(10)
+            assert ktt.get_device() == torch.device("cpu")
+            assert tdev.to_device(np.zeros(3, np.float32)).device == torch.device("cpu")
+        finally:
+            done.set()
+            t.join()
+        assert seen["inside"].type == "meta"
 
     def test_default_devices(self, monkeypatch):
         assert S.default_devices() == [torch.device("cpu")]
