@@ -63,6 +63,7 @@ from ..ops import topk as T
 from ..ops.distances import pad_rows_ladder
 from ..ops.refine import RefineStore, refine_topk_device, sq8_encode
 from ..status import KnowhereException, Status, expected
+from ..utils import tracing
 from ..utils.bf16 import as_f32, bf16_bits, rows_to_device
 
 # Bitset density beyond which the walk strands and the reference falls back
@@ -604,36 +605,40 @@ class HnswIndexNode(IndexNode):
                 )
             k = cfg.k
             ef = self._effective_ef(cfg, k)
-            xq = self._prep_rows(np.asarray(dataset.tensor))
-            nq = xq.shape[0]
-            # dense filter: exact scan (reference conditional wrapper); a
-            # pure-AND materialized-view hint over few categories means a
-            # clustered filter, where walks strand earlier
-            ratio = bitset.filter_ratio() if not bitset.empty_view() else 0.0
-            threshold = BRUTE_FORCE_FALLBACK_RATIO
-            mv = cfg.get("materialized_view_search_info")
-            if isinstance(mv, dict):
-                touched = mv.get("field_id_to_touched_categories_cnt", {})
-                few_categories = touched and max(touched.values()) <= 2
-                if mv.get("is_pure_and", False) and not mv.get("has_not", False) and few_categories:
-                    threshold = min(threshold, 0.5)
-            if ratio >= threshold and not cfg.get("disable_fallback_brute_force", False):
+            with tracing.span("hnsw.prep"):
+                xq = self._prep_rows(np.asarray(dataset.tensor))
+                nq = xq.shape[0]
+                # dense filter: exact scan (reference conditional wrapper); a
+                # pure-AND materialized-view hint over few categories means a
+                # clustered filter, where walks strand earlier
+                ratio = bitset.filter_ratio() if not bitset.empty_view() else 0.0
+                threshold = BRUTE_FORCE_FALLBACK_RATIO
+                mv = cfg.get("materialized_view_search_info")
+                if isinstance(mv, dict):
+                    touched = mv.get("field_id_to_touched_categories_cnt", {})
+                    few_categories = touched and max(touched.values()) <= 2
+                    if mv.get("is_pure_and", False) and not mv.get("has_not", False) and few_categories:
+                        threshold = min(threshold, 0.5)
+                fallback = ratio >= threshold and not cfg.get("disable_fallback_brute_force", False)
+                if not fallback:
+                    q_pad_dev = dataset.cached_device(
+                        f"hnsw_qpad:{self._metric}:{self.data_type}:{get_device()}",
+                        lambda: to_device(pad_rows_ladder(xq)),
+                    )
+            if fallback:
                 dists, ids = self._brute_force(xq, k, bitset)
+            else:
+                dists, ids = self._graph_search(
+                    xq, k, ef, bitset, refine_k=int(cfg.get("refine_k", 1) or 1), q_pad_dev=q_pad_dev
+                )
+                # under a filter the walk may strand some queries: fill them exactly
+                if not bitset.empty_view():
+                    want = min(k, self.Count() - bitset.count())
+                    unfilled = (ids >= 0).sum(1) < want
+                    if unfilled.any():
+                        dists[unfilled], ids[unfilled] = self._brute_force(xq[unfilled], k, bitset)
+            with tracing.span("hnsw.result"):
                 return expected.Ok(GenResultDataSet(nq, k, ids, dists))
-
-            q_pad_dev = dataset.cached_device(
-                f"hnsw_qpad:{self._metric}:{self.data_type}:{get_device()}", lambda: to_device(pad_rows_ladder(xq))
-            )
-            dists, ids = self._graph_search(
-                xq, k, ef, bitset, refine_k=int(cfg.get("refine_k", 1) or 1), q_pad_dev=q_pad_dev
-            )
-            # under a filter the walk may strand some queries: fill them exactly
-            if not bitset.empty_view():
-                want = min(k, self.Count() - bitset.count())
-                unfilled = (ids >= 0).sum(1) < want
-                if unfilled.any():
-                    dists[unfilled], ids[unfilled] = self._brute_force(xq[unfilled], k, bitset)
-            return expected.Ok(GenResultDataSet(nq, k, ids, dists))
 
     def _query_chunks(self, xq: np.ndarray, chunk: int, q_pad_dev):
         """Device query blocks of one walk: the cached padded upload when all
@@ -655,22 +660,24 @@ class HnswIndexNode(IndexNode):
         for LeanVec: ``xq`` is always the full-width query), else the scores
         convert (|q|^2 - score for L2 and HAMMING, 1 - score for JACCARD)."""
         if self._refine_store is not None:
-            with torch.profiler.record_function("hnsw.refine"):
+            with tracing.span("hnsw.refine"):
                 dd, ii = refine_topk_device(
                     to_device(xq), self._refine_store, to_device(np.ascontiguousarray(ids, dtype=np.int32)), k, is_l2
                 )
-                dists, ids = dd.cpu().numpy(), ii.cpu().numpy()
-        else:
-            scores, ids = scores[:, :k], ids[:, :k]
-            if self._internal_metric() == M.JACCARD:
-                dists = 1.0 - scores
-            elif is_l2:
-                qsq = np.sum(xq.astype(np.float64) ** 2, axis=1).astype(np.float32)
-                dists = qsq[:, None] - scores
-            else:
-                dists = scores
-        dists = np.where(ids < 0, np.float32(np.inf if is_l2 else -np.inf), dists)
-        return dists, ids.astype(np.int64)
+                with tracing.span("hnsw.readback", wait=True):
+                    dists, ids = dd.cpu().numpy(), ii.cpu().numpy()
+        with tracing.span("hnsw.result"):
+            if self._refine_store is None:
+                scores, ids = scores[:, :k], ids[:, :k]
+                if self._internal_metric() == M.JACCARD:
+                    dists = 1.0 - scores
+                elif is_l2:
+                    qsq = np.sum(xq.astype(np.float64) ** 2, axis=1).astype(np.float32)
+                    dists = qsq[:, None] - scores
+                else:
+                    dists = scores
+            dists = np.where(ids < 0, np.float32(np.inf if is_l2 else -np.inf), dists)
+            return dists, ids.astype(np.int64)
 
     def _graph_search(self, xq, k, ef, bitset: BitsetView, refine_k: int = 1, q_pad_dev=None):
         if self._inline is not None:
@@ -709,8 +716,9 @@ class HnswIndexNode(IndexNode):
             )
             scores_l.append(sc[:n_real])
             ids_l.append(ic[:n_real])
-        scores = torch.cat(scores_l).cpu().numpy()
-        ids = torch.cat(ids_l).cpu().numpy()
+        with tracing.span("hnsw.readback", wait=True):
+            scores = torch.cat(scores_l).cpu().numpy()
+            ids = torch.cat(ids_l).cpu().numpy()
         return self._finish(xq_full, scores, ids, k, refine_k, is_l2)
 
     def _graph_search_inline(self, xq, k, ef, bitset: BitsetView, refine_k: int = 1, q_pad_dev=None):
@@ -745,8 +753,9 @@ class HnswIndexNode(IndexNode):
             )
             scores_l.append(rs[:n_real])
             ids_l.append(ri[:n_real])
-        scores = torch.cat(scores_l).cpu().numpy()
-        ids = torch.cat(ids_l).cpu().numpy()
+        with tracing.span("hnsw.readback", wait=True):
+            scores = torch.cat(scores_l).cpu().numpy()
+            ids = torch.cat(ids_l).cpu().numpy()
         return self._finish(xq, scores, ids, k, refine_k, is_l2)
 
     def _brute_force(self, xq, k, bitset: BitsetView):
@@ -766,11 +775,12 @@ class HnswIndexNode(IndexNode):
         mask = bitset.device_mask(self.Count()) if not bitset.empty_view() else None
         aux = D.base_aux(metric, data)
         d_parts, i_parts = [], []
-        with torch.profiler.record_function("hnsw.brute_force"):
+        with tracing.span("hnsw.brute_force"):
             for s0 in range(0, xq.shape[0], _BRUTE_QUERY_CHUNK):
                 dd, ii = T.knn_device(to_device(xq[s0 : s0 + _BRUTE_QUERY_CHUNK]), data, k, metric, aux=aux, mask=mask)
-                d_parts.append(dd.cpu().numpy())
-                i_parts.append(ii.cpu().numpy().astype(np.int64))
+                with tracing.span("hnsw.readback", wait=True):
+                    d_parts.append(dd.cpu().numpy())
+                    i_parts.append(ii.cpu().numpy().astype(np.int64))
         return np.concatenate(d_parts), np.concatenate(i_parts)
 
     def _decode_all(self) -> np.ndarray:

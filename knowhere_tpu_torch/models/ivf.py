@@ -114,6 +114,7 @@ from ..ops.refine import RefineStore, refine_topk_device, sq8_encode
 from ..status import KnowhereException, Status, expected
 from ..utils.bf16 import as_f32, bf16_bits, bf16_to_f32, rows_to_device
 from ..utils.logging import log_warning
+from ..utils import tracing
 from ..utils.spill import release_spill, spill_dict
 
 MIN_POINTS_PER_CENTROID = 39  # reference ivf.cc:478
@@ -959,27 +960,29 @@ class IvfIndexNode(IndexNode):
         re-rank its first nq rows, in query blocks when the merge pool is
         wide (_scan_blocks): (scores or dists, positions, "score" | "dist")
         of those nq rows, on the device."""
-        is_l2 = self._is_l2_like()
-        q_scan = q_pad_dev @ self._store["rot_t"] if "rot_t" in self._store else q_pad_dev
-        nprobe = self._nlist if probes is None else probes.shape[1]
-        rerank = self._rerank(plan, k)
-        blocks, width, chunk = self._scan_blocks(plan, nprobe, nq, rerank)
-        outs = []
-        for b0, b1 in blocks or [(0, q_pad_dev.shape[0])]:  # one block: the whole padded batch
-            s, p = ivf_scan_search(
-                q_scan[b0:b1], self._store, None if probes is None else probes[b0:b1], self._offsets,
-                plan.k_scan, is_l2, keep_sorted=keep_sorted, prec=plan.prec, list_lengths=self._lengths,
-                sq_levels=self._sq_levels, sq_packed4=self._sq_packed4, route=plan.route,
-                is_jaccard=self._is_jaccard(),
-            )
-            n = min(b1, nq) - b0
-            if rerank is not None:
-                s, p = self._rescore(q_pad_dev[b0 : b0 + n], p[:n, :width], rerank, chunk, is_l2)
-            outs.append((s[:n], p[:n]))
-        mode = "score" if rerank is None else "dist"
-        if len(outs) == 1:
-            return (*outs[0], mode)
-        return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs]), mode
+        with tracing.span("ivf.scan"):
+            is_l2 = self._is_l2_like()
+            q_scan = q_pad_dev @ self._store["rot_t"] if "rot_t" in self._store else q_pad_dev
+            nprobe = self._nlist if probes is None else probes.shape[1]
+            rerank = self._rerank(plan, k)
+            blocks, width, chunk = self._scan_blocks(plan, nprobe, nq, rerank)
+            outs = []
+            for b0, b1 in blocks or [(0, q_pad_dev.shape[0])]:  # one block: the whole padded batch
+                s, p = ivf_scan_search(
+                    q_scan[b0:b1], self._store, None if probes is None else probes[b0:b1], self._offsets,
+                    plan.k_scan, is_l2, keep_sorted=keep_sorted, prec=plan.prec, list_lengths=self._lengths,
+                    sq_levels=self._sq_levels, sq_packed4=self._sq_packed4, route=plan.route,
+                    is_jaccard=self._is_jaccard(),
+                )
+                n = min(b1, nq) - b0
+                if rerank is not None:
+                    with tracing.span("ivf.refine"):
+                        s, p = self._rescore(q_pad_dev[b0 : b0 + n], p[:n, :width], rerank, chunk, is_l2)
+                outs.append((s[:n], p[:n]))
+            mode = "score" if rerank is None else "dist"
+            if len(outs) == 1:
+                return (*outs[0], mode)
+            return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs]), mode
 
     @staticmethod
     def _rescore(q, cand, rerank, chunk: int, is_l2: bool):
@@ -997,7 +1000,8 @@ class IvfIndexNode(IndexNode):
         q_pad = self._pad_q_host(xq_sub)
         fill = np.full((q_pad.shape[0] - n_sub, probes_sub.shape[1]), -1, np.int32)
         s, p, _ = self._run_scan(to_device(q_pad), np.concatenate([probes_sub, fill]), plan, keep_sorted, k, n_sub)
-        return s[:n_sub].cpu().numpy(), p[:n_sub].cpu().numpy().astype(np.int64)
+        with tracing.span("ivf.readback", wait=True):
+            return s[:n_sub].cpu().numpy(), p[:n_sub].cpu().numpy().astype(np.int64)
 
     def _search_batch(
         self, xq: np.ndarray, k: int, nprobe: int, keep_sorted, n_valid: int,
@@ -1010,63 +1014,69 @@ class IvfIndexNode(IndexNode):
         nq = xq.shape[0]
         is_l2 = self._is_l2_like()
         nb = len(self._row_ids)
-        plan = self._scan_plan(k, refine_k, reorder_k)
-        nprobe_cur = min(max(1, nprobe), self._nlist)
-        nq_pad = q_pad_dev.shape[0]
-        if nprobe_cur >= self._nlist:
-            probes = None  # full probe: the deterministic full-scan layout
-        elif plan.route != "plain" or nq * self._nlist * max(self._dim, 1) > 1 << 24:
-            # a kernel path (the reference's fused path) keeps the probe on the device
-            probes = coarse_probe(q_pad_dev, self._store["centroids"], nprobe=nprobe_cur, is_l2=is_l2)
-            # padded query rows would probe real lists: mask them out
-            row = torch.arange(nq_pad, device=probes.device)[:, None]
-            probes = torch.where(row < nq, probes, torch.full_like(probes, -1))
-        else:
-            probes = coarse_probe_host(xq, self._centroids, nprobe_cur, is_l2)
-            probes = np.concatenate([probes, np.full((nq_pad - nq, probes.shape[1]), -1, np.int32)])
+        with tracing.span("ivf.probe"):
+            plan = self._scan_plan(k, refine_k, reorder_k)
+            nprobe_cur = min(max(1, nprobe), self._nlist)
+            nq_pad = q_pad_dev.shape[0]
+            if nprobe_cur >= self._nlist:
+                probes = None  # full probe: the deterministic full-scan layout
+            elif plan.route != "plain" or nq * self._nlist * max(self._dim, 1) > 1 << 24:
+                # a kernel path (the reference's fused path) keeps the probe on the device
+                probes = coarse_probe(q_pad_dev, self._store["centroids"], nprobe=nprobe_cur, is_l2=is_l2)
+                # padded query rows would probe real lists: mask them out
+                row = torch.arange(nq_pad, device=probes.device)[:, None]
+                probes = torch.where(row < nq, probes, torch.full_like(probes, -1))
+            else:
+                probes = coarse_probe_host(xq, self._centroids, nprobe_cur, is_l2)
+                probes = np.concatenate([probes, np.full((nq_pad - nq, probes.shape[1]), -1, np.int32)])
         s, p, mode = self._run_scan(q_pad_dev, probes, plan, keep_sorted, k, nq)
-        best_s = s[:nq].cpu().numpy()
-        best_p = p[:nq].cpu().numpy().astype(np.int64)
+        with tracing.span("ivf.readback", wait=True):
+            best_s = s[:nq].cpu().numpy()
+            best_p = p[:nq].cpu().numpy().astype(np.int64)
 
         # ensure_topk_full: re-probe only the short queries, nprobe x4 a round
         if ensure_topk_full and nprobe_cur < self._nlist:
-            want = min(best_p.shape[1], n_valid)
-            while True:
-                check_current_cancellation()
-                unfilled = (best_p >= 0).sum(axis=1) < want
-                if not unfilled.any() or nprobe_cur >= self._nlist:
-                    break
-                active = np.nonzero(unfilled)[0]
-                nprobe_cur = min(self._nlist, nprobe_cur * 4)
-                if len(active) * self._nlist <= 1 << 20:
-                    probes_act = coarse_probe_host(xq[active], self._centroids, nprobe_cur, is_l2)
-                else:
-                    q_act = to_device(self._pad_q_host(xq[active]))[: len(active)]
-                    probes_act = coarse_probe(
-                        q_act, self._store["centroids"], nprobe=nprobe_cur, is_l2=is_l2
-                    ).cpu().numpy()
-                best_s[active], best_p[active] = self._rescan_subset(xq[active], probes_act, plan, keep_sorted, k)
+            with tracing.span("ivf.topk_full"):
+                want = min(best_p.shape[1], n_valid)
+                while True:
+                    check_current_cancellation()
+                    unfilled = (best_p >= 0).sum(axis=1) < want
+                    if not unfilled.any() or nprobe_cur >= self._nlist:
+                        break
+                    active = np.nonzero(unfilled)[0]
+                    nprobe_cur = min(self._nlist, nprobe_cur * 4)
+                    if len(active) * self._nlist <= 1 << 20:
+                        probes_act = coarse_probe_host(xq[active], self._centroids, nprobe_cur, is_l2)
+                    else:
+                        q_act = to_device(self._pad_q_host(xq[active]))[: len(active)]
+                        probes_act = coarse_probe(
+                            q_act, self._store["centroids"], nprobe=nprobe_cur, is_l2=is_l2
+                        ).cpu().numpy()
+                    best_s[active], best_p[active] = self._rescan_subset(
+                        xq[active], probes_act, plan, keep_sorted, k
+                    )
 
-        if mode == "dist":
-            dists = best_s
-        elif self._is_rabitq():  # the estimator's score is the negated distance for L2
-            dists = -best_s if is_l2 else best_s
-        elif self._is_jaccard():  # the scan scores the similarity
-            dists = 1.0 - best_s
-        elif is_l2:
-            qsq = np.sum(xq.astype(np.float64) ** 2, axis=1).astype(np.float32)
-            dists = qsq[:, None] - best_s
-        else:
-            dists = best_s
-        dists = np.where(best_p >= 0, dists, np.float32(np.inf if is_l2 else -np.inf))
-        k_cut = min(k, dists.shape[1])
-        dists, best_p = dists[:, :k_cut], best_p[:, :k_cut]
-        if k_cut < k:  # tiny index: fewer candidates than k
-            fillv = np.float32(np.inf if is_l2 else -np.inf)
-            dists = np.pad(dists, ((0, 0), (0, k - k_cut)), constant_values=fillv)
-            best_p = np.pad(best_p, ((0, 0), (0, k - k_cut)), constant_values=-1)
-        ids = np.where(best_p >= 0, self._row_ids[np.clip(best_p, 0, nb - 1)], -1)
-        return dists, ids
+        with tracing.span("ivf.result"):
+            if mode == "dist":
+                dists = best_s
+            elif self._is_rabitq():  # the estimator's score is the negated distance for L2
+                dists = -best_s if is_l2 else best_s
+            elif self._is_jaccard():  # the scan scores the similarity
+                dists = 1.0 - best_s
+            elif is_l2:
+                qsq = np.sum(xq.astype(np.float64) ** 2, axis=1).astype(np.float32)
+                dists = qsq[:, None] - best_s
+            else:
+                dists = best_s
+            dists = np.where(best_p >= 0, dists, np.float32(np.inf if is_l2 else -np.inf))
+            k_cut = min(k, dists.shape[1])
+            dists, best_p = dists[:, :k_cut], best_p[:, :k_cut]
+            if k_cut < k:  # tiny index: fewer candidates than k
+                fillv = np.float32(np.inf if is_l2 else -np.inf)
+                dists = np.pad(dists, ((0, 0), (0, k - k_cut)), constant_values=fillv)
+                best_p = np.pad(best_p, ((0, 0), (0, k - k_cut)), constant_values=-1)
+            ids = np.where(best_p >= 0, self._row_ids[np.clip(best_p, 0, nb - 1)], -1)
+            return dists, ids
 
     def _queries(self, dataset: DataSet) -> Tuple[np.ndarray, torch.Tensor]:
         """(compute rows on the host, the padded batch on the device, cached
@@ -1101,15 +1111,18 @@ class IvfIndexNode(IndexNode):
             snap = self._epoch_snapshot()
         # the scan runs outside the lock on the snapshot: a concurrent Add
         # never waits for it, and its epoch swap changes nothing under it
-        xq, q_pad_dev = snap._queries(dataset)
+        with tracing.span("ivf.queries"):
+            xq, q_pad_dev = snap._queries(dataset)
+            keep_sorted = snap._keep_sorted_mask(bitset)
         dists, ids = snap._search_batch(
-            xq, cfg.k, int(cfg.get("nprobe", 8)), snap._keep_sorted_mask(bitset), snap._n_valid(bitset),
+            xq, cfg.k, int(cfg.get("nprobe", 8)), keep_sorted, snap._n_valid(bitset),
             bool(cfg.get("ensure_topk_full", True)), q_pad_dev, int(cfg.get("refine_k", 1) or 1),
             cfg.get("reorder_k"),
         )
-        if snap._pending_count:
-            dists, ids = snap._merge_with_pending(xq, cfg.k, dists, ids, bitset)
-        return expected.Ok(GenResultDataSet(dataset.rows, cfg.k, ids, dists))
+        with tracing.span("ivf.result"):
+            if snap._pending_count:
+                dists, ids = snap._merge_with_pending(xq, cfg.k, dists, ids, bitset)
+            return expected.Ok(GenResultDataSet(dataset.rows, cfg.k, ids, dists))
 
     def _merge_with_pending(self, xq, k: int, dists, ids, bitset: BitsetView):
         """The search's (dists, ids) merged with an exact scan of the pending

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from ..device import to_device
+from ..utils import tracing
 from . import distances as D
 from . import topk as T
 from .topk import topk_leftmost
@@ -495,13 +496,16 @@ def beam_search(
     res_s, res_ids = res_s[:, :k], res_ids[:, :k]
     res_ids = torch.where(res_s == NEG_INF, torch.full_like(res_ids, -1), res_ids)
 
-    with torch.profiler.record_function("graph.walk"):
+    with tracing.span("graph.walk"):
         done = torch.zeros(nq, dtype=torch.bool, device=dev)
         cols_ef = torch.arange(ef, device=dev)
         tri = torch.tril(torch.ones((G_full, G_full), dtype=torch.bool, device=dev), -1) if W > 1 else None
         for i in range(max_iters):
-            if i and i % DONE_CHECK_STEPS == 0 and bool(done.all()):
-                break
+            if i and i % DONE_CHECK_STEPS == 0:
+                with tracing.span("graph.done_check", wait=True):
+                    finished = bool(done.all())
+                if finished:
+                    break
             expanded = (beam_p & 1) == 1
             beam_ids = beam_p >> 1
             cand_s = torch.where(expanded, torch.full_like(beam_s, NEG_INF), beam_s)

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..device import to_device
+from ..utils import tracing
 from .graph import DONE_CHECK_STEPS, decode_rows, sort_desc
 from .quant import lvq_decode
 from .topk import topk_leftmost
@@ -139,7 +140,7 @@ def beam_search_inline(
         dots, nrm = _decoded_scores(rerank_kind, q, rerank0, rerank1, rerank2, ids2d)
         return 2.0 * dots - nrm if is_l2 else dots
 
-    with torch.profiler.record_function("graph_inline.seed"):
+    with tracing.span("graph_inline.seed"):
         # seed: each query's n_seed nearest centroids' resident nodes, a repeated
         # node kept once (an earlier column holds it)
         cs = q @ cents.T
@@ -175,13 +176,18 @@ def beam_search_inline(
             )
             res_s, res_p = res_s[:, :P], res_p[:, :P]
 
-    with torch.profiler.record_function("graph_inline.walk"):
+    with tracing.span("graph_inline.walk"):
+        # counters (tracing on): candidates scored, those fresh
+        counting = tracing.enabled()
         done = torch.zeros(nq, dtype=torch.bool, device=dev)
         cols = torch.arange(ef, device=dev)
         tri = torch.tril(torch.ones((G, G), dtype=torch.bool, device=dev), -1) if W > 1 else None
         for i in range(n_steps):
-            if i and i % DONE_CHECK_STEPS == 0 and bool(done.all()):
-                break
+            if i and i % DONE_CHECK_STEPS == 0:
+                with tracing.span("graph_inline.done_check", wait=True):
+                    finished = bool(done.all())
+                if finished:
+                    break
             expanded = (beam_p & 1) == 1
             bids = beam_p >> 1
             cand_s = torch.where(expanded, torch.full_like(beam_s, NEG), beam_s)
@@ -209,6 +215,9 @@ def beam_search_inline(
             fresh = (nbrs >= 0) & ~seen & ~in_beam
             if W > 1:  # one node may arrive from several parents in a step
                 fresh &= ~((nbrs[:, :, None] == nbrs[:, None, :]) & (fresh[:, None, :] & tri[None])).any(dim=2)
+            if counting:
+                tracing.count("graph_inline.scored", nq * G)
+                tracing.count("graph_inline.fresh", fresh.sum())
             off = n_seed + (i % ring_slots) * G
             visited[:, off : off + G] = torch.where(fresh, nbrs, torch.full_like(nbrs, -1))
             scores = torch.where(fresh, scores, torch.full_like(scores, NEG))
@@ -224,7 +233,7 @@ def beam_search_inline(
             ns, npk = sort_desc(torch.cat([beam_s, scores], dim=1), torch.cat([beam_p, new_p], dim=1))
             beam_s, beam_p = ns[:, :ef], npk[:, :ef]
 
-    with torch.profiler.record_function("graph_inline.rerank"):
+    with tracing.span("graph_inline.rerank"):
         # the walk's scores are approximate: rerank the candidates exactly (the
         # masked pool, or the beam, whose k-prefix is the unmasked result)
         out_ids = res_p if has_mask else beam_p >> 1

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ..device import to_device
+from ..utils import tracing
 from .adc_cuda import SMEM_LIMIT, adc_scan_tasks, adc_smem_bytes, unpack_codes
 from .ivf_cuda import (
     LIST_ALIGN, f32_scan_tasks, int8_scan_tasks, rbq_scan_tasks, sq_scan_tasks, task_kk, unpack_signs,
@@ -732,21 +733,32 @@ def ivf_scan_search(
 
     # plain full-f32 task scan; blocks shrink for small-list layouts
     chunk = _PLAIN_TASK_CHUNK if store_kind(store) == "raw" else max(32, _DECODE_BYTES // (B * d * 4))
-    tasks = _tasks(q_dev, store, probes, list_offsets, lens_arr, B, Qg, chunk)
+    with tracing.span("ivf_scan.tasks"):
+        tasks = _tasks(q_dev, store, probes, list_offsets, lens_arr, B, Qg, chunk)
     if tasks is None:
         return _empty(nq, k, q_dev.device)
     rs, nr, lid, qids, slots, Tc, S = tasks
-    parts = [
-        _scan_chunk(
-            q_dev, store, rs[c : c + Tc], nr[c : c + Tc], lid[c : c + Tc], qids[c : c + Tc],
-            keep_sorted, B=B, kk=kk, is_l2=is_l2, sq_levels=sq_levels, sq_packed4=sq_packed4,
-            is_jaccard=is_jaccard,
-        )
-        for c in range(0, rs.shape[0], Tc)
-    ]
-    all_s = torch.cat([p[0] for p in parts])
-    all_p = torch.cat([p[1] for p in parts])
-    return _merge_tasks(all_s, all_p, qids, slots, nq=nq, S=S, kk=kk, k=k)
+    with tracing.span("ivf_scan.kernel"):
+        parts = []
+        for c in range(0, rs.shape[0], Tc):
+            _count_tasks(nr[c : c + Tc])
+            parts.append(_scan_chunk(
+                q_dev, store, rs[c : c + Tc], nr[c : c + Tc], lid[c : c + Tc], qids[c : c + Tc],
+                keep_sorted, B=B, kk=kk, is_l2=is_l2, sq_levels=sq_levels, sq_packed4=sq_packed4,
+                is_jaccard=is_jaccard,
+            ))
+    with tracing.span("ivf_scan.merge"):
+        all_s = torch.cat([p[0] for p in parts])
+        all_p = torch.cat([p[1] for p in parts])
+        return _merge_tasks(all_s, all_p, qids, slots, nq=nq, S=S, kk=kk, k=k)
+
+
+def _count_tasks(nrows: torch.Tensor) -> None:
+    """Counters of one scan call's tasks: launched, and those with rows
+    (the static task bound pads the device-built tasks with empty ones)."""
+    if tracing.enabled():
+        tracing.count("ivf_scan.tasks_launched", nrows.shape[0])
+        tracing.count("ivf_scan.tasks_filled", (nrows > 0).sum())
 
 
 def _kernel_chunk(Qg: int, d: int) -> int:
@@ -761,18 +773,22 @@ def _kernel_search(q_dev, store, probes, list_offsets, lens_arr, k, Qg, kk, scan
     valid rows), then the merge."""
     nq, d = q_dev.shape
     B = LIST_ALIGN
-    tasks = _tasks(q_dev, store, probes, list_offsets, lens_arr, B, Qg, _kernel_chunk(Qg, d))
+    with tracing.span("ivf_scan.tasks"):
+        tasks = _tasks(q_dev, store, probes, list_offsets, lens_arr, B, Qg, _kernel_chunk(Qg, d))
     if tasks is None:
         return _empty(nq, k, q_dev.device)
     rs, nr, lid, qids, slots, Tc, S = tasks
-    blk = rs // B
-    s_parts, p_parts = [], []
-    for c in range(0, rs.shape[0], Tc):
-        sl = slice(c, c + Tc)
-        s, p = scan(blk[sl], nr[sl], lid[sl], qids[sl].long().clamp(min=0))
-        s_parts.append(s)
-        p_parts.append(p)
-    return _merge_tasks(torch.cat(s_parts), torch.cat(p_parts), qids, slots, nq=nq, S=S, kk=kk, k=k)
+    with tracing.span("ivf_scan.kernel"):
+        blk = rs // B
+        s_parts, p_parts = [], []
+        for c in range(0, rs.shape[0], Tc):
+            sl = slice(c, c + Tc)
+            _count_tasks(nr[sl])
+            s, p = scan(blk[sl], nr[sl], lid[sl], qids[sl].long().clamp(min=0))
+            s_parts.append(s)
+            p_parts.append(p)
+    with tracing.span("ivf_scan.merge"):
+        return _merge_tasks(torch.cat(s_parts), torch.cat(p_parts), qids, slots, nq=nq, S=S, kk=kk, k=k)
 
 
 def _int8_search(q_dev, store, probes, list_offsets, lens_arr, k, kk, is_l2, Qg, keep_sorted=None):

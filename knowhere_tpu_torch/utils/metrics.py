@@ -8,9 +8,10 @@ registry with the same observation API so the facade never branches.
 
 from __future__ import annotations
 
+import bisect
 import threading
 from collections import defaultdict
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 try:
     import prometheus_client as _prom
@@ -26,11 +27,18 @@ _BUCKETS = (0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1, 5, 10, 30, 60, 300, 600)
 
 
 class _FallbackHistogram:
+    """Counts and sums per bucket (upper bounds ``_BUCKETS``, then +Inf), as
+    a Prometheus histogram keeps them: its size does not grow with the
+    observations."""
+
     def __init__(self) -> None:
-        self.observations: List[float] = []
+        self.counts = [0] * (len(_BUCKETS) + 1)
+        self.sums = [0.0] * (len(_BUCKETS) + 1)
 
     def observe(self, v: float) -> None:
-        self.observations.append(v)
+        b = bisect.bisect_left(_BUCKETS, v)
+        self.counts[b] += 1
+        self.sums[b] += v
 
 
 class _Registry:
@@ -80,12 +88,12 @@ def observe_topk(k: int) -> None:
     _observe("knowhere_torch_search_topk", "requested topk", "", float(k))
 
 
-def get_fallback_observations(metric_name: str, index_type: str) -> List[float]:
-    """Test hook: read back observations when prometheus_client is absent."""
+def get_fallback_buckets(metric_name: str, index_type: str) -> Tuple[List[int], List[float]]:
+    """Test hook: (counts, sums) per bucket when prometheus_client is absent."""
     h = _registry._hists.get(metric_name)
     if h is None or _HAS_PROM:
-        return []
-    return list(h[index_type].observations)
+        return [], []
+    return list(h[index_type].counts), list(h[index_type].sums)
 
 
 def get_observation_count(metric_name: str, index_type: str) -> int:
@@ -94,7 +102,7 @@ def get_observation_count(metric_name: str, index_type: str) -> int:
     if h is None:
         return 0
     if not _HAS_PROM:
-        return len(h[index_type].observations)
+        return sum(h[index_type].counts)
     for s in h.collect()[0].samples:
         if s.name.endswith("_count") and s.labels.get("index_type", index_type) == index_type:
             return int(s.value)
