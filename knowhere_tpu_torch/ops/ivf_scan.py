@@ -767,10 +767,11 @@ def _kernel_chunk(Qg: int, d: int) -> int:
     return max(8, min(16384, (512 << 20) // max(Qg * d * 4, 1)) // 8 * 8)
 
 
-def _kernel_search(q_dev, store, probes, list_offsets, lens_arr, k, Qg, kk, scan):
+def _kernel_search(q_dev, store, probes, list_offsets, lens_arr, k, Qg, kk, scan, count=None):
     """The kernel paths' shared frame: aligned B=LIST_ALIGN tasks, one
     ``scan(blk, nrows, lids, qids)`` call per chunk of tasks (qids clamped to
-    valid rows), then the merge."""
+    valid rows), then the merge. ``count(nrows, qids)``, where given, adds a
+    route's own counters of each call while tracing is on (qids -1 padded)."""
     nq, d = q_dev.shape
     B = LIST_ALIGN
     with tracing.span("ivf_scan.tasks"):
@@ -784,6 +785,8 @@ def _kernel_search(q_dev, store, probes, list_offsets, lens_arr, k, Qg, kk, scan
         for c in range(0, rs.shape[0], Tc):
             sl = slice(c, c + Tc)
             _count_tasks(nr[sl])
+            if count is not None and tracing.enabled():
+                count(nr[sl], qids[sl])
             s, p = scan(blk[sl], nr[sl], lid[sl], qids[sl].long().clamp(min=0))
             s_parts.append(s)
             p_parts.append(p)
@@ -825,6 +828,7 @@ def _adc_search(q_dev, store, probes, list_offsets, lens_arr, k, kk, is_l2, Qg, 
     """PQ ADC scan (kernel: adc_cuda.adc_scan_tasks) over the whole batch;
     q_dev is in the OPQ-rotated frame, the centroid terms use cent_scan."""
     cents = store.get("cent_scan", store["centroids"])
+    m, ksub, _ = store["books"].shape
 
     def scan(blk, nr, lid, safe):
         return adc_scan_tasks(
@@ -832,7 +836,14 @@ def _adc_search(q_dev, store, probes, list_offsets, lens_arr, k, kk, is_l2, Qg, 
             B=LIST_ALIGN, kk=kk, is_l2=is_l2, nib=_nib(store),
         )
 
-    return _kernel_search(q_dev, store, probes, list_offsets, lens_arr, k, Qg, kk, scan)
+    def count(nr, qids):
+        """The launch's table entries, as the kernel builds them (Qg x m x
+        ksub a task it does not skip for nrows = 0), and the lookups of its
+        valid queries (valid queries x nrows x m a task), on the device."""
+        tracing.count("ivf_scan.adc_lut_entries", (nr > 0).sum() * (Qg * m * ksub))
+        tracing.count("ivf_scan.adc_lookups", ((qids >= 0).sum(1) * nr.long()).sum() * m)
+
+    return _kernel_search(q_dev, store, probes, list_offsets, lens_arr, k, Qg, kk, scan, count)
 
 
 def _sq_search(q_dev, store, probes, list_offsets, lens_arr, k, kk, is_l2, Qg, keep_sorted=None, *, levels, three_pass):
