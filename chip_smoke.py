@@ -13,12 +13,13 @@ Run from the root of a checkout on a machine with one CUDA GPU. In order:
    heavy-tie corpus, every position equal; the f32 scan also at the HNSW
    build's per-launch shape, 8,192 tasks at kk=32; FLAT phase 1 also as its
    group-max and select launches apart, beside an f32 yardstick; the ADC
-   scan at every width it compiles, and its shared-memory figure against
-   the wrapper's; the fused scan as its three launches apart, its rescore
-   launch against its own plain version, at k=1024, d=256, d=96, 1,000
-   queries, on an exact tie grid and with empty slots; the inline walk's
-   membership test, graph_fresh, at the HNSW walk's step shape, every
-   output bit for bit);
+   table kernel bit for bit against its plain version's sequential sums,
+   and the ADC scan at SIFT's, GIST's, the nibble and other widths, and its
+   shared-memory figure against the wrapper's; the fused scan as its three
+   launches apart, its rescore launch against its own plain version, at
+   k=1024, d=256, d=96, 1,000 queries, on an exact tie grid and with empty
+   slots; the inline walk's membership test, graph_fresh, at the HNSW
+   walk's step shape, every output bit for bit);
 4. run the main path through the public API on the SIFT1M-like corpus
    (1M x 128 f32, 10,000 queries, seed 0): FLAT exact ground truth, its
    first 1,000 queries' ids held against an independent full-f32 answer
@@ -234,9 +235,9 @@ FLAT_EXACT_TIE = 1e-3
 RECALL_FLOOR = 0.95  # IVF_FLAT recall@10 at nprobe=12 (reference: 0.9585)
 FILTERED_RECALL_FLOOR = 0.90
 F32_PATH_RECALL_FLOOR = 0.95
-# ADC: the kernel and the plain version sum the LUT's f32 products in other
-# orders, so a LUT entry may round to the neighbouring bf16 value: scores
-# agree within 1e-3 relative + 1e-2, positions on >= 99% of slots.
+# ADC: the kernel and the plain version round the same table entries and sum
+# a row's lookups in other orders: scores agree within 1e-3 relative + 1e-2,
+# positions on >= 99% of slots.
 ADC_RTOL, ADC_ATOL, ADC_POS_AGREE = 1e-3, 1e-2, 0.99
 PQ_RECALL_FLOOR = 0.945  # IVF_PQ recall@10 at nprobe=12
 PQ_TPU_ANCHOR = 0.9544  # the JAX package's recall on a TPU (docs/BENCHMARKS.md:16)
@@ -709,9 +710,10 @@ def check_ivf_kernels(dev, n_tasks=4096, n_blocks=2048, Qg=128, d=128):
     return results
 
 
-def _adc_case(g, dev, n_tasks, n_blocks, Qg, d, m, sub, ksub, nlist=1024):
-    """Random ADC inputs at one shape: f32 queries, bf16 books, the bf16 L2
-    CLUT made from them in float64 as the index makes it."""
+def _adc_case(g, dev, n_tasks, n_blocks, Qg, d, m, sub, ksub, nq, nlist=1024):
+    """Random ADC inputs at one shape: nq f32 queries (the last 16 zero)
+    and each task's Qg query ids among them, bf16 books, the bf16 L2 CLUT
+    made from them in float64 as the index makes it."""
     import torch
 
     B = 512
@@ -723,39 +725,70 @@ def _adc_case(g, dev, n_tasks, n_blocks, Qg, d, m, sub, ksub, nlist=1024):
     c3 = cents[:, : m * sub].double().reshape(nlist, m, sub)
     clut = 2.0 * torch.einsum("lms,mvs->lmv", c3, b64) + (b64 * b64).sum(-1)[None]
     clut = clut.float().reshape(nlist, m * ksub).to(torch.bfloat16)
-    q = torch.randn((n_tasks, Qg, d), generator=g, device=dev)
-    return blk, nrows, lids, q, books, clut, cents, n_blocks * B
+    q = torch.randn((nq, d), generator=g, device=dev)
+    q[-16:] = 0  # a padded batch's zero rows: their table entries are signed zeros
+    qids = torch.randint(0, nq, (n_tasks, Qg), generator=g, device=dev, dtype=torch.int32)
+    return blk, nrows, lids, qids, q, books, clut, cents, n_blocks * B
 
 
-def _adc_run(args, kk, is_l2, nib, tol=(ADC_RTOL, ADC_ATOL, ADC_POS_AGREE), **desc):
-    """One ADC case against its plain version, with every empty slot equal
-    (-1e38, -1). The bound counts what the kernel does: an empty task loads
-    nothing and builds no LUT, and a block's code rows are read up to its
-    tasks' largest nrows."""
+def _adc_table(q, books, is_l2) -> tuple:
+    """The table kernel (adc_qtable) against compute_qlut's sequential sums
+    on the card: (its table, {rows, entries, largest ulp gap, entries
+    differing, max_abs_err, ok, ms, plain_ms, bound}). The bound: the
+    queries, books and table once, two f32 FMA chains an entry."""
     import torch
 
     from knowhere_tpu_torch.ops import adc_cuda
 
-    blk, nrows, lids, q, books, clut, cents, codes, mask = args
-    n_tasks, Qg, d = q.shape
+    qtab = adc_cuda.adc_qtable(q, books, is_l2=is_l2)
+    want = adc_cuda.compute_qlut(q, books, is_l2=is_l2)
+    torch.cuda.synchronize()
+    (nq, d), (m, ksub, sub) = q.shape, books.shape
+    line = {**_table_agreement(qtab, want),
+            "ms": time_ms(lambda: adc_cuda.adc_qtable(q, books, is_l2=is_l2), reps=5),
+            "plain_ms": time_ms(lambda: adc_cuda.compute_qlut(q, books, is_l2=is_l2), reps=3),
+            **bound(nq * d * 4 + m * ksub * sub * 2 + qtab.numel() * 4, {"f32": 2 * 2 * qtab.numel() * sub})}
+    return qtab, line
+
+
+def _adc_run(args, kk, is_l2, nib, tol=(ADC_RTOL, ADC_ATOL, ADC_POS_AGREE), **desc):
+    """One ADC case (adc_cases' inputs): its table from the table kernel,
+    held bit for bit against compute_qlut's (_adc_table), then the scan
+    against its plain version on that table, with every empty slot equal
+    (-1e38, -1). Returns (the scan's line, the table's). The scan's bound counts what the kernel does: an empty task
+    loads nothing and rounds no table entry, a block's code rows are read up
+    to its tasks' largest nrows, the table is read once."""
+    import torch
+
+    from knowhere_tpu_torch.ops import adc_cuda
+
+    blk, nrows, lids, qids, q, books, clut, cents, codes, mask = args
+    n_tasks, Qg = qids.shape
+    nq, d = q.shape
     m, ksub, sub = books.shape
     mb = m // 2 if nib else m
+    qtab, table = _adc_table(q, books, is_l2)
+    print("ivf_adc_qtable", json.dumps(dict(desc, m=m, ksub=ksub, sub=sub, is_l2=is_l2, **table)))
+    if not table["ok"]:
+        raise AssertionError(f"the ADC table kernel differs from compute_qlut: {table}")
     live = nrows > 0
     n_live = int(live.sum())
     n_lids = int(torch.unique(lids[live]).numel())
     _, n_rows, side = _task_work(blk, nrows, mask, Qg, kk)
-    nbytes = (_rows_read(blk, nrows) * mb + n_live * (Qg * d * 4 + 4) + m * ksub * sub * 2
+    nbytes = (_rows_read(blk, nrows) * mb + n_live * Qg * 4 + nq * (d + m * ksub) * 4
               + n_lids * (m * ksub * 2 + d * 4) + side)
-    # the LUT of every non-empty task (hi and lo bf16 passes), then m lookups a scored row
-    ops = {"bf16": 2 * 2 * n_live * Qg * m * ksub * sub, "f32": n_rows * Qg * m}
+    # a subtract and a rounding a table entry of every non-empty task, then m lookups a scored row
+    ops = {"f32": n_live * Qg * m * ksub + n_rows * Qg * m}
     return _run_case(
-        "ivf_adc_scan", adc_cuda.adc_scan_tasks, adc_cuda.adc_scan_plain, args,
-        dict(B=512, kk=kk, is_l2=is_l2, nib=nib), *tol, (nbytes, ops), sentinels=True,
-        tasks=n_tasks, d=d, m=m, ksub=ksub, sub=sub, nib=nib, empty_tasks=n_tasks - n_live, **desc,
-    )
+        "ivf_adc_scan", adc_cuda.adc_scan_tasks, adc_cuda.adc_scan_plain,
+        (blk, nrows, lids, qids, q, qtab, clut, cents, codes, mask),
+        dict(m=m, B=512, kk=kk, is_l2=is_l2, nib=nib), *tol, (nbytes, ops), sentinels=True,
+        tasks=n_tasks, d=d, m=m, ksub=ksub, sub=sub, nib=nib, empty_tasks=n_tasks - n_live,
+        qtable_ms=table["ms"], **desc,
+    ), table
 
 
-def _adc_grid(g, dev, m, ksub, sub, d, nlist, n_tasks, Qg, n_codes):
+def _adc_grid(g, dev, m, ksub, sub, d, nlist, nq, n_codes):
     """ADC inputs on a power-of-two grid (queries in {-1/2, 0, 1/2},
     centroids in halves, codebooks in {-1/4, 0, 1/4}, 4 in 5 of them 0,
     codes from 2 codewords a subspace): every LUT entry, sum and base is
@@ -766,7 +799,7 @@ def _adc_grid(g, dev, m, ksub, sub, d, nlist, n_tasks, Qg, n_codes):
     books = torch.randint(-1, 2, (m, ksub, sub), generator=g, device=dev).float() * 0.25
     books = (books * (torch.rand((m, ksub, sub), generator=g, device=dev) < 0.2)).to(torch.bfloat16)
     cents = torch.randint(-2, 3, (nlist, d), generator=g, device=dev).float() * 0.5
-    q = torch.randint(-1, 2, (n_tasks, Qg, d), generator=g, device=dev).float() * 0.5
+    q = torch.randint(-1, 2, (nq, d), generator=g, device=dev).float() * 0.5
     codes = torch.randint(0, 2, (n_codes, m), generator=g, device=dev, dtype=torch.int32).to(torch.uint8)
     b64 = books.double()
     c3 = cents[:, : m * sub].double().reshape(nlist, m, sub)
@@ -774,71 +807,80 @@ def _adc_grid(g, dev, m, ksub, sub, d, nlist, n_tasks, Qg, n_codes):
     return q, books, clut.float().reshape(nlist, m * ksub).to(torch.bfloat16), cents, codes
 
 
-# check_adc_kernel's shapes: (n_tasks, n_blocks, d, m, sub, ksub, nib,
+# check_adc_kernel's shapes: (n_tasks, n_blocks, d, m, sub, ksub, nib, nq,
 # [(kk, mask, is_l2), ...], extras); extras adds the table shape with a
-# quarter of its tasks empty and the exact tie grid. GIST's m=96 codebooks
-# cover 960 of the 1024 padded columns; the last three shapes hold the other
-# widths the kernel compiles (sub 4 and 16) and its run-time width (sub 6).
+# quarter of its tasks empty and the exact tie grid. nq is the table's
+# query rows: the SIFT path's 10,240 padded queries (a 168 MB table, past
+# the L2) and GIST's first scan block of 974 (not a multiple of the table
+# kernel's 16-row blocks). GIST's m=96 codebooks cover 960 of the 1024
+# padded columns; the last three shapes hold other widths (sub 4 and 16,
+# and sub 6: m * sub = 120 of the 128 columns).
 ADC_SHAPES = [
-    (4096, 2048, 128, 16, 8, 256, False, [(16, False, True), (32, True, True), (16, False, False)], True),
-    (4096, 2048, 128, 64, 2, 16, True, [(16, False, True)], False),
-    (512, 256, 1024, 96, 10, 256, False, [(16, False, True), (16, True, True)], False),
-    (512, 256, 128, 32, 4, 256, False, [(16, True, True)], False),
-    (512, 256, 128, 8, 16, 256, False, [(16, True, True)], False),
-    (512, 256, 128, 20, 6, 256, False, [(16, True, True), (32, False, False)], False),
+    (4096, 2048, 128, 16, 8, 256, False, 10_240, [(16, False, True), (32, True, True), (16, False, False)], True),
+    (4096, 2048, 128, 64, 2, 16, True, 2048, [(16, False, True)], False),
+    (512, 256, 1024, 96, 10, 256, False, 974, [(16, False, True), (16, True, True)], False),
+    (512, 256, 128, 32, 4, 256, False, 2048, [(16, True, True)], False),
+    (512, 256, 128, 8, 16, 256, False, 2048, [(16, True, True)], False),
+    (512, 256, 128, 20, 6, 256, False, 2048, [(16, True, True), (32, False, False)], False),
 ]
 
 
 def adc_cases(dev, shapes=ADC_SHAPES):
     """check_adc_kernel's inputs, in order: yields (args, kk, is_l2, nib,
-    desc) for each case of each shape (seeded generators, so adc_ab.py
+    desc) for each case of each shape, args = (blk, nrows, lids, qids, q,
+    books, clut, cents, codes, keep) (seeded generators, so adc_ab.py
     reproduces them)."""
     import torch
 
     g = torch.Generator(device=dev).manual_seed(1)
-    for n_tasks, n_blocks, d, m, sub, ksub, nib, cases, extras in shapes:
-        blk, nrows, lids, q, books, clut, cents, nb_pad = _adc_case(g, dev, n_tasks, n_blocks, 128, d, m, sub, ksub)
+    for n_tasks, n_blocks, d, m, sub, ksub, nib, nq, cases, extras in shapes:
+        blk, nrows, lids, qids, q, books, clut, cents, nb_pad = _adc_case(g, dev, n_tasks, n_blocks, 128, d, m,
+                                                                          sub, ksub, nq=nq)
         mb = m // 2 if nib else m
         codes = torch.randint(0, 256 if nib else ksub, (nb_pad + 2048, mb), generator=g, device=dev,
                               dtype=torch.int32).to(torch.uint8)
         keep = torch.rand(nb_pad + 2048, generator=g, device=dev) < 0.5
         for kk, masked, is_l2 in cases:
-            yield (blk, nrows, lids, q, books, clut, cents, codes, keep if masked else None), kk, is_l2, nib, {}
+            yield (blk, nrows, lids, qids, q, books, clut, cents, codes, keep if masked else None), kk, is_l2, nib, {}
         if not extras:
             continue
         # the table shape with a quarter of the tasks empty (own generators
         # from here: the later shapes keep their inputs)
         nrows_e = nrows.clone()
         nrows_e[::4] = 0
-        yield (blk, nrows_e, lids, q, books, clut, cents, codes, keep), 32, True, nib, {"empty": True}
+        yield (blk, nrows_e, lids, qids, q, books, clut, cents, codes, keep), 32, True, nib, {"empty": True}
         del nrows_e
         g2 = torch.Generator(device=dev).manual_seed(5)
-        qg, books_g, clut_g, cents_g, codes_g = _adc_grid(g2, dev, m, ksub, sub, d, 1024, n_tasks, 128, nb_pad + 2048)
+        qg, books_g, clut_g, cents_g, codes_g = _adc_grid(g2, dev, m, ksub, sub, d, 1024, q.shape[0], nb_pad + 2048)
         for kk, masked, is_l2 in [(32, True, True), (16, False, False)]:
-            args = (blk, nrows, lids, qg, books_g, clut_g, cents_g, codes_g, keep if masked else None)
+            args = (blk, nrows, lids, qids, qg, books_g, clut_g, cents_g, codes_g, keep if masked else None)
             yield args, kk, is_l2, nib, {"ties": True}
         del qg, books_g, clut_g, cents_g, codes_g
 
 
 def check_adc_kernel(dev):
-    """ivf_adc_scan against adc_scan_plain on ADC_SHAPES: the main path's
-    shape (4096 tasks, Qg=128, d=128, m=16, ksub=256; also with a quarter of
-    the tasks empty, and on the exact tie grid with every score and position
-    equal), the 4-bit nibble layout (m=64, ksub=16), the GIST shape (d=1024,
-    m=96, ksub=256, 512 tasks) and the other compiled widths. First the
-    wrapper's shared-memory figure (adc_cuda.adc_smem_bytes, which decides
-    the search's route) against the kernel's own at each shape."""
+    """The ADC kernels on ADC_SHAPES: at each case the table kernel against
+    compute_qlut's sequential sums, bit for bit, and the scan against
+    adc_scan_plain on that table: the main path's shape (4096 tasks, Qg=128,
+    d=128, m=16, ksub=256; also with a quarter of the tasks empty, and on
+    the exact tie grid with every score and position equal), the 4-bit
+    nibble layout (m=64, ksub=16), the GIST shape (d=1024, m=96, ksub=256,
+    512 tasks) and other widths. First the wrapper's shared-memory figure
+    (adc_cuda.adc_smem_bytes, which decides the search's route) against the
+    kernel's own at each shape. Returns (the scan lines, the table lines)."""
     from knowhere_tpu_torch.ops import adc_cuda, cuda_build
 
-    for _, _, _, m, sub, ksub, nib, _, _ in ADC_SHAPES:
-        want = cuda_build.lib().kw_ivf_adc_smem_bytes(m, ksub, sub, int(nib))
-        if adc_cuda.adc_smem_bytes(m, ksub, sub, nib) != want:
-            raise AssertionError(f"adc_smem_bytes({m}, {ksub}, {sub}, {nib}) differs from the kernel's {want}")
-    out = []
+    for _, _, _, m, _, ksub, nib, _, _, _ in ADC_SHAPES:
+        want = cuda_build.lib().kw_ivf_adc_smem_bytes(m, ksub, int(nib))
+        if adc_cuda.adc_smem_bytes(m, ksub, nib) != want:
+            raise AssertionError(f"adc_smem_bytes({m}, {ksub}, {nib}) differs from the kernel's {want}")
+    scans, tables = [], []
     for args, kk, is_l2, nib, desc in adc_cases(dev):
         tol = (0.0, 0.0, 1.0) if desc.get("ties") else (ADC_RTOL, ADC_ATOL, ADC_POS_AGREE)
-        out.append(_adc_run(args, kk, is_l2, nib, tol=tol, **desc))
-    return out
+        scan, table = _adc_run(args, kk, is_l2, nib, tol=tol, **desc)
+        scans.append(scan)
+        tables.append(table)
+    return scans, tables
 
 
 def check_graph_fresh_kernel(dev, nq=10_240, W=6, deg=32, ef=48, n_seed=8, reps=10):
@@ -1755,14 +1797,29 @@ def _held_kernels() -> dict:
     rtol, atol, position agreement, empty slots exactly (-1e38, -1)), the
     tolerances of their own checks in step 3; the f32 scan's over {0,1}
     rows (the binary path), where every product and sum is an exact
-    integer: scores and positions equal."""
+    integer: scores and positions equal. The ADC table (sentinels None)
+    returns one table, held bit for bit against compute_qlut's."""
     from knowhere_tpu_torch.ops import adc_cuda, ivf_cuda
 
     return {
         "ivf_int8_scan": ("int8_scan_tasks", ivf_cuda.int8_scan_plain, INT8_RTOL, 0.0, 1.0, False),
         "ivf_adc_scan": ("adc_scan_tasks", adc_cuda.adc_scan_plain, ADC_RTOL, ADC_ATOL, ADC_POS_AGREE, True),
+        "ivf_adc_qtable": ("adc_qtable", adc_cuda.compute_qlut, 0.0, 0.0, 1.0, None),
         "ivf_f32_scan": ("f32_scan_tasks", ivf_cuda.f32_scan_plain, 0.0, 0.0, 1.0, True),
     }
+
+
+def _table_agreement(got, want) -> dict:
+    """The ADC table kernel's output against compute_qlut's on the same
+    inputs: entries, largest gap in f32 units of the last place, entries
+    that differ, largest absolute error; ok only bit for bit."""
+    import torch
+
+    gap = (got.view(torch.int32).long() - want.view(torch.int32).long()).abs()
+    out = {"rows": int(got.shape[0]), "entries": got.numel(), "max_ulp_gap": int(gap.max()),
+           "entries_differing": int((gap > 0).sum()), "max_abs_err": float((got - want).abs().max())}
+    out["ok"] = out["max_ulp_gap"] == 0
+    return out
 
 
 def _hold_launches(fn, names, limit=None, tol=None):
@@ -1771,8 +1828,8 @@ def _hold_launches(fn, names, limit=None, tol=None):
     if given, replaces their (rtol, atol, position agreement); only the
     first ``limit`` launches of each when given); the first that disagrees
     raises. Returns (fn's output, {name: one agreement a launch, with its
-    tasks, empty tasks, Qg and kk}). The checks sync the host: not for
-    timed calls."""
+    tasks, empty tasks, Qg and kk; the table's with its query rows}). The
+    checks sync the host: not for timed calls."""
     import torch
 
     from knowhere_tpu_torch.ops import ivf_scan
@@ -1789,6 +1846,13 @@ def _hold_launches(fn, names, limit=None, tol=None):
         def call(*args, **kw):
             if limit is not None and len(seen[name]) >= limit:
                 return real[name](*args, **kw)
+            if sentinels is None:
+                got = real[name](*args, **kw)
+                agree = _table_agreement(got, plain(*args, **kw))
+                seen[name].append(agree)
+                if not agree["ok"]:
+                    raise AssertionError(f"{name} differs from compute_qlut on a path launch: {agree}")
+                return got
             s_k, p_k = real[name](*args, **kw)
             s_p, p_p = plain(*args, **kw)
             torch.cuda.synchronize()
@@ -1820,6 +1884,13 @@ def _held_summary(seen: dict) -> dict:
     for name, checks in seen.items():
         if not checks:
             raise AssertionError(f"the held run launched no {name}")
+        if "max_ulp_gap" in checks[0]:  # the ADC table
+            out[name] = {
+                "launches_held": len(checks), "rows": sum(c["rows"] for c in checks),
+                "entries": sum(c["entries"] for c in checks), "max_ulp_gap": max(c["max_ulp_gap"] for c in checks),
+                "max_abs_err": max(c["max_abs_err"] for c in checks),
+            }
+            continue
         out[name] = {
             "launches_held": len(checks), "tasks": sum(c["tasks"] for c in checks),
             "empty_tasks": sum(c["empty_tasks"] for c in checks),
@@ -1834,7 +1905,8 @@ def _held_summary(seen: dict) -> dict:
 def _adc_real_launch(fn) -> dict:
     """One more fn() with the search's ADC launches held against
     adc_scan_plain (_hold_launches: the ADC tolerance, every empty slot
-    exactly (-1e38, -1)); its tasks and those with nrows == 0 (padding of
+    exactly (-1e38, -1)) and its table launches against compute_qlut, bit
+    for bit; its tasks and those with nrows == 0 (padding of
     the device task builder's static bound, which the kernel skips) are
     counted. Its task builder is wrapped to count the query rows of the
     non-empty tasks and those that are padding (qids < 0, scanned as query
@@ -1856,12 +1928,13 @@ def _adc_real_launch(fn) -> dict:
 
     ivf_scan._tasks = counting_tasks
     try:
-        _, held = _hold_launches(fn, ("ivf_adc_scan",))
+        _, held = _hold_launches(fn, ("ivf_adc_qtable", "ivf_adc_scan"))
     finally:
         ivf_scan._tasks = real_tasks
     checks = held["ivf_adc_scan"]
-    if not checks:
-        raise AssertionError("the IVF_PQ search launched no ADC scan")
+    if not checks or not held["ivf_adc_qtable"]:
+        raise AssertionError("the IVF_PQ search launched no ADC table or scan")
+    seen["adc_qtable_vs_compute_qlut"] = _held_summary({"ivf_adc_qtable": held["ivf_adc_qtable"]})["ivf_adc_qtable"]
     seen["adc_tasks"] = sum(c.pop("tasks") for c in checks)
     seen["adc_empty_tasks"] = sum(c.pop("empty_tasks") for c in checks)
     seen["adc_vs_plain"] = checks
@@ -3185,7 +3258,8 @@ def dvr_leg(kt, xb, xq, gt):
     if st != kt.Status.success:
         raise RuntimeError(f"SCANN_DVR Build {st.name}")
     gb = _dev_gb() - gb0
-    (ids, _), held = _hold_launches(lambda: _search(idx, kt, q, DVR_SEARCH), ("ivf_adc_scan",), limit=1)
+    (ids, _), held = _hold_launches(lambda: _search(idx, kt, q, DVR_SEARCH), ("ivf_adc_qtable", "ivf_adc_scan"),
+                                   limit=1)
     fetched = view.fetched
     _, times, med = _warm(lambda: _search(idx, kt, q, DVR_SEARCH), reps=3)
     out["data_view_1m"] = {"build_s": build_s, "device_gb": gb, "recall_at_10": recall_at(ids, gt[:DVR_NQ]),
@@ -3220,7 +3294,8 @@ def dvr_leg(kt, xb, xq, gt):
                 if out["bitset_50_mv"]["filtered_returned"]:
                     failed.append("SCANN_DVR: a filtered id came back under the bitset")
             del idx
-    return out, _held_summary(held)["ivf_adc_scan"], failed
+    summary = _held_summary(held)
+    return out, dict(summary["ivf_adc_scan"], qtable=summary["ivf_adc_qtable"]), failed
 
 
 def faiss_leg(kt, xb, xq):
@@ -3554,7 +3629,7 @@ def range_path(kt, xb, xq, flat, ivf, pq):
         raise AssertionError("IVF_FLAT RangeSearch in small query blocks differs from the default blocks")
     if min(scans) >= len(q):
         raise AssertionError(f"IVF_FLAT RangeSearch at SCAN_BLOCK_BYTES=1 ran no query blocks: {scans}")
-    (p_ids, p_d, p_lims), out["ivf_pq"] = _warm_range(pq, kt, q, icfg, ("ivf_adc_scan",))
+    (p_ids, p_d, p_lims), out["ivf_pq"] = _warm_range(pq, kt, q, icfg, ("ivf_adc_qtable", "ivf_adc_scan"))
     if not _in_window(p_d, radius, p_lims):
         raise AssertionError("IVF_PQ RangeSearch returned a distance outside the window or out of order")
     out["ivf_pq"]["recall"] = _range_recall(_csr_sets(p_ids, p_lims), flat_sets)
@@ -3955,7 +4030,7 @@ def main() -> int:
     print(f"kernels built in {time.perf_counter() - t0:.2f} s (nvcc: {cuda_build.build_seconds})")
 
     ivf_checks = check_ivf_kernels(dev)
-    adc_checks = check_adc_kernel(dev)
+    adc_checks, adc_tables = check_adc_kernel(dev)
     fresh_check = check_graph_fresh_kernel(dev)
     t0 = time.perf_counter()
     xb, xq = gen_corpus(1_000_000, 10_000, 128, seed=0)
@@ -3969,6 +4044,7 @@ def main() -> int:
         "ivf_f32_scan": ivf_cuda.f32_scan_tasks,
         "flat_group_scan": cuda_flat.flat_group_scan,
         "ivf_adc_scan": adc_cuda.adc_scan_tasks,
+        "ivf_adc_qtable": adc_cuda.adc_qtable,
         "ivf_sq_scan": ivf_cuda.sq_scan_tasks,
         "ivf_rbq_scan": ivf_cuda.rbq_scan_tasks,
         "fused_knn_scan": fused_topk.fused_knn_scan,
@@ -3981,11 +4057,12 @@ def main() -> int:
     )
     print("main path:", json.dumps({k: v for k, v in e2e.items() if k != "_index"}))
     launches = {n: counts[n] for n in ("ivf_int8_scan", "ivf_f32_scan", "flat_group_scan")}
-    pq_out, counts = _run_path("ivf_pq path", wrappers, ("ivf_adc_scan",), lambda: pq_path(kt, xb, xq, gt, flat))
+    adc = ("ivf_adc_qtable", "ivf_adc_scan")
+    pq_out, counts = _run_path("ivf_pq path", wrappers, adc, lambda: pq_path(kt, xb, xq, gt, flat))
     print("ivf_pq path:", json.dumps({k: v for k, v in pq_out.items() if k != "_index"}))
-    launches["ivf_adc_scan"] = counts["ivf_adc_scan"]
+    launches.update({n: counts[n] for n in adc})
     range_out, _ = _run_path(
-        "range path", wrappers, ("ivf_int8_scan", "ivf_adc_scan"),
+        "range path", wrappers, ("ivf_int8_scan", *adc),
         lambda: range_path(kt, xb, xq, flat, e2e.pop("_index"), pq_out.pop("_index")),
     )
     print("range path:", json.dumps(range_out))
@@ -4005,7 +4082,7 @@ def main() -> int:
     )
     print("hnsw path:", json.dumps(hnsw_out))
     launches["graph_fresh"] = counts["graph_fresh"]
-    scann_out, _ = _run_path("scann path", wrappers, ("ivf_adc_scan",), lambda: scann_path(kt, xb, xq, gt, flat))
+    scann_out, _ = _run_path("scann path", wrappers, adc, lambda: scann_path(kt, xb, xq, gt, flat))
     print("scann path:", json.dumps(scann_out))
     del flat
     torch.cuda.empty_cache()
@@ -4024,7 +4101,7 @@ def main() -> int:
     if any(counts[n] != calls * blocks for n in parts):
         raise AssertionError(f"fused knn path: {calls} scans of {blocks} query blocks each, launches {counts}")
     launches["fused_knn_scan"] = calls
-    gist_out, _ = _run_path("gist ivf_pq path", wrappers, ("ivf_adc_scan", "flat_group_scan"), lambda: gist_pq_path(kt))
+    gist_out, _ = _run_path("gist ivf_pq path", wrappers, (*adc, "flat_group_scan"), lambda: gist_pq_path(kt))
     print("gist ivf_pq path:", json.dumps(gist_out))
     bin_out, _ = _run_path("binary path", wrappers, ("ivf_f32_scan",), lambda: binary_path(kt, xb, xq))
     print("binary path:", json.dumps(bin_out))
@@ -4045,7 +4122,7 @@ def main() -> int:
     sparse_out, _ = _run_path("sparse path", wrappers, (), lambda: sparse_path(kt))
     print("sparse path:", json.dumps(sparse_out))
     api_out, _ = _run_path(
-        "api and emb_list path", wrappers, ("flat_group_scan", "ivf_int8_scan", "ivf_f32_scan", "ivf_adc_scan"),
+        "api and emb_list path", wrappers, ("flat_group_scan", "ivf_int8_scan", "ivf_f32_scan", *adc),
         lambda: api_emb_list_path(kt, xb, xq, gt),
     )
     print("api and emb_list path:", json.dumps(api_out))
@@ -4081,6 +4158,7 @@ def main() -> int:
         ("ivf_f32_scan", ivf_checks["ivf_f32_scan"]),
         ("flat_group_scan", flat_checks),
         ("ivf_adc_scan", adc_checks),
+        ("ivf_adc_qtable", adc_tables),
         ("ivf_sq_scan", ivf_checks["ivf_sq_scan"]),
         ("ivf_rbq_scan", ivf_checks["ivf_rbq_scan"]),
         ("fused_knn_scan", fused_checks),
@@ -4094,6 +4172,11 @@ def main() -> int:
             "knowhere_tpu_torch/csrc/ivf_adc.cu",
             "knowhere_tpu/ops/ivf_pallas.py:556 and knowhere_tpu/ops/ivf_pallas.py:732",
         ),
+        # the query products those two kernels form inside each task
+        "ivf_adc_qtable": (
+            "knowhere_tpu_torch/csrc/ivf_adc.cu",
+            "knowhere_tpu/ops/ivf_pallas.py:556 and knowhere_tpu/ops/ivf_pallas.py:732",
+        ),
         "ivf_sq_scan": ("knowhere_tpu_torch/csrc/ivf_sq.cu", "knowhere_tpu/ops/ivf_pallas.py:236"),
         "ivf_rbq_scan": ("knowhere_tpu_torch/csrc/ivf_rbq.cu", "knowhere_tpu/ops/ivf_pallas.py:966"),
         "fused_knn_scan": ("knowhere_tpu_torch/csrc/flat_scan.cu", "knowhere_tpu/ops/pallas_topk.py:73"),
@@ -4104,7 +4187,8 @@ def main() -> int:
     # per-task masked top-kk over gathered list blocks, FLAT's top-k of
     # 16-row group maxima, a bf16 top-k scan (a product without the top-k
     # is another function; the fused scan's two-call yardstick is printed in
-    # its kernel lines) or a walk step's row-wise membership test
+    # its kernel lines), a walk step's row-wise membership test or the ADC
+    # table's products summed in ascending feature
     kernels = [
         {
             "name": name, "route": "cuda", "source": meta[name][0], "replaces": meta[name][1],

@@ -130,6 +130,11 @@ UPLOAD_CHUNK_BYTES = 256 << 20
 # block is the whole batch.
 SCAN_BLOCK_BYTES = 2 << 30
 POOL_ENTRY_BYTES = 32  # f32 score + int64 position, and the merge sort's copy of both
+# device bytes of one query block's ADC table (m x ksub f32 a query,
+# ops/ivf_scan._adc_search): a PQ batch whose table would pass it scans in
+# blocks too. Neither the SIFT1M (10,240 x m 16) nor the GIST1M (1,000 x
+# m 96) batch reaches it.
+QTABLE_BYTES = 1 << 30
 # device bytes one step of the rerank may hold: its gathered rows and their
 # temporaries (RefineStore.row_bytes) and those queries' merge pool. At the
 # k=10 searches of a 10,000-query batch (1M x 128, GIST 1,000 x 960) the
@@ -945,12 +950,17 @@ class IvfIndexNode(IndexNode):
         re-scores ``chunk`` queries a step (_refine_chunk). A batch whose
         merge pool would pass SCAN_BLOCK_BYTES scans its first nq rows in
         blocks of whole chunks (at least one), so each query is re-scored in
-        the same step as in one block, and keeps its bits."""
+        the same step as in one block, and keeps its bits. On the ADC route
+        a block's table stays under QTABLE_BYTES as well."""
         pool = pool_bound(plan.route, self._lengths, nprobe, plan.k_scan)
         width = min(plan.k_scan, pool)
         pool_bytes = pool * POOL_ENTRY_BYTES
         chunk = 1 if rerank is None else _refine_chunk(width * rerank[0].row_bytes(), pool_bytes)
-        nqb = max(1, SCAN_BLOCK_BYTES // pool_bytes // chunk) * chunk
+        nqb = SCAN_BLOCK_BYTES // pool_bytes
+        if plan.route == "adc":
+            m, ksub, _ = self._store["books"].shape
+            nqb = min(nqb, QTABLE_BYTES // (m * ksub * 4))
+        nqb = max(1, nqb // chunk) * chunk
         if nqb >= nq:
             return None, width, chunk
         return [(b, min(b + nqb, nq)) for b in range(0, nq, nqb)], width, chunk

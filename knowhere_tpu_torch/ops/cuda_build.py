@@ -47,11 +47,13 @@ _SIGNATURES = {
     # blk, nrows, lids, q, cents, signs, rn, t, keep, out_s, out_p, T, Qg, d,
     # kk, is_l2, three_pass, stream
     "kw_ivf_rbq_scan": [_P] * 11 + [_I] * 6 + [_P],
-    # blk, nrows, lids, q, books, clut, cents, codes, keep, out_s, out_p,
-    # T, Qg, d, m, ksub, sub, kk, is_l2, nib, stream
-    "kw_ivf_adc_scan": [_P] * 11 + [_I] * 9 + [_P],
-    # m, ksub, sub, nib: the kernel's dynamic shared memory of a block
-    "kw_ivf_adc_smem_bytes": [_I] * 4,
+    # blk, nrows, lids, qids, q, qtab, clut, cents, codes, keep, out_s,
+    # out_p, T, Qg, d, m, ksub, kk, is_l2, nib, stream
+    "kw_ivf_adc_scan": [_P] * 12 + [_I] * 8 + [_P],
+    # q, books, out, nq, d, m, ksub, sub, is_l2, stream: the ADC table's query part
+    "kw_ivf_adc_qtable": [_P] * 3 + [_I] * 6 + [_P],
+    # m, ksub, nib: the ADC kernel's dynamic shared memory of a block
+    "kw_ivf_adc_smem_bytes": [_I] * 3,
     # base, nrm, q_op, gmax, nb_pad, nq_pad, d, a, stream
     "kw_flat_group_max": [_P] * 4 + [_I] * 3 + [ctypes.c_float, _P],
     # gmax, n, nq, k, out_v, out_g, stream

@@ -35,7 +35,7 @@ import torch
 
 from ..device import to_device
 from ..utils import tracing
-from .adc_cuda import SMEM_LIMIT, adc_scan_tasks, adc_smem_bytes, unpack_codes
+from .adc_cuda import SMEM_LIMIT, adc_qtable, adc_scan_tasks, adc_smem_bytes, unpack_codes
 from .ivf_cuda import (
     LIST_ALIGN, f32_scan_tasks, int8_scan_tasks, rbq_scan_tasks, sq_scan_tasks, task_kk, unpack_signs,
 )
@@ -565,8 +565,8 @@ def adc_available(store: dict, d: int, k: int, offsets: np.ndarray) -> bool:
     whose shared memory fits."""
     if "books" not in store or d % 128 != 0 or k < 1 or not _aligned(offsets):
         return False
-    m, ksub, sub = store["books"].shape
-    return adc_smem_bytes(m, ksub, sub, _nib(store)) <= SMEM_LIMIT
+    m, ksub, _ = store["books"].shape
+    return adc_smem_bytes(m, ksub, _nib(store)) <= SMEM_LIMIT
 
 
 def sq_available(d: int, code_dim: int, k: int, offsets: np.ndarray, sq_levels: int, sq_packed4: bool,
@@ -763,7 +763,9 @@ def _count_tasks(nrows: torch.Tensor) -> None:
 
 def _kernel_chunk(Qg: int, d: int) -> int:
     """Tasks per kernel call: bounds the gathered (chunk, Qg, d) query groups
-    near 512 MiB as the reference does."""
+    near 512 MiB as the reference does. The ADC route gathers no query
+    groups (its kernel reads q_dev by id): there the bound is only a launch
+    size."""
     return max(8, min(16384, (512 << 20) // max(Qg * d * 4, 1)) // 8 * 8)
 
 
@@ -825,19 +827,26 @@ def _f32_search(q_dev, store, probes, list_offsets, lens_arr, k, kk, is_l2, Qg, 
 
 
 def _adc_search(q_dev, store, probes, list_offsets, lens_arr, k, kk, is_l2, Qg, keep_sorted=None):
-    """PQ ADC scan (kernel: adc_cuda.adc_scan_tasks) over the whole batch;
-    q_dev is in the OPQ-rotated frame, the centroid terms use cent_scan."""
+    """PQ ADC scan (kernels: adc_cuda.adc_qtable, adc_cuda.adc_scan_tasks)
+    over the whole batch; q_dev is in the OPQ-rotated frame, the centroid
+    terms use cent_scan. The table's query part is built once, for every
+    row of q_dev (the caller bounds its size: models/ivf.QTABLE_BYTES), and
+    each launch reads its tasks' rows of it and of q_dev by query id."""
     cents = store.get("cent_scan", store["centroids"])
-    m, ksub, _ = store["books"].shape
+    books = store["books"]
+    m, ksub, _ = books.shape
+    qtab = adc_qtable(q_dev, books, is_l2=is_l2)
+    if tracing.enabled():
+        tracing.count("ivf_scan.adc_qtable_entries", q_dev.shape[0] * m * ksub)
 
     def scan(blk, nr, lid, safe):
         return adc_scan_tasks(
-            blk, nr, lid, q_dev[safe], store["books"], store["clut"], cents, store["codes"], keep_sorted,
-            B=LIST_ALIGN, kk=kk, is_l2=is_l2, nib=_nib(store),
+            blk, nr, lid, safe, q_dev, qtab, store["clut"], cents, store["codes"], keep_sorted,
+            m=m, B=LIST_ALIGN, kk=kk, is_l2=is_l2, nib=_nib(store),
         )
 
     def count(nr, qids):
-        """The launch's table entries, as the kernel builds them (Qg x m x
+        """The launch's table entries, as the kernel rounds them (Qg x m x
         ksub a task it does not skip for nrows = 0), and the lookups of its
         valid queries (valid queries x nrows x m a task), on the device."""
         tracing.count("ivf_scan.adc_lut_entries", (nr > 0).sum() * (Qg * m * ksub))

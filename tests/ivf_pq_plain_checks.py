@@ -9,8 +9,8 @@ refine pass: storage positions and ADC scores, the normal path's own.
 - The ADC pool. For a candidate both pools hold, the port's ADC distance
   (|q|^2 less its scan score) differs from the reference's exact one only by
   the port's bf16 table (ops/adc_cuda.py), a subspace j at a time: the entry
-  2 <q'_j, b> - clut lands on either bf16 neighbour of its f32 sum (one unit:
-  the kernel's tensor-core order may round the other way), the clut term
+  2 <q'_j, b> - clut lands on either bf16 neighbour of its exact value (one
+  unit: it is rounded from sequential f32 sums), the clut term
   2 <c'_j, b> + |b|^2 is rounded to bf16 (half a unit) and the codewords b of
   the query product are bf16 (half a unit each, times 2 |q'_s|). Their sum
   over the m subspaces, plus the f32 arithmetic around it, is the candidate's

@@ -9,8 +9,8 @@ padded to 1,024 columns. tests/ivf_pq_plain_checks.py holds the pool, the ids
 and the distances to the reference's and says why each tolerance is what it
 is; two planted faults (a table without the query's lo part, BF16 refine
 rows) must each fail them. Also: the ADC counters of ops/ivf_scan.py, once a
-launch while tracing is on and never while it is off, and the reference's
-imports.
+launch while tracing is on (the table's once a search) and never while it
+is off, and the reference's imports.
 """
 
 import ast
@@ -24,6 +24,7 @@ from torch.profiler import ProfilerActivity, profile
 
 import knowhere_tpu_torch as ktt
 from ann_bench import data, ivf_pq_plain
+from knowhere_tpu_torch.models import ivf as ivf_mod
 from knowhere_tpu_torch.ops import adc_cuda, ivf_scan
 from knowhere_tpu_torch.ops.distances import DistancePrecision, get_distance_precision, set_distance_precision
 from knowhere_tpu_torch.utils import tracing
@@ -82,8 +83,8 @@ def test_route_is_adc_at_1024_columns(built):
     assert tuple(node._store["books"].shape) == (96, 256, 10)
     assert node._refine_store.data.dtype == torch.float16 and node._refine_store.data.shape[1] == 1024
     assert node._pad_q_host(xq).shape[1] == 1024
-    # 4 subspaces a LUT chunk at ksub 256: 24 chunks over m = 96, inside a block's shared memory
-    assert adc_cuda.adc_smem_bytes(96, 256, 10, False) <= adc_cuda.SMEM_LIMIT
+    # 2 subspaces a table chunk at ksub 256: 48 chunks over m = 96, inside a block's shared memory
+    assert adc_cuda.adc_smem_bytes(96, 256, False) <= adc_cuda.SMEM_LIMIT
 
 
 def test_port_matches_the_plain_reference(built, reference):
@@ -119,7 +120,8 @@ def test_bf16_refine_rows_fail(built, reference, monkeypatch):
 
 def _counted(monkeypatch, idx, xq):
     """The ADC launches of one Search under a CPU profiler, at most 8 tasks a
-    launch, and the ivf_scan.kernel spans' counters."""
+    launch, and the counters of its spans: the table's on its scan call
+    (ivf.scan, built before the launches), the rest on ivf_scan.kernel."""
     launches = []
     real = ivf_scan.adc_scan_tasks
 
@@ -135,7 +137,8 @@ def _counted(monkeypatch, idx, xq):
     counters = collections.Counter()
     for rec in tracing.get_span_log():
         if rec["counters"]:
-            assert rec["name"] == "ivf_scan.kernel"
+            table = set(rec["counters"]) == {"ivf_scan.adc_qtable_entries"}
+            assert rec["name"] == ("ivf.scan" if table else "ivf_scan.kernel")
             counters.update(rec["counters"])
     return launches, counters
 
@@ -152,6 +155,62 @@ def test_adc_counters_once_a_launch(built, monkeypatch):
                                    nprobe=NPROBE, is_l2=True)
     assert counters["ivf_scan.adc_lookups"] == m * int(node._lengths[probes.long().numpy()].sum())
     assert counters["ivf_scan.tasks_launched"] == sum(len(nr) for nr, _ in launches)
+
+
+def test_adc_table_built_and_counted_once_a_search(built, monkeypatch):
+    """One table a search over its query rows (ivf_scan.adc_qtable_entries =
+    rows x m x ksub, once), whatever the number of launches; the per-task
+    counters keep the formula of test_adc_counters_once_a_launch."""
+    idx, _, xq = built
+    tables = []
+    real = ivf_scan.adc_qtable
+
+    def qtable(q, books, **kw):
+        tables.append(q.shape[0])
+        return real(q, books, **kw)
+
+    monkeypatch.setattr(ivf_scan, "adc_qtable", qtable)
+    launches, counters = _counted(monkeypatch, idx, xq)
+    m, ksub = 96, 256
+    assert len(launches) > 1 and tables == [NQ]
+    assert counters["ivf_scan.adc_qtable_entries"] == NQ * m * ksub
+    assert counters["ivf_scan.adc_lut_entries"] == sum(Qg * m * ksub * int((nr > 0).sum()) for nr, Qg in launches)
+
+
+def test_adc_table_bound_scans_in_query_slices(built, monkeypatch):
+    """A batch whose table would pass its bound (models/ivf.QTABLE_BYTES)
+    scans in query blocks of whole refine steps whose tables fit
+    (models/ivf._scan_blocks), with the answers of one block for the whole
+    batch. The refine step is 8 queries on both sides, so each query is
+    re-scored in the same step."""
+    idx, _, xq = built
+    monkeypatch.setattr(ivf_mod, "_refine_chunk", lambda row_bytes, pool_bytes: 8)
+    whole = checks.port_search(idx, xq, SEARCH)
+    tables = []
+    real = ivf_scan.adc_qtable
+
+    def qtable(q, books, **kw):
+        tables.append(q.shape[0])
+        return real(q, books, **kw)
+
+    pools = []
+    real_scan = ivf_mod.ivf_scan_search
+
+    def scan(*args, **kw):
+        pools.append(real_scan(*args, **kw))
+        return pools[-1]
+
+    monkeypatch.setattr(ivf_scan, "adc_qtable", qtable)
+    monkeypatch.setattr(ivf_mod, "QTABLE_BYTES", 28 * 96 * 256 * 4)
+    monkeypatch.setattr(ivf_mod, "ivf_scan_search", scan)
+    sliced = checks.port_search(idx, xq, SEARCH)
+    assert tables == [24, 24, NQ - 48]
+    for a, b in zip(whole[:2], sliced[:2]):  # dists and ids
+        assert torch.equal(a, b)
+    # the pools (scores, positions) the blocks handed the refine
+    width = whole[2].shape[1]
+    for i, w in ((1, whole[2]), (0, whole[3])):
+        assert torch.equal(torch.cat([p[i][:, :width] for p in pools]).to(w.dtype)[:NQ], w)
 
 
 def test_adc_counters_off_count_nothing(built, monkeypatch):

@@ -4,12 +4,14 @@
 refine_k, FAST precision) built and searched through the factory and
 `Index.Search`, as the benchmark's harness does.
 
-- The ADC kernel at the cell's task shape (the first launch of a
-  1,000-query request: SUB 10, 24 LUT chunks of 4 subspaces, d 1,024)
-  against its plain version, `adc_cuda.adc_scan_plain`, on the same inputs:
-  scores within 1e-3 relative + 1e-2, positions equal on 99% of the slots
-  (chip_smoke.py's ADC tolerance: an entry near a bf16 midpoint may round
-  the other way in the kernel's order), the empty slots exactly.
+- The ADC kernels at the cell's shapes: the table kernel
+  (`adc_cuda.adc_qtable`, once a scan call: the query rows of a scan block
+  x 96 x 256 entries) against `adc_cuda.compute_qlut`'s sequential sums, bit for bit;
+  the first scan launch of a 1,000-query request (1,024 tasks of 128 query
+  ids, d 1,024) against its plain version, `adc_cuda.adc_scan_plain`, on
+  the same inputs: scores within 1e-3 relative + 1e-2, positions equal on
+  99% of the slots (chip_smoke.py's ADC tolerance: the sums over the
+  subspaces may run in another order), the empty slots exactly.
 - The whole search against the plain reference (ann_bench/ivf_pq_plain.py)
   on 256 queries of each of 3 seeds, under tests/ivf_pq_plain_checks.py's
   tolerances, the CPU test's (tests/test_torch_gist_ivf_pq.py).
@@ -88,15 +90,21 @@ def test_adc_kernel_at_the_cells_task_shape(built):
     finally:
         ivf_scan.adc_scan_tasks = real
     args, kw, s_k, p_k = held[0]
-    q_task, books = args[3], args[4]
-    assert q_task.shape[1:] == (128, 1024) and tuple(books.shape) == (96, 256, 10)
+    qids, q, qtab = args[3], args[4], args[5]
+    books = idx.node._store["books"]
+    # the query rows of the first scan block (a wide merge pool scans the request in blocks)
+    assert qids.shape[1] == 128 and q.shape[1] == 1024 and tuple(books.shape) == (96, 256, 10)
+    assert qtab.shape == (q.shape[0], 96 * 256)
+    want = adc_cuda.compute_qlut(q, books, is_l2=kw["is_l2"])
+    gap = int((qtab.view(torch.int32).long() - want.view(torch.int32).long()).abs().max())
     s_p, p_p = adc_cuda.adc_scan_plain(*args, **kw)
     torch.cuda.synchronize()
     empty = p_p == -1
     same = int((p_k == p_p).sum()) / p_k.numel()
     err = float((s_k - s_p).abs().max())
-    print(f"adc kernel at the cell's task shape: tasks {q_task.shape[0]}, empty {int((args[1] <= 0).sum())}, "
-          f"max abs error {err}, positions {same}")
+    print(f"adc table: entries {qtab.numel()}, largest ulp gap {gap}; adc kernel at the cell's task shape: "
+          f"tasks {qids.shape[0]}, empty {int((args[1] <= 0).sum())}, max abs error {err}, positions {same}")
+    assert gap == 0
     assert torch.allclose(s_k, s_p, rtol=ADC_RTOL, atol=ADC_ATOL) and same >= ADC_POS_AGREE
     assert torch.equal(p_k == -1, empty) and bool((s_k[empty] == -1e38).all())
 

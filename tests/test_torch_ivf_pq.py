@@ -27,7 +27,7 @@ from knowhere_tpu.ops.ivf_pallas import (
     pallas_adc_tasks_mc,
 )
 from knowhere_tpu.ops.ivf_scan import compute_qlut as jcompute_qlut
-from knowhere_tpu_torch.ops import adc_cuda
+from knowhere_tpu_torch.ops import adc_cuda, ivf_cuda
 from knowhere_tpu_torch.ops import ivf_scan as tscan
 from knowhere_tpu_torch.ops import quant as tquant
 
@@ -183,13 +183,22 @@ def _books_bd(books, d=DIM):
     return jnp.asarray(bd).astype(jnp.bfloat16)
 
 
+def _stored_codes(codes, m, nib):
+    """The port's row-major code layout (nibble-packed for nib)."""
+    return T(np.ascontiguousarray(codes[:, : m // 2] | (codes[:, m // 2 :] << 4) if nib else codes))
+
+
 def _port_adc(books, cents, codes, clut, blk, nrows, q_task, keep, *, kk, is_l2, nib):
+    """The port's scan of the pre-gathered groups q_task: its rows as the
+    batch's queries, each task naming its own, one table for all."""
     m = books.shape[0]
-    stored = codes[:, : m // 2] | (codes[:, m // 2 :] << 4) if nib else codes
+    Tc, Qg, d = q_task.shape
+    q = T(np.ascontiguousarray(q_task.reshape(Tc * Qg, d)))
+    qtab = adc_cuda.adc_qtable(q, T(books).to(torch.bfloat16), is_l2=is_l2)
     s, p = adc_cuda.adc_scan_tasks(
-        T(blk), T(nrows), T(blk.copy()), T(q_task), T(books).to(torch.bfloat16),
-        T(clut).to(torch.bfloat16), T(cents), T(np.ascontiguousarray(stored)),
-        None if keep is None else T(keep), B=LIST_ALIGN, kk=kk, is_l2=is_l2, nib=nib,
+        T(blk), T(nrows), T(blk.copy()), torch.arange(Tc * Qg).reshape(Tc, Qg), q, qtab,
+        T(clut).to(torch.bfloat16), T(cents), _stored_codes(codes, m, nib),
+        None if keep is None else T(keep), m=m, B=LIST_ALIGN, kk=kk, is_l2=is_l2, nib=nib,
     )
     return s.numpy(), p.numpy()
 
@@ -327,36 +336,82 @@ def test_adc_plain_matches_pallas_adc_mc(is_l2, masked):
     _assert_adc_agree(np.asarray(s_j), np.asarray(p_j), s_t, p_t)
 
 
+def _per_task_adc(blk, nrows, lids, q_task, books, clut, cents, codes, keep, *, kk, is_l2, nib):
+    """The scan with each task's table built from its own query rows
+    (compute_qlut a task), less its list's clut row, rounded to bf16."""
+    m, ksub, _ = books.shape
+    B, Tc, Qg = LIST_ALIGN, q_task.shape[0], q_task.shape[1]
+    lut = adc_cuda.compute_qlut(q_task, books, is_l2=is_l2)
+    if is_l2:
+        lut = lut - clut[lids.long()].float()[:, None, :]
+    lut = lut.to(torch.bfloat16).float()
+    rows = blk.long()[:, None] * B + torch.arange(B)[None, :]
+    idx = (adc_cuda.unpack_codes(codes[rows], m, nib) + torch.arange(m) * ksub).reshape(Tc, 1, B * m)
+    acc = torch.gather(lut, 2, idx.expand(-1, Qg, -1)).view(Tc, Qg, B, m).sum(-1)
+    c = cents[lids.long()]
+    qc = (q_task * c[:, None, :]).sum(-1)
+    base = 2.0 * qc - (c * c).sum(-1)[:, None] if is_l2 else qc
+    return ivf_cuda._finish(base[..., None] + acc, blk, nrows, keep, B, kk)
+
+
+@pytest.mark.parametrize(
+    "m,ksub,d,nib,is_l2,masked",
+    [
+        (16, 256, 128, False, True, False),  # SIFT: sub 8
+        (96, 256, 1024, False, True, False),  # GIST: sub 10
+        (64, 16, 128, True, True, False),  # nibbles: sub 2
+        (16, 256, 128, False, False, False),  # IP
+        (16, 256, 128, False, True, True),  # keep-mask
+    ],
+)
+def test_adc_search_table_matches_per_task_tables(m, ksub, d, nib, is_l2, masked):
+    """One table a search (adc_qtable) read by query id gives the scores and
+    positions of a table built a task from the task's gathered queries:
+    every entry of P depends on its query alone. Queries repeat across and
+    within tasks."""
+    rng = np.random.default_rng(21)
+    books, cents, codes, clut, blk, nrows, _ = _adc_inputs(rng, m, ksub, is_l2, d=d)
+    nq, Tc, Qg, kk = 24, blk.shape[0], 16, 10
+    q = T(rng.standard_normal((nq, d)).astype(np.float32))
+    qids = torch.from_numpy(rng.integers(0, nq, (Tc, Qg)))
+    keep = T(rng.random(codes.shape[0]) < 0.5) if masked else None
+    books_t, clut_t, stored = T(books).to(torch.bfloat16), T(clut).to(torch.bfloat16), _stored_codes(codes, m, nib)
+    s, p = adc_cuda.adc_scan_tasks(
+        T(blk), T(nrows), T(blk.copy()), qids, q, adc_cuda.adc_qtable(q, books_t, is_l2=is_l2), clut_t, T(cents),
+        stored, keep, m=m, B=LIST_ALIGN, kk=kk, is_l2=is_l2, nib=nib,
+    )
+    s_t, p_t = _per_task_adc(T(blk), T(nrows), T(blk.copy()), q[qids], books_t, clut_t, T(cents), stored, keep,
+                             kk=kk, is_l2=is_l2, nib=nib)
+    np.testing.assert_array_equal(s.numpy(), s_t.numpy())
+    np.testing.assert_array_equal(p.numpy(), p_t.numpy())
+    assert (p >= 0).all()
+
+
 def test_adc_available_drops_the_lut_cap():
     """The port's ADC kernel takes m * ksub past the TPU's 8192 cap (GIST
     m=96), and declines unaligned stores, d % 128 != 0 and shapes whose
     block does not fit the shared memory. adc_smem_bytes is the kernel's
-    figure: the front (one chunk's query operand image, 2 x 16 rows of K =
-    16 a slab column; the group's LUT chunk, 8 query pairs of (chunk * ksub
-    + 8) words; the chunk's f32 windows, one a subspace), or the
-    selection's scratch (8 warps x 512 f32 scores and u16 columns, 24 KB)
-    where that is larger; then the code rows at an odd-word stride and the
-    task's bf16 clut row. The queries no longer sit in shared memory, so d
-    does not bound it."""
+    figure: 8 warps' two buffers of a 512-entry chunk of their query pair's
+    table rows (64 KB, the selection's scratch over them), then the code
+    rows at an odd-word stride and the task's bf16 clut row. The queries do
+    not sit in shared memory, so d does not bound it."""
     aligned = np.arange(0, 5 * LIST_ALIGN, LIST_ALIGN)
     store = {"books": torch.zeros((96, 256, 10), dtype=torch.bfloat16), "codes": torch.zeros((8, 96), dtype=torch.uint8)}
     assert tscan.adc_available(store, 1024, 10, aligned)
     assert not tscan.adc_available(store, 960, 10, aligned)
     assert not tscan.adc_available(store, 1024, 10, aligned + 1)
     assert tscan.adc_available(store, 2048, 10, aligned)
-    assert tscan.adc_available(store, 3072, 10, aligned)  # 137,488 bytes at any d
+    assert tscan.adc_available(store, 3072, 10, aligned)  # 165,888 bytes at any d
     wide = {"books": torch.zeros((448, 256, 2), dtype=torch.bfloat16), "codes": torch.zeros((8, 448), dtype=torch.uint8)}
     assert not tscan.adc_available(wide, 1024, 10, aligned)  # 512 x 452 code bytes + a 224 KB clut row
-    # SIFT: 4-subspace chunks of 4 slabs each
-    assert adc_cuda.adc_smem_bytes(16, 256, 8, False) == 4 * 16 * 32 * 2 + 8 * (4 * 256 + 8) * 4 + 16 + 512 * 20 + 16 * 256 * 2
-    # GIST: sub 10 pads K to 16
-    assert adc_cuda.adc_smem_bytes(96, 256, 10, False) == (
-        4 * 16 * 32 * 2 + 8 * (4 * 256 + 8) * 4 + 16 + 512 * 100 + 96 * 256 * 2
-    )
-    # 4-bit nibbles: four subspaces a slab, 64-subspace chunks
-    assert adc_cuda.adc_smem_bytes(64, 16, 2, True) == 16 * 16 * 32 * 2 + 8 * (64 * 16 + 8) * 4 + 256 + 512 * 36 + 64 * 16 * 2
-    # a small LUT chunk (m=8, ksub=16) gives way to the scratch
-    assert adc_cuda.adc_smem_bytes(8, 16, 2, False) == 24576 + 512 * 12 + 8 * 16 * 2
+    # SIFT: 16 code bytes a row at a 20-byte stride
+    assert adc_cuda.adc_smem_bytes(16, 256, False) == 65536 + 512 * 20 + 16 * 256 * 2
+    # GIST: 96 code bytes at 100, a 48 KB clut row
+    assert adc_cuda.adc_smem_bytes(96, 256, False) == 65536 + 512 * 100 + 96 * 256 * 2
+    # 4-bit nibbles: 32 code bytes at 36
+    assert adc_cuda.adc_smem_bytes(64, 16, True) == 65536 + 512 * 36 + 64 * 16 * 2
+    # a small table (m=8, ksub=16): the buffers alone hold the selection's 24 KB scratch
+    assert adc_cuda.adc_smem_bytes(8, 16, False) == 65536 + 512 * 12 + 8 * 16 * 2
 
 
 # ---------------------------------------------------------------------------

@@ -159,7 +159,13 @@ def test_ivf_pq_spans_and_counters(ivf_pq, rows):
         launched = _counter(spans, "ivf_scan.tasks_launched")
         filled = _counter(spans, "ivf_scan.tasks_filled")
         assert 0 < filled <= launched
-        assert [s["name"] for s in spans if s["counters"]] == ["ivf_scan.kernel"]
+        # the launches' counters on their span, the ADC table's (built once,
+        # before the launches) on the scan call's
+        assert sorted((s["name"], sorted(s["counters"])) for s in spans if s["counters"]) == [
+            ("ivf.scan", ["ivf_scan.adc_qtable_entries"]),
+            ("ivf_scan.kernel", ["ivf_scan.adc_lookups", "ivf_scan.adc_lut_entries", "ivf_scan.tasks_filled",
+                                 "ivf_scan.tasks_launched"]),
+        ]
 
 
 @pytest.mark.parametrize("case", ["plain", "filtered", "refine"])
