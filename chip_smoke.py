@@ -18,8 +18,10 @@ Run from the root of a checkout on a machine with one CUDA GPU. In order:
    shared-memory figure against the wrapper's; the fused scan as its three
    launches apart, its rescore launch against its own plain version, at
    k=1024, d=256, d=96, 1,000 queries, on an exact tie grid and with empty
-   slots; the inline walk's membership test, graph_fresh, at the HNSW
-   walk's step shape, every output bit for bit);
+   slots; both graph walks' membership test, graph_fresh, at the HNSW
+   walk's step shape and at DISKANN's unrouted ceiling of 1,024 entries
+   (W 8, degree 56, ef 128: ring and beam staged in two chunks), every
+   output bit for bit);
 4. run the main path through the public API on the SIFT1M-like corpus
    (1M x 128 f32, 10,000 queries, seed 0): FLAT exact ground truth, its
    first 1,000 queries' ids held against an independent full-f32 answer
@@ -93,11 +95,13 @@ Run from the root of a checkout on a machine with one CUDA GPU. In order:
    (every result full, every merge's epoch served by the int8 scan, 1,000
    acknowledged rows read back first, final recall@10 within 0.01 of the
    one-shot IVF_FLAT's), then IVF_SQ_CC at 100,000 rows; the graph families
-   path: HNSW over the corpus cast to fp16 at 1M x 128 (HNSW_BUILD, ef=48;
+   path (must launch graph_fresh: its bf16-held stores take the general
+   walk): HNSW over the corpus cast to fp16 at 1M x 128 (HNSW_BUILD, ef=48;
    its kNN graph through the f32 scan, the first launch held against its
    plain version; recall against FLAT over the fp16 values beside the fp32
-   HNSW's, warm search, a 50% bitset, a round trip, fp16 rows read back
-   bit-equal, the store's device GB, feder's overview and walk replay),
+   HNSW's, warm search, a 50% bitset, a round trip whose search holds
+   every graph_fresh launch bit for bit against fresh_step_plain, fp16 rows
+   read back bit-equal, the store's device GB, feder's overview and walk replay),
    then at GRAPH_NB rows: HNSW over bf16 and over int8 rows (recall, round
    trip), binary HNSW over SimHash codes (HAMMING: the IP-ranked f32 build
    route, a launch held exactly, tie-aware recall against BIN_FLAT; JACCARD
@@ -107,12 +111,15 @@ Run from the root of a checkout on a machine with one CUDA GPU. In order:
    of GPU_CUVS_IVF_FLAT (the int8 scan; feder's IVF overview and probes)
    and GPU_CUVS_IVF_PQ (the ADC scan), and KMEANS Train on 1M x 128 at
    1,024 clusters twice (bit-equal) with its Assign held to FLAT's nearest
-   centroid; the diskann path: DISKANN at bench.py's knobs (max_degree 56,
+   centroid; the diskann path (must launch graph_fresh in its walk):
+   DISKANN at bench.py's knobs (max_degree 56,
    search_list_size 128, 32 PQ bytes a row) built off a bin file of the 1M
    x 128 corpus in a temporary directory (its kNN graph through the f32
    scan, the first launch held against its plain version), loaded with no
-   node cache, a BFS cache of a tenth of the rows and every row cached,
-   each searched over the search_list_size ladder 16-256 (recall@10
+   node cache (its warm-up search holding every graph_fresh launch bit for
+   bit against fresh_step_plain),
+   a BFS cache of a tenth of the rows and every row cached, each searched
+   over the search_list_size ladder 16-256 (recall@10
    against the FLAT truth, QPS; the BFS cache's ids equal to no cache's), a
    50% bitset, a 0.96 bitset (the exact disk scan), RangeSearch on 100
    queries, AnnIterator (100 queries x 100 items), GetVectorByIds,
@@ -210,6 +217,9 @@ import time
 from pathlib import Path
 
 import numpy as np
+
+# the H100 SXM peaks and the least-time formula
+from ann_bench.roofline import HBM_BYTES_PER_S, bound_s
 
 ROOT = Path(__file__).resolve().parent
 
@@ -372,10 +382,6 @@ SPARSE_BM25_FLOOR = 0.999  # the TPU anchor is 1.0 at drop 0
 SPARSE_PRUNED_NQ, SPARSE_WINDOW = 256, 32768
 SPARSE_CC_N0, SPARSE_CC_BATCHES, SPARSE_CC_NQ = 150_000, 10, 256
 SPARSE_TIE_RTOL = 1e-5  # two exact engines' ids may differ only between scores this close
-# Published H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W): device
-# memory bytes/s, and operations/s by operand type.
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
 
 
 def gen_corpus(nb, nq, dim, n_clusters=500, intrinsic_dim=48, seed=0, center_scale=(0.9, 1.6)):
@@ -455,10 +461,10 @@ def bound(nbytes: float, ops: dict) -> dict:
     """The least time the card could take for a kernel's work: the larger of
     its bytes (each input read once, each output written once) over the
     memory rate and its operations ({operand type: count}) over the peak
-    rate of their type. Returns {"bound_ms", "bound_by"}."""
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = sum(n / PEAK_OPS_PER_S[kind] for kind, n in ops.items())
-    return {"bound_ms": max(t_bytes, t_ops) * 1e3, "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    rate of their type (ann_bench/roofline.bound_s). Returns {"bound_ms",
+    "bound_by"}."""
+    t = bound_s(nbytes, ops)
+    return {"bound_ms": t * 1e3, "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= t else "operations"}
 
 
 def _task_work(blk, nrows, keep, Qg, kk, B=512):
@@ -884,17 +890,19 @@ def check_adc_kernel(dev):
 
 
 def check_graph_fresh_kernel(dev, nq=10_240, W=6, deg=32, ef=48, n_seed=8, reps=10):
-    """graph_fresh (the inline walk's membership test, csrc/graph_walk.cu)
-    against fresh_step_plain at the HNSW walk's step shape (10,240 rows, G =
-    W x deg = 192, V = 200, ef 48): fresh, the ring, the masked scores and
-    new_p bit for bit, kernel and plain ms, and the byte bound (ids, scores
-    and outputs once). Ids come from a range twice the ring and beam, so
+    """graph_fresh (both walks' membership test, csrc/graph_walk.cu)
+    against fresh_step_plain, by default at the HNSW walk's step shape
+    (10,240 rows, G = W x deg = 192, V = 200, ef 48): fresh, the ring, the
+    masked scores and new_p bit for bit, kernel and plain ms, the byte bound
+    (ids, scores and outputs once) and the shared-memory chunks the ring and
+    beam are staged in. Ids come from a range twice the ring and beam, so
     about half the candidates repeat, sit in the ring or in the beam, as in
     the walk; each timed launch gets its own copy of the ring, whose slot it
     writes."""
     import torch
 
-    from knowhere_tpu_torch.ops import graph_inline as GI
+    from knowhere_tpu_torch.ops import cuda_build
+    from knowhere_tpu_torch.ops.graph import fresh_step, fresh_step_plain
 
     g = np.random.default_rng(5)
     G = W * deg
@@ -908,19 +916,20 @@ def check_graph_fresh_kernel(dev, nq=10_240, W=6, deg=32, ef=48, n_seed=8, reps=
     nbrs, visited, bids = ids((nq, G), 0.05), ids((nq, V), 0.25), ids((nq, ef), 0.1)
     scores = torch.from_numpy(g.standard_normal((nq, G)).astype(np.float32)).to(dev)
     rings = [visited.clone() for _ in range(2 * reps + 4)]
-    out_k = GI.fresh_step(nbrs, rings[0], bids, scores.clone(), n_seed, True)
-    out_p = GI.fresh_step_plain(nbrs, rings[1], bids, scores.clone(), n_seed, True)
+    out_k = fresh_step(nbrs, rings[0], bids, scores.clone(), n_seed, True)
+    out_p = fresh_step_plain(nbrs, rings[1], bids, scores.clone(), n_seed, True)
     torch.cuda.synchronize()
     same = all(torch.equal(a.view(torch.int32) if a.is_floating_point() else a,
                            b.view(torch.int32) if b.is_floating_point() else b)
                for a, b in zip((*out_k, rings[0]), (*out_p, rings[1])))
     fresh_share = float(out_p[0].float().mean())
     it = iter(rings[2:])
-    ms = time_ms(lambda: GI.fresh_step(nbrs, next(it), bids, scores, n_seed, True), reps=reps)
-    plain_ms = time_ms(lambda: GI.fresh_step_plain(nbrs, next(it), bids, scores, n_seed, True), reps=3)
+    ms = time_ms(lambda: fresh_step(nbrs, next(it), bids, scores, n_seed, True), reps=reps)
+    plain_ms = time_ms(lambda: fresh_step_plain(nbrs, next(it), bids, scores, n_seed, True), reps=3)
     nbytes = nq * (4 * (G + V + ef) + 17 * G)
-    line = dict(nq=nq, G=G, V=V, ef=ef, bit_equal=same, fresh_share=fresh_share, max_abs_err=0.0 if same else None,
-                ms=ms, plain_ms=plain_ms, **bound(nbytes, {}))
+    chunks = -(-(V + ef) // cuda_build.lib().kw_graph_fresh_chunk_ids())
+    line = dict(nq=nq, G=G, V=V, ef=ef, n_seed=n_seed, staging_chunks=chunks, bit_equal=same, fresh_share=fresh_share,
+                max_abs_err=0.0 if same else None, ms=ms, plain_ms=plain_ms, **bound(nbytes, {}))
     print("graph_fresh", json.dumps(line))
     if not same:
         raise AssertionError(f"graph_fresh disagrees with fresh_step_plain: {line}")
@@ -1877,6 +1886,52 @@ def _hold_launches(fn, names, limit=None, tol=None):
     return out, seen
 
 
+def _hold_fresh(fn):
+    """fn() with every graph_fresh launch of both walks held against
+    fresh_step_plain on clones of its inputs: fresh, the ring, the masked
+    scores and new_p bit for bit; the first that differs raises, as does a
+    run that launches none. Returns (fn's output, {launches held, their
+    (nq, G, V, ef, dedup) shapes, those whose ring and beam take more than
+    one staging chunk}). The checks sync the host: not for timed calls."""
+    import torch
+
+    from knowhere_tpu_torch.ops import cuda_build, graph, graph_inline
+
+    real, plain = graph.fresh_step, graph.fresh_step_plain
+    chunk = cuda_build.lib().kw_graph_fresh_chunk_ids()
+    seen = {"launches_held": 0, "shapes": set(), "past_one_chunk": 0}
+
+    def bits(t):
+        return t.view(torch.int32) if t.is_floating_point() else t
+
+    def call(nbrs, visited, bids, scores, off, dedup):
+        ring, sc = visited.clone(), scores.clone()
+        want = (*plain(nbrs, ring, bids, sc, off, dedup), ring)
+        got = real(nbrs, visited, bids, scores, off, dedup)
+        nq, G = nbrs.shape
+        V, E = visited.shape[1], bids.shape[1]
+        if not all(torch.equal(bits(a), bits(b)) for a, b in zip((*got, visited), want)):
+            raise AssertionError(f"graph_fresh differs from fresh_step_plain on a path launch: "
+                                 f"nq {nq}, G {G}, V {V}, ef {E}, off {off}, dedup {dedup}")
+        seen["launches_held"] += 1
+        seen["shapes"].add((nq, G, V, E, bool(dedup)))
+        seen["past_one_chunk"] += V + E > chunk
+        return got
+
+    # the real wrapper counts its launches on the name it is called by
+    call.launches = real.launches
+    graph.fresh_step = graph_inline.fresh_step = call
+    try:
+        out = fn()
+    finally:
+        graph.fresh_step = graph_inline.fresh_step = real
+        real.launches = call.launches
+    seen["shapes"] = sorted(seen["shapes"])
+    if not seen["launches_held"]:
+        raise AssertionError("the held run launched no graph_fresh")
+    return out, seen
+
+
 def _held_summary(seen: dict) -> dict:
     """One line a kernel of _hold_launches' agreements; raises if a kernel
     held was not launched."""
@@ -2121,7 +2176,8 @@ def _floor(out, key, floor):
 def graph_families_path(kt, xb, xq, fp32_hnsw_recall):
     """HNSW over the corpus cast to fp16 at 1M x 128 (its kNN graph through
     the f32 scan, the first launch held against f32_scan_plain; the general
-    walk over the bf16-held rows, as the reference serves them), then
+    walk over the bf16-held rows, as the reference serves them, its round
+    trip's graph_fresh launches held bit for bit), then
     GRAPH_NB-row legs: bf16 and int8 HNSW, binary HNSW over SimHash codes
     (above 65,536 rows: the IP-ranked f32 build route, a launch held
     exactly), SVS_VAMANA_LVQ (inline forced, and lean), SVS_VAMANA_LEANVEC,
@@ -2172,8 +2228,9 @@ def graph_families_path(kt, xb, xq, fp32_hnsw_recall):
     if drop[fids[fids >= 0]].any():
         raise AssertionError("fp16 HNSW filtered search returned a filtered id")
     out["fp16_filtered_recall_at_10"] = recall_at(fids, fgt)
-    out["fp16_roundtrip_ids_identical"], _ = _round_trip(
-        kt, idx, "HNSW", "fp16", lambda again: _search(again, kt, xq16, GRAPH_SEARCH)[0], ids)
+    # the reloaded index's search (untimed) holds the general walk's launches
+    (out["fp16_roundtrip_ids_identical"], _), out["fp16_fresh_held"] = _hold_fresh(lambda: _round_trip(
+        kt, idx, "HNSW", "fp16", lambda again: _search(again, kt, xq16, GRAPH_SEARCH)[0], ids))
     sel = np.random.default_rng(4).choice(len(xb), 1000, replace=False)
     got = np.asarray(idx.GetVectorByIds(kt.GenIdsDataSet(sel)).value().tensor)
     out["fp16_get_vector_bit_equal"] = bool(got.dtype == np.float16 and np.array_equal(got.view(np.uint16),
@@ -2402,7 +2459,9 @@ def diskann_path(kt, xb, xq, gt):
     """DISKANN (whose node DISKANN_DEPRECATED shares) and AISAQ through the
     public API (the module docstring, step 11): (1) DISKANN at 1M x 128, its
     build's first f32-scan launch held against f32_scan_plain; three loads
-    (no node cache, a BFS cache of a tenth of the rows, every row cached), each
+    (no node cache, whose warm-up search holds every graph_fresh launch bit
+    for bit against fresh_step_plain; a BFS cache of a tenth of the rows;
+    every row cached), each
     searched over the search_list_size ladder (recall@10 against the FLAT
     truth, QPS), the BFS cache's ids equal to no cache's; a 50% bitset, a
     0.96 bitset (the exact disk scan), RangeSearch, AnnIterator,
@@ -2448,8 +2507,9 @@ def diskann_path(kt, xb, xq, gt):
                 out["bfs_cache_rows"] = int(node._cache_rows.shape[0])
             if (node._refine_store is not None) != (tag == "full_cache"):
                 raise AssertionError(f"diskann {tag}: the node cache is not what the budget asks for")
-            if tag == "no_cache":  # the process's first walk: warm-up
-                _search(idx, kt, xq, {"metric_type": "L2", "k": k, "search_list_size": DISKANN_L})
+            if tag == "no_cache":  # the process's first walk: warm-up, its launches held
+                _, out["warmup_fresh_held"] = _hold_fresh(lambda: _search(
+                    idx, kt, xq, {"metric_type": "L2", "k": k, "search_list_size": DISKANN_L}))
             rungs = {}
             for L in DISKANN_LADDER:
                 (ids, dists), secs = _timed(lambda: _search(idx, kt, xq, {"metric_type": "L2", "k": k,
@@ -4017,7 +4077,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     import knowhere_tpu_torch as kt
-    from knowhere_tpu_torch.ops import adc_cuda, cuda_build, cuda_flat, fused_topk, graph_inline, ivf_cuda
+    from knowhere_tpu_torch.ops import adc_cuda, cuda_build, cuda_flat, fused_topk, graph, ivf_cuda
 
     _no_jax()
     kt.set_device("cuda")
@@ -4032,6 +4092,11 @@ def main() -> int:
     ivf_checks = check_ivf_kernels(dev)
     adc_checks, adc_tables = check_adc_kernel(dev)
     fresh_check = check_graph_fresh_kernel(dev)
+    # the general walk's widest step: DISKANN's unrouted entry ceiling of
+    # 1,024 rows (W 8, degree 56, ef 128), its ring and beam staged in two
+    # chunks, which the held path searches do not reach
+    if check_graph_fresh_kernel(dev, W=8, deg=56, ef=128, n_seed=1024, reps=3)["staging_chunks"] < 2:
+        raise AssertionError("graph_fresh: the wide case fits one staging chunk")
     t0 = time.perf_counter()
     xb, xq = gen_corpus(1_000_000, 10_000, 128, seed=0)
     print(f"corpus 1000000 x 128, 10000 queries, made in {time.perf_counter() - t0:.2f} s")
@@ -4048,7 +4113,7 @@ def main() -> int:
         "ivf_sq_scan": ivf_cuda.sq_scan_tasks,
         "ivf_rbq_scan": ivf_cuda.rbq_scan_tasks,
         "fused_knn_scan": fused_topk.fused_knn_scan,
-        "graph_fresh": graph_inline.fresh_step,
+        "graph_fresh": graph.fresh_step,
     }
     # each kernel's launches are reported from the path that introduced it
     (e2e, flat, gt), counts = _run_path(
@@ -4112,11 +4177,13 @@ def main() -> int:
     )
     print("cc path:", json.dumps(cc_out))
     graph_out, _ = _run_path(
-        "graph families path", wrappers, ("ivf_f32_scan",),
+        "graph families path", wrappers, ("ivf_f32_scan", "graph_fresh"),
         lambda: graph_families_path(kt, xb, xq, hnsw_out["hnsw_recall_at_10"]),
     )
     print("graph families path:", json.dumps(graph_out))
-    disk_out, _ = _run_path("diskann path", wrappers, ("ivf_f32_scan",), lambda: diskann_path(kt, xb, xq, gt))
+    disk_out, _ = _run_path(
+        "diskann path", wrappers, ("ivf_f32_scan", "graph_fresh"), lambda: diskann_path(kt, xb, xq, gt)
+    )
     print("diskann path:", json.dumps(disk_out))
     # the sparse engines are torch ops: the path launches none of the kernels
     sparse_out, _ = _run_path("sparse path", wrappers, (), lambda: sparse_path(kt))
@@ -4128,8 +4195,7 @@ def main() -> int:
     print("api and emb_list path:", json.dumps(api_out))
     # the sharded IVF stores take the plain scan (unaligned per-shard lists,
     # no kernel sidecars), as in the reference: only the FLAT truths, the
-    # SHARDED_HNSW build's kNN graphs and its shards' inline walks launch
-    # kernels
+    # SHARDED_HNSW build's kNN graphs and its shards' walks launch kernels
     sharded_kernels = ("ivf_f32_scan", "flat_group_scan", "graph_fresh")
     sharded_out, counts = _run_path(
         "sharded path", wrappers, sharded_kernels, lambda: sharded_path(kt, xb, xq, gt),
@@ -4180,7 +4246,7 @@ def main() -> int:
         "ivf_sq_scan": ("knowhere_tpu_torch/csrc/ivf_sq.cu", "knowhere_tpu/ops/ivf_pallas.py:236"),
         "ivf_rbq_scan": ("knowhere_tpu_torch/csrc/ivf_rbq.cu", "knowhere_tpu/ops/ivf_pallas.py:966"),
         "fused_knn_scan": ("knowhere_tpu_torch/csrc/flat_scan.cu", "knowhere_tpu/ops/pallas_topk.py:73"),
-        # the JAX walk's membership test is XLA ops (knowhere_tpu/ops/graph_inline.py)
+        # the JAX walks' membership test is XLA ops (knowhere_tpu/ops/graph.py, graph_inline.py)
         "graph_fresh": ("knowhere_tpu_torch/csrc/graph_walk.cu", None),
     }
     # library_ms is null for every kernel: no single PyTorch call computes a

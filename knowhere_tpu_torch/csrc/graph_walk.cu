@@ -1,9 +1,12 @@
-// The membership test of one step of the inline graph walk
-// (ops/graph_inline.py beam_search_inline), for Hopper (sm_90a).
+// The membership test of one step of both graph walks, for Hopper (sm_90a):
+// the inline walk (ops/graph_inline.py beam_search_inline) and the general
+// walk (ops/graph.py beam_search: HNSW over bf16 / fp16 rows or under
+// 100,000 rows, Add after build, DISKANN and AISAQ, SHARDED_HNSW's
+// non-inline shards), both through ops/graph.py fresh_step.
 //
-// graph_fresh replaces no TPU kernel: the JAX walk
-// (knowhere_tpu/ops/graph_inline.py) runs this step as XLA ops, and the
-// port ran it as torch ops that write, each step, an (nq, G, V) bool tensor
+// graph_fresh replaces no TPU kernel: the JAX walks
+// (knowhere_tpu/ops/graph.py, graph_inline.py) run this step as XLA ops, and
+// the port ran it as torch ops that write, each step, an (nq, G, V) bool tensor
 // for the visited ring, an (nq, G, ef) one for the beam and three (nq, G, G)
 // ones for the dedup, each read back once by a reduction, for an answer of
 // one bit a candidate. It was added for that cost: about half of the HNSW

@@ -75,12 +75,6 @@ _BRUTE_QUERY_CHUNK = 4096  # queries per exact-scan step of the fallback
 _TYPED = ("fp16", "bf16", "int8")  # data types whose raw rows keep their width
 
 
-def _compact_ratio() -> float:
-    """beam_search gather compaction (KNOWHERE_GRAPH_COMPACT, default off:
-    measured negative on the reference's chip)."""
-    return float(os.environ.get("KNOWHERE_GRAPH_COMPACT", "1.0"))
-
-
 class BaseHnswConfig(BaseConfig):
     """reference src/index/hnsw/base_hnsw_config.h:28-58 + faiss additions."""
 
@@ -712,7 +706,6 @@ class HnswIndexNode(IndexNode):
                 kind=self._kind, ef=ef, k=k_out, deg=deg, max_iters=max_iters, is_l2=is_l2,
                 is_jaccard=self._internal_metric() == M.JACCARD, has_mask=keep is not None, beam_width=W,
                 route_cents=self._entry_cents_dev, n_seed=n_seed,
-                compact_ratio=_compact_ratio() if W > 1 else 1.0,
             )
             scores_l.append(sc[:n_real])
             ids_l.append(ic[:n_real])

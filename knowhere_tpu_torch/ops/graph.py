@@ -20,10 +20,12 @@ metric but IP, as the reference does.
 
 SEARCH is a batched best-first beam search: per query a beam of ef
 candidates; each step expands the W best unexpanded nodes, gathers their
-neighbors, drops those already in the visited ring or the beam (and, for
-W > 1, repeats within the step), scores the rest (L2, IP, or Jaccard over
-{0,1} rows) and merges them into the beam with one stable sort on
-(-score, payload). Filtered-out nodes are
+neighbors, scores them (L2, IP, or Jaccard over {0,1} rows), drops those
+already in the visited ring or the beam (and, for W > 1, repeats within the
+step) and merges the rest into the beam with one stable sort on
+(-score, payload). That membership test is ``fresh_step``, shared with the
+inline walk (ops/graph_inline.py): the CUDA kernel csrc/graph_walk.cu for
+CUDA tensors, ``fresh_step_plain`` for CPU tensors. Filtered-out nodes are
 walked but never surface (a second, masked result set). The reference's
 ``lax.while_loop`` stops once every query's beam holds no unexpanded node;
 here the loop tests that every 8 steps (one device sync each): a finished
@@ -46,6 +48,7 @@ import torch
 
 from ..device import to_device
 from ..utils import tracing
+from . import cuda_build
 from . import distances as D
 from . import topk as T
 from .topk import topk_leftmost
@@ -78,6 +81,63 @@ def sort_desc(scores: torch.Tensor, payload: torch.Tensor) -> Tuple[torch.Tensor
     larger scores first, equal scores in their original order."""
     ns, order = torch.sort(-scores, dim=1, stable=True)
     return -ns, torch.gather(payload, 1, order)
+
+
+def fresh_step_plain(nbrs, visited, bids, scores, off: int, dedup: bool):
+    """Plain PyTorch version of ``fresh_step``: the broadcast compares of the
+    torch walk. Returns (fresh, scores masked to -inf where not fresh,
+    new_p); writes the ring slot ``visited[:, off:off + G]``."""
+    G = nbrs.shape[1]
+    seen = (nbrs[:, :, None] == visited[:, None, :]).any(dim=2)
+    in_beam = (nbrs[:, :, None] == bids[:, None, :]).any(dim=2)
+    fresh = (nbrs >= 0) & ~seen & ~in_beam
+    if dedup:  # one node may arrive from several parents in a step
+        tri = torch.tril(torch.ones((G, G), dtype=torch.bool, device=nbrs.device), -1)
+        fresh &= ~((nbrs[:, :, None] == nbrs[:, None, :]) & (fresh[:, None, :] & tri[None])).any(dim=2)
+    visited[:, off : off + G] = torch.where(fresh, nbrs, torch.full_like(nbrs, -1))
+    scores = torch.where(fresh, scores, torch.full_like(scores, NEG_INF))
+    new_p = torch.where(fresh, nbrs << 1, torch.full_like(nbrs, -1))
+    return fresh, scores, new_p
+
+
+def fresh_step(
+    nbrs: torch.Tensor,  # (nq, G) int32 candidate ids, -1 where masked
+    visited: torch.Tensor,  # (nq, V) int32 visited ids; slot [off, off + G) is written
+    bids: torch.Tensor,  # (nq, ef) int32 beam ids
+    scores: torch.Tensor,  # (nq, G) f32 candidate scores
+    off: int,
+    dedup: bool,  # beam width > 1: keep the first column of a repeated fresh id
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One walk step's membership test, in both walks (``beam_search`` and
+    graph_inline's ``beam_search_inline``): (fresh (nq, G) bool, scores with
+    -inf where not fresh, new beam words nbrs << 1 or -1), the ring slot
+    written with the fresh ids (-1 elsewhere). For CUDA tensors the kernel
+    (csrc/graph_walk.cu) masks ``scores`` in place and counts the launch;
+    for CPU tensors ``fresh_step_plain`` runs."""
+    if not nbrs.is_cuda:
+        return fresh_step_plain(nbrs, visited, bids, scores, off, dedup)
+    nq, G = nbrs.shape
+    V, E = visited.shape[1], bids.shape[1]
+    if any(t.dtype != torch.int32 for t in (nbrs, visited, bids)) or scores.dtype != torch.float32:
+        raise TypeError("fresh_step takes int32 ids and f32 scores")
+    if visited.shape[0] != nq or bids.shape[0] != nq or scores.shape != (nq, G) or not 0 <= off <= V - G:
+        raise ValueError(f"fresh_step: nbrs {tuple(nbrs.shape)}, visited {tuple(visited.shape)}, "
+                         f"bids {tuple(bids.shape)}, scores {tuple(scores.shape)}, off {off}")
+    if any(t.device != nbrs.device or not t.is_contiguous() for t in (nbrs, visited, bids, scores)):
+        raise ValueError("fresh_step takes contiguous tensors on one CUDA device")
+    fresh = torch.empty((nq, G), dtype=torch.bool, device=nbrs.device)
+    new_p = torch.empty_like(nbrs)
+    p = cuda_build.ptr
+    code = cuda_build.lib().kw_graph_fresh(
+        p(nbrs), p(visited), p(bids), p(scores), p(fresh), p(new_p), nq, G, V, E, off, int(dedup),
+        cuda_build.stream_of(nbrs),
+    )
+    cuda_build.check(code, "graph_fresh")
+    fresh_step.launches += 1
+    return fresh, scores, new_p
+
+
+fresh_step.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -425,7 +485,6 @@ def beam_search(
     beam_width: int = 1,
     route_cents: Optional[torch.Tensor] = None,  # (E, d) k-means centroids
     n_seed: int = 0,
-    compact_ratio: float = 1.0,  # < 1.0 enables gather compaction (W > 1 only)
     ring_cap: int = 256,  # visited-ring slots
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (scores (nq,k) larger-is-better, ids (nq,k) int32, -1 pad);
@@ -476,12 +535,11 @@ def beam_search(
     beam_s, beam_p = sort_desc(beam_s, beam_p)
 
     # visited ring: each step's fresh ids are appended (recent-window once it
-    # wraps); candidates are deduped by one (nq, G, V) equality reduce
+    # wraps); fresh_step tests the candidates against it and the beam
     W = max(1, min(beam_width, ef))
     G_full = W * deg
-    Gc = max(deg, int(G_full * compact_ratio) // 8 * 8) if W > 1 and compact_ratio < 1.0 else G_full
-    n_slots = max(1, min(max_iters, max(ring_cap, Gc) // Gc))
-    visited = torch.cat([ids0, torch.full((nq, n_slots * Gc), -1, dtype=torch.int32, device=dev)], dim=1)
+    n_slots = max(1, min(max_iters, max(ring_cap, G_full) // G_full))
+    visited = torch.cat([ids0, torch.full((nq, n_slots * G_full), -1, dtype=torch.int32, device=dev)], dim=1)
 
     # result top-k (bitset-valid only)
     beam_ids = beam_p >> 1
@@ -499,7 +557,6 @@ def beam_search(
     with tracing.span("graph.walk"):
         done = torch.zeros(nq, dtype=torch.bool, device=dev)
         cols_ef = torch.arange(ef, device=dev)
-        tri = torch.tril(torch.ones((G_full, G_full), dtype=torch.bool, device=dev), -1) if W > 1 else None
         for i in range(max_iters):
             if i and i % DONE_CHECK_STEPS == 0:
                 with tracing.span("graph.done_check", wait=True):
@@ -524,26 +581,11 @@ def beam_search(
             live = torch.repeat_interleave(sel_valid & (sel_id >= 0), deg, dim=1)
             nbrs = torch.where(live, nbrs, torch.full_like(nbrs, -1))
             # visited filter: ring membership + exact membership in the beam (the
-            # beam check keeps a node evicted from the wrapped ring out)
-            seen = (nbrs[:, :, None] == visited[:, None, :]).any(dim=2)
-            in_beam = (nbrs[:, :, None] == beam_ids[:, None, :]).any(dim=2)
-            fresh = (nbrs >= 0) & ~seen & ~in_beam
-            if W > 1:
-                # one node may arrive from several parents in one step: keep the
-                # first occurrence
-                eq = nbrs[:, :, None] == nbrs[:, None, :]
-                fresh &= ~(eq & (fresh[:, None, :] & tri[None])).any(dim=2)
-            if W > 1 and compact_ratio < 1.0:
-                # gather compaction: fresh lanes first (parent-rank order), score
-                # only the first Gc
-                order = torch.sort((~fresh).int(), dim=1, stable=True).indices[:, :Gc]
-                nbrs = torch.gather(nbrs, 1, order)
-                fresh = torch.gather(fresh, 1, order)
-            off = E_eff + (i % n_slots) * Gc
-            visited[:, off : off + Gc] = torch.where(fresh, nbrs, torch.full_like(nbrs, -1))
-
-            nb_scores = score_nodes(torch.where(fresh, nbrs, torch.zeros_like(nbrs)))
-            nb_scores = torch.where(fresh, nb_scores, torch.full_like(nb_scores, NEG_INF))
+            # beam check keeps a node evicted from the wrapped ring out); a
+            # masked lane scores row 0 (decode_rows clamps -1) and is dropped
+            fresh, nb_scores, new_p = fresh_step(
+                nbrs, visited, beam_ids, score_nodes(nbrs), E_eff + (i % n_slots) * G_full, W > 1
+            )
             if has_mask:
                 res_valid = fresh & keep_mask[nbrs.clamp(min=0).long()]
                 rs, ri = sort_desc(
@@ -551,8 +593,7 @@ def beam_search(
                     torch.cat([res_ids, torch.where(res_valid, nbrs, torch.full_like(nbrs, -1))], dim=1),
                 )
                 res_s, res_ids = rs[:, :k], ri[:, :k]
-            cat_p = torch.cat([beam_p, torch.where(fresh, nbrs << 1, torch.full_like(nbrs, -1))], dim=1)
-            ns, npk = sort_desc(torch.cat([beam_s, nb_scores], dim=1), cat_p)
+            ns, npk = sort_desc(torch.cat([beam_s, nb_scores], dim=1), torch.cat([beam_p, new_p], dim=1))
             beam_s, beam_p = ns[:, :ef], npk[:, :ef]
 
     if not has_mask:

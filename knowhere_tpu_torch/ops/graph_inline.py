@@ -19,9 +19,9 @@ floor((x - vmin) / vdiff * levels), a true division; norms sum(x * x) in f32).
 The walk runs its ``n_steps`` with the done test of ops/graph.py every 8
 steps (same results as the reference's early exit). Each step's membership
 test (which candidates are fresh: neither visited, nor in the beam, nor
-repeated from another parent) is ``fresh_step``: the CUDA kernel
-csrc/graph_walk.cu for CUDA tensors, ``fresh_step_plain`` (torch ops) for
-CPU tensors.
+repeated from another parent) is ops/graph.py's ``fresh_step``, which the
+general walk calls too: the CUDA kernel csrc/graph_walk.cu for CUDA tensors,
+``fresh_step_plain`` (torch ops) for CPU tensors.
 """
 
 from __future__ import annotations
@@ -34,8 +34,7 @@ import torch
 
 from ..device import to_device
 from ..utils import tracing
-from . import cuda_build
-from .graph import DONE_CHECK_STEPS, decode_rows, sort_desc
+from .graph import DONE_CHECK_STEPS, decode_rows, fresh_step, sort_desc
 from .quant import lvq_decode
 from .topk import topk_leftmost
 
@@ -105,63 +104,6 @@ def _decoded_scores(kind, q, r0, r1, r2, ids2d: torch.Tensor) -> Tuple[torch.Ten
         store = {"data": r0} if kind == "raw" else {"codes": r0, "codebooks": r1}
         vv = decode_rows(kind, store, ids2d.reshape(-1)).reshape(nq, C, -1)
     return torch.bmm(vv, q[:, :, None])[:, :, 0], (vv * vv).sum(2)
-
-
-def fresh_step_plain(nbrs, visited, bids, scores, off: int, dedup: bool):
-    """Plain PyTorch version of ``fresh_step``: the broadcast compares of the
-    torch walk. Returns (fresh, scores masked to -inf where not fresh,
-    new_p); writes the ring slot ``visited[:, off:off + G]``."""
-    G = nbrs.shape[1]
-    seen = (nbrs[:, :, None] == visited[:, None, :]).any(dim=2)
-    in_beam = (nbrs[:, :, None] == bids[:, None, :]).any(dim=2)
-    fresh = (nbrs >= 0) & ~seen & ~in_beam
-    if dedup:  # one node may arrive from several parents in a step
-        tri = torch.tril(torch.ones((G, G), dtype=torch.bool, device=nbrs.device), -1)
-        fresh &= ~((nbrs[:, :, None] == nbrs[:, None, :]) & (fresh[:, None, :] & tri[None])).any(dim=2)
-    visited[:, off : off + G] = torch.where(fresh, nbrs, torch.full_like(nbrs, -1))
-    scores = torch.where(fresh, scores, torch.full_like(scores, NEG))
-    new_p = torch.where(fresh, nbrs << 1, torch.full_like(nbrs, -1))
-    return fresh, scores, new_p
-
-
-def fresh_step(
-    nbrs: torch.Tensor,  # (nq, G) int32 candidate ids, -1 where masked
-    visited: torch.Tensor,  # (nq, V) int32 visited ids; slot [off, off + G) is written
-    bids: torch.Tensor,  # (nq, ef) int32 beam ids
-    scores: torch.Tensor,  # (nq, G) f32 candidate scores
-    off: int,
-    dedup: bool,  # beam width > 1: keep the first column of a repeated fresh id
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One walk step's membership test: (fresh (nq, G) bool, scores with -inf
-    where not fresh, new beam words nbrs << 1 or -1), the ring slot written
-    with the fresh ids (-1 elsewhere). For CUDA tensors the kernel
-    (csrc/graph_walk.cu) masks ``scores`` in place and counts the launch;
-    for CPU tensors ``fresh_step_plain`` runs."""
-    if not nbrs.is_cuda:
-        return fresh_step_plain(nbrs, visited, bids, scores, off, dedup)
-    nq, G = nbrs.shape
-    V, E = visited.shape[1], bids.shape[1]
-    if any(t.dtype != torch.int32 for t in (nbrs, visited, bids)) or scores.dtype != torch.float32:
-        raise TypeError("fresh_step takes int32 ids and f32 scores")
-    if visited.shape[0] != nq or bids.shape[0] != nq or scores.shape != (nq, G) or not 0 <= off <= V - G:
-        raise ValueError(f"fresh_step: nbrs {tuple(nbrs.shape)}, visited {tuple(visited.shape)}, "
-                         f"bids {tuple(bids.shape)}, scores {tuple(scores.shape)}, off {off}")
-    if any(t.device != nbrs.device or not t.is_contiguous() for t in (nbrs, visited, bids, scores)):
-        raise ValueError("fresh_step takes contiguous tensors on one CUDA device")
-    fresh = torch.empty((nq, G), dtype=torch.bool, device=nbrs.device)
-    new_p = torch.empty_like(nbrs)
-    p = cuda_build.ptr
-    code = cuda_build.lib().kw_graph_fresh(
-        p(nbrs), p(visited), p(bids), p(scores), p(fresh), p(new_p), nq, G, V, E, off, int(dedup),
-        cuda_build.stream_of(nbrs),
-    )
-    cuda_build.check(code, "graph_fresh")
-    fresh_step.launches += 1
-    tracing.count("graph_inline.fresh_kernel", 1)
-    return fresh, scores, new_p
-
-
-fresh_step.launches = 0
 
 
 def beam_search_inline(

@@ -836,8 +836,6 @@ def _adc_search(q_dev, store, probes, list_offsets, lens_arr, k, kk, is_l2, Qg, 
     books = store["books"]
     m, ksub, _ = books.shape
     qtab = adc_qtable(q_dev, books, is_l2=is_l2)
-    if tracing.enabled():
-        tracing.count("ivf_scan.adc_qtable_entries", q_dev.shape[0] * m * ksub)
 
     def scan(blk, nr, lid, safe):
         return adc_scan_tasks(

@@ -1,5 +1,6 @@
 """Graph build and walks: knowhere_tpu_torch/ops/graph.py and graph_inline.py
-against the JAX package (knowhere_tpu/ops/graph.py, graph_inline.py).
+against the JAX package (knowhere_tpu/ops/graph.py, graph_inline.py), and
+the walks' shared membership test (ops/graph.fresh_step).
 
 The same seeded numpy inputs go through both. The corpus and queries are
 snapped to a 1/8 grid in [-8, 8] (two rows pin every dimension's range to
@@ -195,20 +196,19 @@ def _agree(a, b):
 
 
 @pytest.mark.parametrize(
-    "kind,W,masked,routed,compact",
-    [("raw", 1, False, False, 1.0), ("raw", 4, False, True, 1.0), ("raw", 1, True, True, 1.0),
-     ("raw", 4, True, False, 1.0), ("raw", 4, True, True, 0.5), ("sq", 2, False, True, 1.0),
-     ("sq6", 2, True, False, 1.0), ("sq4", 2, False, True, 0.75), ("pq", 2, False, True, 1.0),
-     ("prq", 2, True, True, 1.0)],
+    "kind,W,masked,routed",
+    [("raw", 1, False, False), ("raw", 4, False, True), ("raw", 1, True, True), ("raw", 4, True, False),
+     ("raw", 4, True, True), ("sq", 2, False, True), ("sq6", 2, True, False), ("sq4", 2, False, True),
+     ("pq", 2, False, True), ("prq", 2, True, True)],
 )
-def test_beam_search_matches_jax(corpus, built, kind, W, masked, routed, compact):
+def test_beam_search_matches_jax(corpus, built, kind, W, masked, routed):
     xb, xq = corpus
     metric, graph, entry = built
     is_l2 = metric == "L2"
     js, ts = _stores(xb, kind)
     keep = np.random.default_rng(6).random(NB) >= 0.3
     kw = dict(kind=kind, ef=48, k=10, deg=DEG, max_iters=60, is_l2=is_l2, has_mask=masked, beam_width=W,
-              n_seed=8 if routed else 0, compact_ratio=compact)
+              n_seed=8 if routed else 0)
     cents = xb[entry]  # routing "centroids": each entry's own row
     sj, ij = jgraph.beam_search(jnp.asarray(xq), js, jnp.asarray(graph), jnp.asarray(entry),
                                 jnp.asarray(keep) if masked else None,
@@ -351,12 +351,49 @@ def test_fresh_step_plain_matches_loop(case, W, deg, ef, n_seed, ring_slots, ste
     off = n_seed + (step % ring_slots) * G
     want = _fresh_loop(nbrs, visited, bids, scores, off, W > 1)
     vis_t = T(visited.copy())
-    launches = tinline.fresh_step.launches
-    fresh, sc, new_p = tinline.fresh_step(T(nbrs), vis_t, T(bids), T(scores.copy()), off, W > 1)
-    assert tinline.fresh_step.launches == launches  # CPU tensors: no kernel
+    launches = tgraph.fresh_step.launches
+    fresh, sc, new_p = tgraph.fresh_step(T(nbrs), vis_t, T(bids), T(scores.copy()), off, W > 1)
+    assert tgraph.fresh_step.launches == launches  # CPU tensors: no kernel
     for got, exp in zip((fresh, vis_t, sc, new_p), want):
         np.testing.assert_array_equal(got.numpy(), exp)
     assert fresh.numpy()[0, :2].tolist() == [True, W == 1]
     dup = [(r, j) for r in range(nq) for j in range(G) if nbrs[r, j] >= 0 and nbrs[r, j] in nbrs[r, :j]]
     assert dup and all(not want[0][r, j] for r, j in dup) == (W > 1)
     assert (want[0] & (nbrs >= 0)).any() and ((nbrs >= 0) & ~want[0]).any()
+
+
+def test_general_walk_takes_fresh_step(corpus, monkeypatch):
+    """An HNSW Search on the general walk (a corpus under the inline walk's
+    row floor) makes its membership test through ops/graph.fresh_step, at
+    beam widths 1 and 6 and under a bitset, with the ids and scores of the
+    same Search without the counting wrapper."""
+    xb, xq = corpus
+    idx = ktt.IndexFactory.Instance().Create("HNSW").value()
+    assert idx.Build(ktt.GenDataSetFromArray(xb), {"metric_type": "L2", "M": 8, "efConstruction": 64}).name == "success"
+    assert idx.node._inline is None  # the general walk
+    keep = np.random.default_rng(8).random(NB) >= 0.3
+    bits = ktt.BitsetView(np.packbits(~keep, bitorder="little"), NB, int((~keep).sum()))
+
+    def search():
+        out = []
+        for ef, bs in ((10, None), (48, None), (48, bits)):
+            args = (ktt.GenDataSetFromArray(xq), {"k": 10, "ef": ef}) + ((bs,) if bs is not None else ())
+            res = idx.Search(*args).value()
+            out.append((np.array(res.ids), np.array(res.distance)))
+        return out
+
+    want = search()
+    real, widths = tgraph.fresh_step, []
+
+    def counted(nbrs, visited, bids, scores, off, dedup):
+        widths.append(nbrs.shape[1] // idx.node._graph.shape[1])
+        return real(nbrs, visited, bids, scores, off, dedup)
+
+    monkeypatch.setattr(tgraph, "fresh_step", counted)
+    got = search()
+    assert {1, 6} <= set(widths)
+    for (gi, gd), (wi, wd) in zip(got, want):
+        np.testing.assert_array_equal(gi, wi)
+        np.testing.assert_array_equal(gd, wd)
+    masked_ids = want[2][0]
+    assert keep[masked_ids[masked_ids >= 0]].all()

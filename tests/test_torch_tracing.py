@@ -159,10 +159,8 @@ def test_ivf_pq_spans_and_counters(ivf_pq, rows):
         launched = _counter(spans, "ivf_scan.tasks_launched")
         filled = _counter(spans, "ivf_scan.tasks_filled")
         assert 0 < filled <= launched
-        # the launches' counters on their span, the ADC table's (built once,
-        # before the launches) on the scan call's
+        # the launches' counters on their span
         assert sorted((s["name"], sorted(s["counters"])) for s in spans if s["counters"]) == [
-            ("ivf.scan", ["ivf_scan.adc_qtable_entries"]),
             ("ivf_scan.kernel", ["ivf_scan.adc_lookups", "ivf_scan.adc_lut_entries", "ivf_scan.tasks_filled",
                                  "ivf_scan.tasks_launched"]),
         ]
