@@ -72,6 +72,10 @@ BRUTE_FORCE_FALLBACK_RATIO = 0.9
 # the inline walk serves corpora of at least this many rows unless forced
 INLINE_MIN_ROWS = 100_000
 _BRUTE_QUERY_CHUNK = 4096  # queries per exact-scan step of the fallback
+# the fallback scans only the kept rows when they are at most this share of
+# the stored rows; above it their gathered copy would cost more device
+# memory than the scan it saves
+_BRUTE_COMPACT_SHARE = 0.5
 _TYPED = ("fp16", "bf16", "int8")  # data types whose raw rows keep their width
 
 
@@ -755,22 +759,43 @@ class HnswIndexNode(IndexNode):
         """Exact scan of the stored rows (raw store, else the raw refine
         store, else the decoded codes; LeanVec's raw store is reduced, so its
         refine store), honouring the bitset. HAMMING scans as L2 over the
-        {0,1} rows, as in the reference."""
+        {0,1} rows, as in the reference. A bitset keeping at most
+        _BRUTE_COMPACT_SHARE of the rows scans a gathered copy of the kept
+        rows alone (`ops/topk.knn_device_kept`: the masked scan's answer,
+        ties included); others scan every row masked."""
         metric = self._internal_metric()
         if metric == M.HAMMING:
             metric = M.L2
-        if self._kind == "raw" and self._lv_proj is None:
-            data = self._store["data"]
-        elif self._refine_store is not None and self._refine_store.kind == "raw":
-            data = self._refine_store.data
-        else:
-            data = to_device(self._decode_all())
-        mask = bitset.device_mask(self.Count()) if not bitset.empty_view() else None
-        aux = D.base_aux(metric, data)
-        d_parts, i_parts = [], []
+        n, nq = self.Count(), xq.shape[0]
         with tracing.span("hnsw.brute_force"):
-            for s0 in range(0, xq.shape[0], _BRUTE_QUERY_CHUNK):
-                dd, ii = T.knn_device(to_device(xq[s0 : s0 + _BRUTE_QUERY_CHUNK]), data, k, metric, aux=aux, mask=mask)
+            keep = bitset.host_mask(n) if not bitset.empty_view() else None
+            compact = keep is not None and np.count_nonzero(keep) <= _BRUTE_COMPACT_SHARE * n
+            kept = np.flatnonzero(keep) if compact else None
+            data = None
+            if self._kind == "raw" and self._lv_proj is None:
+                data = self._store["data"]
+            elif self._refine_store is not None and self._refine_store.kind == "raw":
+                data = self._refine_store.data
+            if compact:
+                plan = T.kept_plan(kept, n, k)
+                if data is None:  # only the kept rows cross to the device
+                    data = to_device(np.ascontiguousarray(self._decode_all()[kept]))
+                else:
+                    data = data[to_device(kept)]
+            else:
+                mask = bitset.device_mask(n) if keep is not None else None
+                if data is None:
+                    data = to_device(self._decode_all())
+            aux = D.base_aux(metric, data)
+            tracing.count("hnsw.brute_force_rows_scanned", nq * (kept.size if compact else n))
+            tracing.count("hnsw.brute_force_rows_stored", nq * n)
+            d_parts, i_parts = [], []
+            for s0 in range(0, nq, _BRUTE_QUERY_CHUNK):
+                q = to_device(xq[s0 : s0 + _BRUTE_QUERY_CHUNK])
+                if compact:
+                    dd, ii = T.knn_device_kept(q, data, plan, k, metric, aux=aux)
+                else:
+                    dd, ii = T.knn_device(q, data, k, metric, aux=aux, mask=mask)
                 with tracing.span("hnsw.readback", wait=True):
                     d_parts.append(dd.cpu().numpy())
                     i_parts.append(ii.cpu().numpy().astype(np.int64))

@@ -2,9 +2,11 @@
 knowhere_tpu/ops/topk.py).
 
 FLAT's filtered and small-corpus path, BruteForce's and the IVF pending
-rows'. The base is scanned in tiles; each tile's (nq, tile) score block is
-reduced to its candidates and merged into a running (nq, k) best, so the
-full (nq, nb) matrix is never materialized. Scores are sign-normalized to
+rows'; `knn_device_kept` gives the masked scan's answer from the kept rows
+alone (HNSW's exact fallback under a dense filter). The base is scanned in
+tiles; each tile's (nq, tile) score block is reduced to its candidates and
+merged into a running (nq, k) best, so the full (nq, nb) matrix is never
+materialized. Scores are sign-normalized to
 "larger is better" internally; the wrappers return the metric's native
 convention.
 
@@ -83,6 +85,31 @@ def _tile_candidates(score: torch.Tensor, kk: int, groups: bool, off: int) -> Tu
     return cand.reshape(nq, kk * GROUP), ids.reshape(nq, kk * GROUP)
 
 
+def _tiles(nb: int, tile: int, k: int):
+    """(s0, e0, kk, groups, n_groups) of each tile of the scan over nb rows:
+    a full tile takes the group selection only when its width is a GROUP
+    multiple; the remainder is padded with -inf to a GROUP multiple."""
+    tile = min(tile, max(nb, 1))
+    n_full = nb // tile
+    for s0 in range(0, nb, tile):
+        e0 = min(s0 + tile, nb)
+        width = e0 - s0
+        kk = min(k, width)
+        if s0 < n_full * tile:
+            n_groups = width // GROUP
+            groups = width % GROUP == 0 and kk <= n_groups and n_groups >= 2
+        else:
+            n_groups = -(-width // GROUP)
+            groups = kk <= n_groups and n_groups >= 2
+        yield s0, e0, kk, groups, n_groups
+
+
+def _merge(best_s, best_i, s_t, i_t, k: int):
+    """The top k of the running best followed by a tile's candidates."""
+    top_s, sel = topk_leftmost(torch.cat([best_s, s_t], dim=1), k)
+    return top_s, torch.gather(torch.cat([best_i, i_t], dim=1), 1, sel)
+
+
 def knn_device(
     q: torch.Tensor,
     base: torch.Tensor,
@@ -96,29 +123,88 @@ def knn_device(
     metric_name = metric_name.upper()
     sign = 1.0 if D.larger_is_better(metric_name) else -1.0
     nq, nb = q.shape[0], base.shape[0]
-    tile = min(tile, max(nb, 1))
-    n_full = nb // tile
     best_s = torch.full((nq, k), _NEG_INF, dtype=torch.float32, device=q.device)
     best_i = torch.full((nq, k), -1, dtype=torch.int64, device=q.device)
-    for s0 in range(0, nb, tile):
-        e0 = min(s0 + tile, nb)
+    for s0, e0, kk, groups, n_groups in _tiles(nb, tile, k):
         a = aux[s0:e0] if aux is not None else None
         score = D.pairwise_distance(metric_name, q, base[s0:e0], a) * sign
         if mask is not None:
             score = score.masked_fill(~mask[s0:e0][None, :], _NEG_INF)
-        width = e0 - s0
-        kk = min(k, width)
-        if s0 < n_full * tile:  # a full tile: groups only when its width is a GROUP multiple
-            n_groups = width // GROUP
-            groups = width % GROUP == 0 and kk <= n_groups and n_groups >= 2
-        else:  # the remainder: padded with -inf to a GROUP multiple
-            n_groups = -(-width // GROUP)
-            groups = kk <= n_groups and n_groups >= 2
-            if groups and width % GROUP:
-                score = torch.nn.functional.pad(score, (0, n_groups * GROUP - width), value=_NEG_INF)
+        if groups and n_groups * GROUP > e0 - s0:  # the remainder, padded with -inf
+            score = torch.nn.functional.pad(score, (0, n_groups * GROUP - (e0 - s0)), value=_NEG_INF)
         s_t, i_t = _tile_candidates(score, kk, groups, s0)
-        top_s, sel = topk_leftmost(torch.cat([best_s, s_t], dim=1), k)
-        best_s, best_i = top_s, torch.gather(torch.cat([best_i, i_t], dim=1), 1, sel)
+        best_s, best_i = _merge(best_s, best_i, s_t, i_t, k)
+    best_i = torch.where(best_s == _NEG_INF, torch.full_like(best_i, -1), best_i)
+    return best_s * sign, best_i
+
+
+def kept_plan(kept: np.ndarray, nb: int, k: int, tile: int = DEFAULT_TILE) -> list:
+    """The tiles of knn_device's scan over nb rows under a mask that keeps
+    the rows at ``kept`` (ascending), for `knn_device_kept` over those rows
+    alone: (a, b, kk, slot, ids) for each tile holding a kept row, whose
+    kept rows are ``rows[a:b]``. A group-selection tile lays its nonempty
+    groups out as (groups, L) slots, L the most kept rows a group holds:
+    ``slot`` the local row of each (b - a where the group has no more),
+    ``ids`` its row id (-1 there). Other tiles give slot None and ids the
+    kept ids. A tile with no kept row is left out: the masked scan merges
+    only -inf from it, which leaves the running best as it was."""
+    kept = np.asarray(kept, np.int64)
+    plan = []
+    for s0, e0, kk, groups, _ in _tiles(nb, tile, k):
+        a, b = (int(i) for i in np.searchsorted(kept, [s0, e0]))
+        if a == b:
+            continue
+        pos = kept[a:b]
+        if not groups:
+            plan.append((a, b, kk, None, to_device(pos)))
+            continue
+        grp = (pos - s0) // GROUP
+        starts = np.flatnonzero(np.r_[True, grp[1:] != grp[:-1]])
+        counts = np.diff(np.r_[starts, b - a])
+        run = np.repeat(np.arange(starts.size), counts)
+        col = np.arange(b - a) - starts[run]
+        slot = np.full((starts.size, int(counts.max())), b - a, np.int64)
+        ids = np.full(slot.shape, -1, np.int64)
+        slot[run, col] = np.arange(b - a)
+        ids[run, col] = pos
+        plan.append((a, b, kk, to_device(slot), to_device(ids)))
+    return plan
+
+
+def knn_device_kept(
+    q: torch.Tensor,
+    rows: torch.Tensor,
+    plan: list,
+    k: int,
+    metric_name: str,
+    aux: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """knn_device(q, base, k, metric_name, aux, mask) where ``rows`` (and
+    ``aux``) hold only the rows the mask keeps, in ascending id order, and
+    ``plan`` is `kept_plan` of their ids: the same answer, ties included,
+    from the kept rows' scores alone. A group-selection tile ranks its
+    nonempty groups by their kept rows' maximum (a masked row scores -inf,
+    so an empty group ranks after them, and adds only -inf), and gives the
+    kept rows of its kk best in the masked scan's order: by group rank,
+    then by id."""
+    metric_name = metric_name.upper()
+    sign = 1.0 if D.larger_is_better(metric_name) else -1.0
+    nq = q.shape[0]
+    best_s = torch.full((nq, k), _NEG_INF, dtype=torch.float32, device=q.device)
+    best_i = torch.full((nq, k), -1, dtype=torch.int64, device=q.device)
+    for a, b, kk, slot, ids in plan:
+        score = D.pairwise_distance(metric_name, q, rows[a:b], aux[a:b] if aux is not None else None) * sign
+        if slot is None:
+            s_t, i_t = topk_leftmost(score, min(kk, b - a))
+            i_t = ids[i_t]
+        else:
+            n_grp, width = slot.shape
+            score = torch.nn.functional.pad(score, (0, 1), value=_NEG_INF)  # column b - a: -inf
+            blk = score.index_select(1, slot.reshape(-1)).reshape(nq, n_grp, width)
+            _, g_i = topk_leftmost(blk.amax(dim=2), min(kk, n_grp))
+            s_t = torch.gather(blk, 1, g_i[:, :, None].expand(-1, -1, width)).reshape(nq, -1)
+            i_t = ids[g_i].reshape(nq, -1)
+        best_s, best_i = _merge(best_s, best_i, s_t, i_t, k)
     best_i = torch.where(best_s == _NEG_INF, torch.full_like(best_i, -1), best_i)
     return best_s * sign, best_i
 

@@ -122,6 +122,135 @@ def test_dense_filter_brute_force_fallback(base, queries, hnsw_l2):
     assert knn_recall(brute_force_gt(base, queries, "L2", K, bs)[0], ids, NQ, K) >= 0.99
 
 
+# ---------------------------------------------------------------------------
+# the exact fallback: the kept rows' scan against the masked scan of every row
+# ---------------------------------------------------------------------------
+
+FB_NB, FB_NQ, FB_DIM, FB_BITS = 3000, 12, 32, 64
+FB_INDEXES = {  # kind -> (metric, ids and distances bit for bit)
+    "grid-L2": ("L2", True), "grid-IP": ("IP", True),  # integer rows: exact products
+    "normal-L2": ("L2", False), "normal-IP": ("IP", False), "normal-COSINE": ("COSINE", False),
+    "binary-HAMMING": ("HAMMING", True),  # 64-bit codes: integer distances, many ties
+}
+FB_KEPT = ["1%", "10%", "60%", "3 rows", "none", "10% id_offset", "10% out_ids"]
+
+
+@pytest.fixture(scope="module")
+def fallback_indexes():
+    built = {}
+
+    def get(kind):
+        if kind not in built:
+            rng = np.random.default_rng(sum(map(ord, kind)))
+            metric = FB_INDEXES[kind][0]
+            if kind.startswith("binary"):
+                xb, xq = (rng.integers(0, 256, (n, FB_BITS // 8)).astype(np.uint8) for n in (FB_NB, FB_NQ))
+                idx = ktt.IndexFactory.Instance().Create("HNSW", data_type="bin1").value()
+                mk = lambda a: ktt.GenDataSet(len(a), FB_BITS, a)  # noqa: E731
+            else:
+                draw = (lambda n: rng.integers(-4, 5, (n, FB_DIM))) if kind.startswith("grid") else (
+                    lambda n: rng.standard_normal((n, FB_DIM)))
+                xb, xq = (draw(n).astype(np.float32) for n in (FB_NB, FB_NQ))
+                idx = ktt.IndexFactory.Instance().Create("HNSW").value()
+                mk = ds
+            assert idx.Build(mk(xb), {"metric_type": metric, "M": 8, "efConstruction": 32}) == ktt.Status.success
+            built[kind] = idx.node, idx.node._prep_rows(np.asarray(mk(xq).tensor))
+        return built[kind]
+
+    return get
+
+
+def _fallback_bitset(case, n, rng):
+    """(bitset, keep-mask over the n rows) of a FB_KEPT case."""
+    share = {"1%": 0.01, "10%": 0.1, "60%": 0.6}.get(case.split()[0], 0.0)
+    keep = rng.random(n) < share
+    if case == "3 rows":
+        keep[rng.choice(n, 3, replace=False)] = True
+    if case.endswith("id_offset"):  # the node's rows are bits [off, off + n) of a longer bitset
+        off = 777
+        bs = ktt.BitsetView.from_bool_array(np.r_[rng.random(off) < 0.5, ~keep])
+        bs.set_id_offset(off)
+    elif case.endswith("out_ids"):  # the bitset is indexed by external id
+        out_ids = rng.permutation(n)
+        ext_filtered = np.empty(n, bool)
+        ext_filtered[out_ids] = ~keep
+        bs = ktt.BitsetView.from_bool_array(ext_filtered)
+        bs.set_out_ids(out_ids)
+    else:
+        bs = ktt.BitsetView.from_bool_array(~keep)
+    np.testing.assert_array_equal(bs.host_mask(n), keep)
+    return bs, keep
+
+
+@pytest.mark.parametrize("case", FB_KEPT)
+@pytest.mark.parametrize("kind", list(FB_INDEXES))
+def test_brute_force_fallback_matches_the_masked_scan(monkeypatch, fallback_indexes, kind, case):
+    """The fallback against knn_device over every stored row under the
+    keep-mask: kept shares of at most one half scan the kept rows alone,
+    above it every row masked; fewer kept rows than k pad with -1 and the
+    metric's worst distance. Ids and distances are equal where the products
+    are exact (integer rows, {0,1} planes: ties included); elsewhere the
+    distances agree to 1e-6 relative."""
+    from knowhere_tpu_torch.ops import distances as D
+    from knowhere_tpu_torch.ops import topk as T
+
+    node, xq = fallback_indexes(kind)
+    bs, keep = _fallback_bitset(case, FB_NB, np.random.default_rng(FB_KEPT.index(case)))
+    compacted = []
+    kept_scan = T.knn_device_kept
+    monkeypatch.setattr(T, "knn_device_kept", lambda *a, **kw: (compacted.append(1), kept_scan(*a, **kw))[1])
+    got_d, got_i = node._brute_force(xq, K, bs)
+    assert bool(compacted) == (keep.sum() <= FB_NB // 2)
+
+    metric = "L2" if node._internal_metric() == "HAMMING" else node._internal_metric()
+    data = node._store["data"]
+    want_d, want_i = T.knn_device(torch.from_numpy(xq), data, K, metric, aux=D.base_aux(metric, data),
+                                  mask=torch.from_numpy(keep))
+    want_d, want_i = want_d.numpy(), want_i.numpy()
+    n_found = min(K, int(keep.sum()))
+    assert ((got_i >= 0).sum(1) == n_found).all() and keep[got_i[got_i >= 0]].all()
+    worst = -np.inf if D.larger_is_better(metric) else np.inf
+    np.testing.assert_array_equal(got_d[got_i < 0], worst)
+    if FB_INDEXES[kind][1]:
+        np.testing.assert_array_equal(got_i, want_i)
+        np.testing.assert_array_equal(got_d, want_d)
+    else:
+        np.testing.assert_array_equal(got_i < 0, want_i < 0)
+        found = got_i >= 0
+        scale = np.abs(want_d[found]).max(initial=1)
+        np.testing.assert_allclose(got_d[found], want_d[found], rtol=1e-6, atol=1e-6 * scale)
+
+
+@pytest.mark.parametrize("tile", [64, 200, 256, 131072])
+def test_kept_scan_is_the_masked_scan_ties_included(tile):
+    """knn_device_kept over the kept rows gives knn_device's masked answer
+    slot for slot, over several tiles, on {0,1} rows whose integer scores
+    tie heavily; and where the group selection ranks a higher id first (a
+    tied row in a group of larger maximum), it ranks it first too."""
+    from knowhere_tpu_torch.ops import distances as D
+    from knowhere_tpu_torch.ops import topk as T
+
+    rng = np.random.default_rng(tile)
+    x = torch.from_numpy(rng.integers(0, 2, (2000, 6)).astype(np.float32))
+    q = torch.from_numpy(rng.integers(0, 2, (7, 6)).astype(np.float32))
+    for share, k, metric in [(0.01, 10, "L2"), (0.05, 40, "IP"), (0.3, 1, "L2"), (0.5, 64, "COSINE")]:
+        keep = rng.random(len(x)) < share
+        keep[1000:1000 + int(rng.integers(0, 300))] = True  # a run of whole groups
+        kept = np.flatnonzero(keep)
+        want = T.knn_device(q, x, k, metric, aux=D.base_aux(metric, x), mask=torch.from_numpy(keep), tile=tile)
+        rows = x[torch.from_numpy(kept)]
+        got = T.knn_device_kept(q, rows, T.kept_plan(kept, len(x), k, tile), k, metric, aux=D.base_aux(metric, rows))
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    # IP scores: row 64's group has the larger maximum, so its tie 65 beats row 0
+    x = torch.full((256, 1), -100.0)
+    x[[0, 64, 65, 128, 192], 0] = torch.tensor([3.0, 5.0, 3.0, 1.0, 1.0])
+    kept = np.array([0, 64, 65, 128, 192])
+    got = T.knn_device_kept(torch.ones((1, 1)), x[kept], T.kept_plan(kept, 256, 2, tile), 2, "IP")
+    want = T.knn_device(torch.ones((1, 1)), x, 2, "IP", mask=torch.from_numpy(np.isin(np.arange(256), kept)),
+                        tile=tile)
+    assert torch.equal(got[1], want[1]) and (tile < 256 or got[1].tolist() == [[64, 65]])
+
+
 def test_ef_defaults_from_k(queries, hnsw_l2):
     ids = ids_of(hnsw_l2.Search(queries, {"metric_type": "L2", "k": 50}), NQ, 50)
     assert (ids[:, 0] >= 0).all()

@@ -182,8 +182,12 @@ def test_hnsw_spans_and_counters(hnsw, rows, case):
     expected = {"plain": HNSW_SPANS, "filtered": HNSW_FILTERED_SPANS, "refine": HNSW_REFINE_SPANS}[case]
     (spans,) = _check_requests(log, expected, 1).values()
     assert set(expected) <= events
-    if case == "filtered":
-        assert not any(s["counters"] for s in spans)
+    if case == "filtered":  # the fallback scans the 1% kept rows alone
+        n, nq = idx.Count(), len(rows[1])
+        assert [(s["name"], s["counters"]) for s in spans if s["counters"]] == [
+            ("hnsw.brute_force", {"hnsw.brute_force_rows_scanned": nq * (n - int(drop.sum())),
+                                  "hnsw.brute_force_rows_stored": nq * n}),
+        ]
         return
     (walk,) = [s for s in spans if s["name"] == "graph_inline.walk"]
     c = walk["counters"]
@@ -192,6 +196,26 @@ def test_hnsw_spans_and_counters(hnsw, rows, case):
     steps, rest = divmod(c["graph_inline.scored"], n_rows * W * idx.node._inline.deg)
     assert rest == 0 and steps >= 9  # whole steps, past the first done check
     assert 0 < c["graph_inline.fresh"] <= c["graph_inline.scored"]
+
+
+@pytest.mark.parametrize("kept_share", [0.01, 0.5, 0.8])
+def test_brute_force_counters_under_an_exporter(hnsw, rows, kept_share):
+    """Set by init_telemetry alone, the fallback's counters count queries x
+    rows scanned (the kept rows where they are at most half, else every
+    row) and queries x stored rows; off, they count nothing."""
+    node = hnsw[0].node
+    n, nq = node.Count(), len(rows[1])
+    n_kept = int(kept_share * n)
+    drop = np.arange(n) >= n_kept
+    bitset = ktt.BitsetView(np.packbits(drop, bitorder="little"), n, int(drop.sum()))
+    off = node._brute_force(rows[1], 10, bitset)
+    assert tracing.get_span_log() == []
+    tracing.init_telemetry(tracing.TraceConfig(exporter="stdout"))
+    on = node._brute_force(rows[1], 10, bitset)
+    counters = [s["counters"] for s in tracing.get_span_log() if s["name"] == "hnsw.brute_force"]
+    assert counters == [{"hnsw.brute_force_rows_scanned": nq * (n_kept if kept_share <= 0.5 else n),
+                         "hnsw.brute_force_rows_stored": nq * n}]
+    np.testing.assert_array_equal(on[1], off[1])
 
 
 def test_counters_sum_host_and_device_values():
